@@ -1,0 +1,34 @@
+"""Classifier-free guidance (port of gcd_tpu/diffusion/guiders.py)."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from gcd_tpu_torch.diffusion.denoiser import _append_dims
+
+COND_KEYS = ("vector", "crossattn", "concat")
+
+
+class LinearPredictionGuider:
+    """Per-frame CFG: scale linspace(min_scale, max_scale) over the T frames.
+    The doubled batch is cat([uc, c]), uc first."""
+
+    def __init__(self, max_scale: float, num_frames: int, min_scale: float = 1.0):
+        self.num_frames = int(num_frames)
+        self.scale = np.linspace(min_scale, max_scale, num_frames).astype(np.float32)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x_u, x_c = x.chunk(2, dim=0)
+        t = self.num_frames
+        shape = (x_u.shape[0] // t, t) + tuple(x_u.shape[1:])
+        x_u, x_c = x_u.reshape(shape), x_c.reshape(shape)
+        scale = _append_dims(torch.from_numpy(self.scale).to(x.device)[None], x_u.dim())
+        out = x_u + scale.to(x_u.dtype) * (x_c - x_u)
+        return out.reshape(x.shape[0] // 2, *x.shape[1:])
+
+    def prepare_inputs(self, x: torch.Tensor, s: torch.Tensor, c: Dict, uc: Dict):
+        cond = {k: torch.cat([uc[k], c[k]], dim=0) if k in COND_KEYS else c[k] for k in c}
+        return torch.cat([x, x], dim=0), torch.cat([s, s], dim=0), cond

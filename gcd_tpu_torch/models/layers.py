@@ -1,0 +1,111 @@
+"""Core building blocks (port of gcd_tpu/models/layers.py).
+
+Layout is torch's: images (N, C, H, W), videos (B, C, T, H, W), tokens
+(N, S, C). Matmuls and convs run in the parameter dtype (bf16 on the card);
+GroupNorm and LayerNorm reduce in fp32 and cast back, the fp32 islands the
+published checkpoints depend on.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gcd_tpu_torch.ops.fused_mlp import geglu_mlp
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+    """GroupNorm over dim 1 with fp32 one-pass statistics, the variance
+    clamped at 0 (gcd_tpu/ops/fused_norm.py:_reference_groupnorm), optional
+    fused SiLU in fp32, result in x.dtype."""
+    n, c = x.shape[:2]
+    xf = x.float().reshape(n, num_groups, c // num_groups, -1)
+    cnt = xf.shape[2] * xf.shape[3]
+    mean = xf.sum(dim=(2, 3), keepdim=True) / cnt
+    var = (xf * xf).sum(dim=(2, 3), keepdim=True) / cnt - mean * mean
+    inv = torch.rsqrt(var.clamp_min(0.0) + eps)
+    w = weight.float().reshape(1, num_groups, -1, 1)
+    b = bias.float().reshape(1, num_groups, -1, 1)
+    y = (xf - mean) * (inv * w) + b
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y.reshape(x.shape).to(x.dtype)
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm(32) in fp32 with an optional fused SiLU."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, silu: bool = False,
+                 num_groups: int = 32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.eps, self.silu, self.num_groups = eps, silu, num_groups
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
+                          self.silu)
+
+
+class LayerNormFp32(nn.LayerNorm):
+    """LayerNorm computed in fp32, cast back to the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+class GEGLUProj(nn.Module):
+    """Holds the GEGLU up-projection (C -> 2*inner, value rows then gate
+    rows) under the reference's name `proj`."""
+
+    def __init__(self, dim_in: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, 2 * inner)
+
+
+class FeedForward(nn.Module):
+    """GEGLU transformer MLP (reference FeedForward with glu=True), run as
+    one fused call: K3 on CUDA. Keys net.0.proj / net.2 as in the reference."""
+
+    def __init__(self, dim: int, dim_out: Optional[int] = None, mult: int = 4):
+        super().__init__()
+        inner = int(dim * mult)
+        self.net = nn.ModuleList([GEGLUProj(dim, inner), nn.Identity(),
+                                  nn.Linear(inner, dim_out or dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        up, down = self.net[0].proj, self.net[2]
+        return geglu_mlp(x, up.weight, up.bias, down.weight, down.bias)
+
+
+class AlphaBlender(nn.Module):
+    """Learned mix of a spatial and a temporal branch
+    (merge_strategy "learned" or "learned_with_images", the ones GCD's
+    configs use): alpha * x_spatial + (1 - alpha) * x_temporal."""
+
+    def __init__(self, alpha: float = 0.5, merge_strategy: str = "learned_with_images"):
+        super().__init__()
+        if merge_strategy not in ("learned", "learned_with_images"):
+            raise ValueError(f"unsupported merge strategy {merge_strategy!r}")
+        self.merge_strategy = merge_strategy
+        self.mix_factor = nn.Parameter(torch.full((1,), float(alpha)))
+
+    def get_alpha(self, image_only_indicator: Optional[torch.Tensor]) -> torch.Tensor:
+        """Scalar alpha, or (B, T) for learned_with_images."""
+        mix = torch.sigmoid(self.mix_factor)
+        if self.merge_strategy == "learned":
+            return mix[0]
+        if image_only_indicator is None:
+            raise ValueError("learned_with_images needs image_only_indicator")
+        return torch.where(image_only_indicator.bool(), torch.ones_like(mix[0]), mix[0])
+
+    def forward(self, x_spatial: torch.Tensor, x_temporal: torch.Tensor,
+                alpha: torch.Tensor) -> torch.Tensor:
+        """`alpha` is get_alpha(...) already shaped to broadcast."""
+        alpha = alpha.to(x_spatial.dtype)
+        return alpha * x_spatial + (1.0 - alpha) * x_temporal
