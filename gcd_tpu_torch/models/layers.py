@@ -15,29 +15,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from gcd_tpu_torch.ops.fused_mlp import geglu_mlp
-
-
-def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               num_groups: int, eps: float, silu: bool) -> torch.Tensor:
-    """GroupNorm over dim 1 with fp32 one-pass statistics, the variance
-    clamped at 0 (gcd_tpu/ops/fused_norm.py:_reference_groupnorm), optional
-    fused SiLU in fp32, result in x.dtype."""
-    n, c = x.shape[:2]
-    xf = x.float().reshape(n, num_groups, c // num_groups, -1)
-    cnt = xf.shape[2] * xf.shape[3]
-    mean = xf.sum(dim=(2, 3), keepdim=True) / cnt
-    var = (xf * xf).sum(dim=(2, 3), keepdim=True) / cnt - mean * mean
-    inv = torch.rsqrt(var.clamp_min(0.0) + eps)
-    w = weight.float().reshape(1, num_groups, -1, 1)
-    b = bias.float().reshape(1, num_groups, -1, 1)
-    y = (xf - mean) * (inv * w) + b
-    if silu:
-        y = y * torch.sigmoid(y)
-    return y.reshape(x.shape).to(x.dtype)
+from gcd_tpu_torch.ops.fused_norm import group_norm
 
 
 class GroupNorm32(nn.Module):
-    """GroupNorm(32) in fp32 with an optional fused SiLU."""
+    """GroupNorm(32) in fp32 with an optional fused SiLU: K4 on CUDA
+    (ops/fused_norm.py)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, silu: bool = False,
                  num_groups: int = 32):

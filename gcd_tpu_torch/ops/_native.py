@@ -24,18 +24,25 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_attention.cu", "temporal_attention.cu", "fused_mlp.cu")
+SOURCES = ("flash_attention.cu", "temporal_attention.cu", "fused_mlp.cu",
+           "fused_norm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: device pointers, then sizes, then the stream.
 _SIGNATURES = {
     "gcd_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "gcd_temporal_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "gcd_geglu_mlp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gcd_group_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P),
+    "gcd_group_norm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _F, _I, _I,
+                       _P),
+    "gcd_group_stats_cl": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gcd_group_norm_cl": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -55,8 +62,9 @@ def _nvcc() -> str:
 
 def build() -> Tuple[Path, str]:
     """Compile csrc/ into the build directory unless an up-to-date library
-    is already there. Returns (library path, the compiler's stderr -- the
-    ptxas register/shared-memory report -- or "" when it was cached)."""
+    is already there: one nvcc per source, all started together, then one
+    link. Returns (library path, the compilers' stderr -- the ptxas
+    register/shared-memory report -- or "" when it was cached)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
@@ -64,13 +72,27 @@ def build() -> Tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(n).stem}-{tag}.o" for n in SOURCES]
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, obj in zip(SOURCES, objs)]
+    reports = []
+    for name, proc in zip(SOURCES, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n{err[-8000:]}")
+        reports.append(err)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / n) for n in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-8000:]}")
     os.replace(tmp, out)
-    return out, proc.stderr
+    return out, "".join(reports)
 
 
 def library() -> ctypes.CDLL:

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -19,3 +20,16 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
     return emb
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """(..., Sq, D) x (..., Sk, D) -> (..., Sq, D) in v's dtype: fp32 logits
+    and softmax, weights cast to v's dtype for the PV product, fp32
+    accumulation (gcd_tpu/ops/attention.py:_xla_attention). The attention of
+    heads that no kernel takes (the VAE's width-512 head, CLIP's width-80
+    heads)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(weights.float(), v.float()).to(v.dtype)

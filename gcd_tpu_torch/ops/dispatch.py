@@ -1,4 +1,4 @@
-"""Kernel switches for the port's three CUDA kernels.
+"""Kernel switches for the port's CUDA kernels.
 
 Same thread-local pattern as gcd_tpu/ops/dispatch.py (kernel_flags /
 kernel_enabled), reduced to the kernels the port has:
@@ -6,6 +6,9 @@ kernel_enabled), reduced to the kernels the port has:
   flash      K1, spatial multi-head self-attention (ops/flash_attention.py)
   tattn      K2, frame-axis temporal attention (ops/temporal_attention.py)
   fused_mlp  K3, fused GEGLU feed-forward (ops/fused_mlp.py)
+  fused_gn   K4, GroupNorm(+SiLU) (ops/fused_norm.py group_norm)
+  gn_stats   K5, per-group sums, the first pass of K4 on large groups
+             (ops/fused_norm.py group_stats)
 
 All default to on. `with kernel_flags(flash=False): ...` makes the wrapper
 run its plain PyTorch version on CUDA tensors too, which is how the kernel
@@ -17,7 +20,8 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 
-_DEFAULTS = {"flash": True, "tattn": True, "fused_mlp": True}
+_DEFAULTS = {"flash": True, "tattn": True, "fused_mlp": True, "fused_gn": True,
+             "gn_stats": True}
 
 _tls = threading.local()
 

@@ -23,8 +23,30 @@ REGISTRY = {
         "gcd_tpu_torch.models.unet.VideoUNet",
     "sgm.models.autoencoder.AutoencodingEngine":
         "gcd_tpu_torch.models.vae.AutoencodingEngine",
+    "sgm.models.autoencoder.AutoencoderKLModeOnly":
+        "gcd_tpu_torch.models.vae.AutoencoderKLModeOnly",
+    "sgm.modules.diffusionmodules.model.Encoder":
+        "gcd_tpu_torch.models.vae.Encoder",
+    "sgm.modules.diffusionmodules.model.Decoder":
+        "gcd_tpu_torch.models.vae.Decoder",
     "sgm.modules.autoencoding.temporal_ae.VideoDecoder":
         "gcd_tpu_torch.models.vae.VideoDecoder",
+    "sgm.modules.GeneralConditioner":
+        "gcd_tpu_torch.models.embedders.GeneralConditioner",
+    "sgm.modules.encoders.modules.GeneralConditioner":
+        "gcd_tpu_torch.models.embedders.GeneralConditioner",
+    "sgm.modules.encoders.modules.FrozenOpenCLIPImageEmbedder":
+        "gcd_tpu_torch.models.embedders.FrozenOpenCLIPImageEmbedder",
+    "sgm.modules.encoders.modules.FrozenOpenCLIPImagePredictionEmbedder":
+        "gcd_tpu_torch.models.embedders.FrozenOpenCLIPImagePredictionEmbedder",
+    "sgm.modules.encoders.modules.ConcatTimestepEmbedderND":
+        "gcd_tpu_torch.models.embedders.ConcatTimestepEmbedderND",
+    "sgm.modules.encoders.modules.VideoPredictionEmbedderWithEncoder":
+        "gcd_tpu_torch.models.embedders.VideoPredictionEmbedderWithEncoder",
+    "sgm.modules.encoders.modules.CameraEmbedder":
+        "gcd_tpu_torch.models.embedders.CameraEmbedder",
+    "sgm.modules.encoders.modules.SphericalEmbedder":
+        "gcd_tpu_torch.models.embedders.SphericalEmbedder",
     "sgm.modules.diffusionmodules.denoiser.Denoiser":
         "gcd_tpu_torch.diffusion.denoiser.Denoiser",
     "sgm.modules.diffusionmodules.denoiser_scaling.VScalingWithEDMcNoise":

@@ -1,6 +1,8 @@
 """The tiny VideoUNet, the tiny VideoDecoder, and the whole tiny slice
-(DiffusionEngine.sample_video_from_cond: 3 CFG Euler-EDM steps + decode) of
-the port against the JAX package, same weights and same noise on both sides.
+(DiffusionEngine.sample_video_from_cond: 3 CFG Euler-EDM steps + decode; and
+DiffusionEngine.sample_video: conditioner, sampling and decode from raw
+frames) of the port against the JAX package, same weights and same noise on
+both sides.
 
 fp32 on the CPU, JAX at highest matmul precision. The UNet and decoder chain
 dozens of layers whose fp32 sums differ only in order: 1e-4 relative. The
@@ -21,17 +23,22 @@ import torch
 from gcd_tpu.models.unet import VideoUNet as JVideoUNet
 from gcd_tpu.models.vae import VideoDecoder as JVideoDecoder
 from gcd_tpu.utils.config import instantiate_from_config as j_instantiate
+from gcd_tpu_torch.engine.build import load_engine
 from gcd_tpu_torch.models.unet import VideoUNet
 from gcd_tpu_torch.models.vae import VideoDecoder
 from gcd_tpu_torch.utils.config import instantiate_from_config, load_config
 from tests.torch_port_helpers import (
+    TINY_CONFIG,
     TINY_DD,
     TINY_UNET,
+    engine_params,
+    engine_state_dict,
     flax_params,
     load_port,
     nchw,
     nhwc,
     rel_l2,
+    tiny_batch,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -143,3 +150,31 @@ def test_tiny_slice_matches_jax(decoding_t):
     assert 0.0 <= float(out.min()) and float(out.max()) <= 1.0
     assert ref.std() > 1e-2
     assert rel_l2(out.numpy(), ref) <= 1e-3
+
+
+def test_tiny_sample_video_matches_jax():
+    """configs/smoke_kubric_tiny.yaml whole (CLIP width 32, VAE ch 32): 3
+    frames of 32x48, 3 steps, decode in the config's chunks of 2. The port
+    gets JAX's latent noise, normal(split(key)[0]), through `noise`."""
+    cfg = load_config(TINY_CONFIG)["model"]
+    batch = tiny_batch(T, 32, 48, 8)
+    jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
+    jeng = j_instantiate(copy.deepcopy(cfg))
+    params = engine_params(jeng, batch, 20)
+    key = jax.random.PRNGKey(3)
+    ref = jax.jit(lambda p, b, k: jeng.sample_video(p, b, k, num_steps=3,
+                                                    return_latents=True))(params, jbatch, key)
+    noise = jax.random.normal(jax.random.split(key)[0], (T, 4, 6, 4), dtype=jnp.float32)
+
+    emb_models = cfg["params"]["conditioner_config"]["params"]["emb_models"]
+    engine = load_engine(TINY_CONFIG, device="cpu", dtype=torch.float32,
+                         state_dict=engine_state_dict(params, emb_models, 30))
+    out = engine.sample_video({k: torch.from_numpy(v) for k, v in batch.items()},
+                              noise=torch.from_numpy(np.array(noise)), num_steps=3,
+                              return_latents=True)
+    assert sorted(out) == sorted(ref) == ["cond_video", "sampled_video", "sampled_z"]
+    assert out["sampled_video"].shape == (T, 32, 48, 3) == ref["sampled_video"].shape
+    assert np.asarray(ref["sampled_video"]).std() > 1e-2
+    assert rel_l2(out["cond_video"].numpy(), ref["cond_video"]) <= 1e-6
+    assert rel_l2(out["sampled_z"].numpy(), ref["sampled_z"]) <= 1e-3
+    assert rel_l2(out["sampled_video"].numpy(), ref["sampled_video"]) <= 1e-3
