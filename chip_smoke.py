@@ -15,28 +15,45 @@ without the final `ok` line):
                    one CFG-doubled UNet evaluation and one 14-frame decode
                    (forward hooks), then holds each CUDA kernel against its
                    plain PyTorch version at every main-path shape, bf16,
-                   relative L2 <= 1e-2: K1 flash attention, K2 temporal
-                   attention, K3 fused GEGLU MLP, K4 GroupNorm, K5 group
-                   statistics; K4 / K5 also on channels-first copies of those
-                   shapes. CUDA-event and host enqueue times beside the bound
-                   and the one-call library equivalent.
+                   relative L2 <= 1e-2 (each output): K1 flash attention, K6
+                   its backward, K2 temporal attention, K3 fused GEGLU MLP,
+                   K4 GroupNorm, K5 group statistics; K4 / K5 also on
+                   channels-first copies of those shapes; K4, K5 and K6
+                   bit-identical on a second call. CUDA-event and host
+                   enqueue times beside the bound and the one-call library
+                   equivalent.
   5. ab          - the flagship UNet evaluation, the decode and the
                    conditioner with every kernel on vs off (relative
                    L2 <= 2e-2); the UNet's and the decode's wall times and
                    torch.profiler device time by kernel, with the GroupNorm
                    kernels on vs off.
-  6. slice       - three requests through DiffusionEngine.sample_video:
+  6. slice       - two requests through DiffusionEngine.sample_video:
                    random 14-frame 384x256 clips and camera moves, 25
                    Euler-EDM steps with per-frame CFG up to 1.5, one 14-frame
                    decode; checks the frames and each kernel's launch count.
+  7. train       - load_trainer(configs/train_kubric_max90.yaml): random
+                   bf16 weights, fp32 masters and Adam; a seeded batch of 2
+                   clips of 14 frames at 384x256 (B*T = 28). One step's loss
+                   and UNet gradient with every kernel on vs off (kernel
+                   launches 0 when off: the rematerialised blocks' recompute
+                   on the autograd thread takes the caller's switches); then
+                   five Adam steps, each with a finite loss, a finite
+                   gradient on every trainable parameter (zero only where the
+                   graph does not reach), updated masters and weights, the
+                   frozen VAE and CLIP bit-identical, and each kernel's
+                   launches equal to the step's site count (forward, remat
+                   recompute, backward); ms per step, frames/s, peak memory
+                   and a torch.profiler breakdown of one step.
 Then the kernel JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -50,6 +67,10 @@ import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "infer_kubric.yaml")
+TRAIN_CONFIG = os.path.join(REPO, "configs", "train_kubric_max90.yaml")
+CLIPS = 2         # inference requests in phase 6
+TRAIN_B = 2       # clips per training batch (configs/base/data_kubric.yaml batch_size)
+TRAIN_STEPS = 5
 T, H, W = 14, 256, 384
 HL, WL = H // 8, W // 8
 BT = 2 * T  # CFG-doubled
@@ -57,6 +78,8 @@ SEED = 0
 G = 32
 KERNEL_TOL = 1e-2  # relative L2, the bf16 kernel gate of bench.py:211
 AB_TOL = 2e-2      # relative L2, whole module, kernels on vs off
+TRAIN_LOSS_TOL = 2e-2  # relative, one training step's loss, kernels on vs off
+TRAIN_GRAD_TOL = 5e-2  # relative L2, that step's UNet gradient, kernels on vs off
 UC_KEYS = ("cond_frames", "cond_frames_without_noise")
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core and
 # fp32 FLOP/s. `bound_ms` is the larger of bytes / HBM and operations / peak.
@@ -67,11 +90,18 @@ FP32_FLOPS = 67e12
 # (tokens per frame, channels) at the UNet's four attention resolutions, and
 # how many transformer blocks each has per evaluation: ds1/ds2/ds4 have 2 in
 # the input path and 3 in the output path, the middle block 1.
+# Substrings of each port kernel's device function names, for the profile.
+PROFILE_TAGS = {"flash": ("flash_attention_kernel",), "flash_bwd": ("rows_kernel", "dkdv_kernel"),
+                "tattn": ("temporal_attention_kernel",),
+                "fused_mlp": ("geglu_mlp_kernel", "bias_round_kernel"),
+                "fused_gn_and_gn_stats": ("group_norm", "group_stats")}
 LEVELS = [("ds1", 1536, 320, 5), ("ds2", 384, 640, 5), ("ds4", 96, 1280, 5),
           ("mid", 24, 1280, 1)]
 SOURCES = {
     "flash": ("gcd_tpu_torch/csrc/flash_attention.cu",
               "gcd_tpu/ops/flash_attention.py:55"),
+    "flash_bwd": ("gcd_tpu_torch/csrc/flash_attention_bwd.cu",
+                  "gcd_tpu/ops/flash_attention.py:226"),
     "tattn": ("gcd_tpu_torch/csrc/temporal_attention.cu",
               "gcd_tpu/ops/temporal_attention.py:47"),
     "fused_mlp": ("gcd_tpu_torch/csrc/fused_mlp.cu",
@@ -88,8 +118,9 @@ def log(phase: str, **fields) -> None:
 
 
 def rel_l2(a, b) -> float:
+    """Relative L2 error; of a tuple of outputs, the largest."""
     if isinstance(a, tuple):
-        a, b = torch.cat([t.flatten() for t in a]), torch.cat([t.flatten() for t in b])
+        return max(rel_l2(x, y) for x, y in zip(a, b))
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
@@ -128,19 +159,24 @@ def wall_s(fn, reps: int = 3):
     return out, statistics.median(times)
 
 
-def device_profile(fn):
+def device_profile(fn, warm: bool = True):
     """(Counter of device ms by kernel name, total device ms) over one call
-    of fn under torch.profiler; (None, None) if it recorded no device time."""
+    of fn under torch.profiler, after one unprofiled call when `warm`;
+    (None, None) if it recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name = Counter()
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # A user annotation (the optimizer's record_function span) has a
+        # device range too; its kernels are counted on their own.
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             by_name[ev.key] += ev.self_device_time_total / 1e3
     total = sum(by_name.values())
     return (by_name, total) if total > 0 else (None, None)
@@ -152,21 +188,27 @@ def bound(nbytes: float, flops: float, peak: float):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def random_batch(gen: torch.Generator) -> dict:
-    """A JAX-layout request: a random 14-frame clip in [-1, 1], its noised
-    copy, and a random camera move."""
+def random_batch(gen: torch.Generator, clips: int = 1, target: bool = False) -> dict:
+    """A JAX-layout batch of `clips` videos: random 14-frame clips in
+    [-1, 1], their noised copies, random camera moves, and with `target`
+    the frames to learn ("jpg")."""
+    n = clips * T
+
     def rand(*shape):
         return torch.rand(*shape, generator=gen, device="cuda")
 
-    frames = rand(T, H, W, 3) * 2.0 - 1.0
-    return {"cond_frames": frames + 0.02 * torch.randn(frames.shape, generator=gen,
-                                                       device="cuda"),
-            "cond_frames_without_noise": frames,
-            "cond_aug": torch.full((T,), 0.02, device="cuda"),
-            "fps_id": torch.full((T,), 5.0, device="cuda"),
-            "motion_bucket_id": torch.full((T,), 127.0, device="cuda"),
-            "scaled_relative_angles": (rand(T, 3) * 2.0 - 1.0) * 0.5,
-            "image_only_indicator": torch.zeros(1, T, device="cuda")}
+    frames = rand(n, H, W, 3) * 2.0 - 1.0
+    batch = {"cond_frames": frames + 0.02 * torch.randn(frames.shape, generator=gen,
+                                                        device="cuda"),
+             "cond_frames_without_noise": frames,
+             "cond_aug": torch.full((n,), 0.02, device="cuda"),
+             "fps_id": torch.full((n,), 5.0, device="cuda"),
+             "motion_bucket_id": torch.full((n,), 127.0, device="cuda"),
+             "scaled_relative_angles": (rand(n, 3) * 2.0 - 1.0) * 0.5,
+             "image_only_indicator": torch.zeros(clips, T, device="cuda")}
+    if target:
+        batch["jpg"] = rand(n, H, W, 3) * 2.0 - 1.0
+    return batch
 
 
 def memory_layout(x: torch.Tensor) -> str:
@@ -205,11 +247,25 @@ def count_modules(module, cls) -> int:
     return sum(isinstance(m, cls) for m in module.modules())
 
 
+def sdpa_backward(q, k, v, g, heads: int):
+    """The library call for K6: torch.autograd.grad through PyTorch's fused
+    attention on pre-transposed (B, H, S, D) inputs, its forward run once
+    beforehand (timed only)."""
+    b, s, c = q.shape
+    qkv = [z.reshape(b, s, heads, c // heads).transpose(1, 2).contiguous().requires_grad_()
+           for z in (q, k, v)]
+    out = F.scaled_dot_product_attention(*qkv)
+    gh = g.reshape(b, s, heads, c // heads).transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, qkv, gh, retain_graph=True)
+
+
 def attention_mlp_cases(gen: torch.Generator, steps: int):
-    """(kernel, label, launches per clip, kernel call, plain call, library
-    call or None, bytes, operations, peak) for K1-K3."""
-    from gcd_tpu_torch.ops import (flash_attention, flash_attention_plain, geglu_mlp,
-                                   geglu_mlp_plain, temporal_attention,
+    """(kernel, label, launches per clip -- per training step for K6 --,
+    kernel call, plain call, library call or None, bytes, operations, peak)
+    for K1, K6, K2 and K3."""
+    from gcd_tpu_torch.ops import (flash_attention, flash_attention_bwd,
+                                   flash_attention_bwd_plain, flash_attention_plain,
+                                   geglu_mlp, geglu_mlp_plain, temporal_attention,
                                    temporal_attention_plain)
 
     def randn(*shape, std=1.0):
@@ -225,6 +281,15 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
                lambda q=q, k=k, v=v, h=heads: flash_attention_plain(q, k, v, h),
                lambda sh=sh: F.scaled_dot_product_attention(*sh),
                qkv_bytes, 4 * BT * s * s * c, BF16_FLOPS)
+        # The training shapes: B*T = 28 (2 clips of 14 frames), one K6 per
+        # spatial transformer block per step. Five S x S x D products per
+        # head; q, k, v, dO read and dQ, dK, dV written once.
+        do = randn(BT, s, c)
+        yield ("flash_bwd", f"{name} ({BT},{s},{heads}x64)", blocks,
+               lambda q=q, k=k, v=v, do=do, h=heads: flash_attention_bwd(q, k, v, do, h),
+               lambda q=q, k=k, v=v, do=do, h=heads: flash_attention_bwd_plain(q, k, v, do, h),
+               sdpa_backward(q, k, v, do, heads), 7 * BT * s * c * 2,
+               10 * BT * s * s * c, BF16_FLOPS)
         th = [z.reshape(BT // T, T, s, heads, 64).permute(0, 2, 3, 1, 4)
               .reshape(BT // T * s, heads, T, 64).contiguous() for z in (q, k, v)]
         yield ("tattn", f"{name} ({BT},{s},{c}) T={T}", blocks * steps,
@@ -277,28 +342,15 @@ def groupnorm_cases(gen: torch.Generator, sites: Counter):
                2 * n + 16 * shape[0] * G, 2 * n, FP32_FLOPS)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    log("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
-
-    sys.path.insert(0, REPO)
+def serve(smi: str):
+    """Phases 3-6. Returns (per-kernel statistics of phase 4, launches over
+    phase 6's requests)."""
     from gcd_tpu_torch.engine.build import load_engine
     from gcd_tpu_torch.models.attention import BasicTransformerBlock
     from gcd_tpu_torch.models.embedders import VideoPredictionEmbedderWithEncoder
     from gcd_tpu_torch.models.layers import FeedForward, GroupNorm32
     from gcd_tpu_torch.models.video_attention import VideoTransformerBlock
-    from gcd_tpu_torch.ops import KERNELS, _native, kernel_flags
-
-    t0 = time.perf_counter()
-    _, ptxas = _native.build()
-    _native.library()
-    log("build", seconds=time.perf_counter() - t0,
-        ptxas=[line.split(": ", 1)[-1] for line in ptxas.splitlines() if "Used" in line])
+    from gcd_tpu_torch.ops import KERNELS, kernel_flags
 
     # Phase 3: the conditioner at full width.
     t0 = time.perf_counter()
@@ -396,7 +448,7 @@ def main() -> int:
             library_host_ms=lib_host_ms, card=smi)
         if not err <= KERNEL_TOL:
             raise RuntimeError(f"{name} {label}: relative L2 {err} > {KERNEL_TOL}")
-        if name in ("fused_gn", "gn_stats") and rel_l2(run(), out) != 0.0:
+        if name in ("fused_gn", "gn_stats", "flash_bwd") and rel_l2(run(), out) != 0.0:
             raise RuntimeError(f"{name} {label}: two calls differ (no atomics: must not)")
         st = stats[name]
         st["max_abs_err"] = max(st["max_abs_err"], err_abs)
@@ -458,8 +510,9 @@ def main() -> int:
                                      if "group_norm" in k or "group_stats" in k),
             top=[[k[:90], ms] for k, ms in by_name.most_common(10)], card=smi)
 
-    # Phase 6: three requests through the engine's entry point.
+    # Phase 6: requests through the engine's entry point.
     expected = {"flash": count_modules(unet, BasicTransformerBlock) * steps,
+                "flash_bwd": 0,
                 "tattn": count_modules(unet, VideoTransformerBlock) * steps,
                 "fused_mlp": count_modules(unet, FeedForward) * steps,
                 "fused_gn": gn_modules["cond"] + steps * gn_modules["unet"]
@@ -469,7 +522,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     for fn in KERNELS.values():
         fn.launches = 0
-    for request in range(3):
+    for request in range(CLIPS):
         gen = torch.Generator("cuda").manual_seed(SEED + 10 + request)
         batch = random_batch(gen)
         torch.cuda.synchronize()
@@ -482,17 +535,212 @@ def main() -> int:
         if not (torch.isfinite(frames).all() and frames.min() >= 0 and frames.max() <= 1):
             raise RuntimeError("frames not finite in [0, 1]")
     launches = {name: fn.launches for name, fn in KERNELS.items()}
-    log("slice", clip_seconds=clip_s, frames_per_s=2 * T / (clip_s[1] + clip_s[2]),
+    log("slice", clip_seconds=clip_s, frames_per_s=T / statistics.mean(clip_s[1:]),
         peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches,
         expected_per_clip=expected, frames_std=float(frames.std()), card=smi)
     for name, n in launches.items():
-        if n != 3 * expected[name] or expected[name] == 0:
-            raise RuntimeError(f"{name}: {n} launches over 3 clips, expected "
-                               f"3 x {expected[name]}")
+        if n != CLIPS * expected[name] or (expected[name] == 0 and name != "flash_bwd"):
+            raise RuntimeError(f"{name}: {n} launches over {CLIPS} clips, expected "
+                               f"{CLIPS} x {expected[name]}")
+    return stats, launches
 
+
+def train(smi: str) -> dict:
+    """Phase 7. Returns the launches over the Adam steps."""
+    from gcd_tpu_torch.engine.trainer import load_trainer
+    from gcd_tpu_torch.models.attention import BasicTransformerBlock
+    from gcd_tpu_torch.models.embedders import VideoPredictionEmbedderWithEncoder
+    from gcd_tpu_torch.models.layers import FeedForward, GroupNorm32
+    from gcd_tpu_torch.models.resblock import VideoResBlock
+    from gcd_tpu_torch.models.video_attention import (SpatialVideoTransformer,
+                                                      VideoTransformerBlock)
+    from gcd_tpu_torch.ops import KERNELS, kernel_flags
+    from gcd_tpu_torch.ops.fused_norm import uses_split_path
+
+    t0 = time.perf_counter()
+    trainer = load_trainer(TRAIN_CONFIG)
+    engine = trainer.engine
+    unet = engine.model.diffusion_model
+    named = dict(engine.named_parameters())
+    trainable = [n for n, p in named.items() if p.requires_grad]  # trainer.trainable's order
+    unet_names = [n for n in trainable if n.startswith("model.diffusion_model.")]
+    log("train_setup", seconds=time.perf_counter() - t0,
+        params=sum(p.numel() for p in named.values()),
+        trainable_params=sum(named[n].numel() for n in trainable),
+        unet_params=sum(named[n].numel() for n in unet_names),
+        optimizer=type(trainer.optimizer).__name__, lr=trainer.optimizer.defaults["lr"],
+        use_checkpoint=unet.use_checkpoint, card=smi)
+    if not unet.use_checkpoint or not unet_names:
+        raise RuntimeError("the training config must remat the UNet and train it")
+    gen = torch.Generator("cuda").manual_seed(SEED + 20)
+    batch = random_batch(gen, TRAIN_B, target=True)
+    bt = TRAIN_B * T
+
+    # Launches per step: the rematerialised blocks run forward twice (the
+    # forward, then the recompute in the backward); K6 once per spatial
+    # block; the first stage encodes the batch without grad in chunks, the
+    # conditioner's frame encoder once.
+    blocks = count_modules(unet, BasicTransformerBlock)
+    remat_gn = sum(count_modules(m, GroupNorm32) for m in unet.modules()
+                   if isinstance(m, (VideoResBlock, SpatialVideoTransformer)))
+    chunks = -(-bt // (engine.en_and_decode_n_samples_a_time or bt))
+    cond_gn = sum(count_modules(m.encoder.encoder, GroupNorm32)
+                  for m in engine.conditioner.embedders
+                  if isinstance(m, VideoPredictionEmbedderWithEncoder))
+    expected = {"flash": 2 * blocks, "flash_bwd": blocks,
+                "tattn": 2 * count_modules(unet, VideoTransformerBlock),
+                "fused_mlp": 2 * count_modules(unet, FeedForward),
+                "fused_gn": remat_gn + count_modules(unet, GroupNorm32) + cond_gn
+                + chunks * count_modules(engine.first_stage_model.encoder, GroupNorm32)}
+
+    def reset():
+        for fn in KERNELS.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in KERNELS.items()}
+
+    def loss_and_unet_grads(seed: int):
+        for p in trainer.trainable:
+            p.grad = None
+        loss = engine.loss(batch, 0, torch.Generator("cuda").manual_seed(seed)).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), [named[n].grad for n in unet_names]
+
+    # One step's loss and UNet gradient, all kernels on vs off, forward and
+    # backward; the same draws on both sides.
+    gn_calls = Counter()
+
+    def gn_hook(mod, inputs, _):
+        gn_calls["calls"] += 1
+        gn_calls["split"] += int(uses_split_path(inputs[0], mod.num_groups))
+
+    hooks = [m.register_forward_hook(gn_hook) for m in engine.modules()
+             if isinstance(m, GroupNorm32)]
+    reset()
+    loss_on, grads_on = loss_and_unet_grads(SEED + 21)
+    launches_on = counts()
+    for h in hooks:
+        h.remove()
+    expected["gn_stats"] = gn_calls["split"]
+    reset()
+    with kernel_flags(**dict.fromkeys(KERNELS, False)):
+        loss_off, grads_off = loss_and_unet_grads(SEED + 21)
+    launches_off = counts()
+    num = den = 0.0
+    for a, b in zip(grads_on, grads_off):
+        if b is not None:
+            a = torch.zeros_like(b) if a is None else a
+            num += float((a.float() - b.float()).square().sum())
+            den += float(b.float().square().sum())
+    ab = {"loss_on": loss_on, "loss_off": loss_off,
+          "loss_rel": abs(loss_on - loss_off) / abs(loss_off),
+          "unet_grad_rel_l2": (num / den) ** 0.5, "unet_grad_norm_off": den ** 0.5}
+    log("train_ab", **ab, loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL,
+        launches_on=launches_on, launches_off=launches_off, expected_per_step=expected,
+        groupnorm_calls=gn_calls["calls"], card=smi)
+    del grads_on, grads_off
+    if not (ab["loss_rel"] <= TRAIN_LOSS_TOL and ab["unet_grad_rel_l2"] <= TRAIN_GRAD_TOL):
+        raise RuntimeError(f"training step, kernels on vs off: {ab}")
+    if any(launches_off.values()):
+        raise RuntimeError(f"kernels launched with every switch off: {launches_off}")
+    if launches_on != expected or gn_calls["calls"] != expected["fused_gn"]:
+        raise RuntimeError(f"launches {launches_on} (GroupNorm calls {gn_calls['calls']}), "
+                           f"expected {expected}")
+
+    # Adam steps. A gradient may be exactly zero only where the graph does not
+    # reach: the cross-attentions over one context token never read their
+    # queries, so their to_q / to_k and the norm2 before them get none.
+    unreached = {n for n in unet_names if n.endswith(
+        ("attn2.to_q.weight", "attn2.to_k.weight", "norm2.weight", "norm2.bias"))}
+    frozen = {n: p.detach().clone() for n, p in named.items() if not p.requires_grad}
+    total = Counter()
+    step_s = []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_STEPS):
+        masters = [m.clone() for m in trainer.masters]
+        weights = [p.detach().clone() for p in trainer.trainable]
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches = counts()
+        total.update(launches)
+        loss = float(metrics["loss"])
+        grads = {n: named[n].grad for n in trainable}
+        if not (math.isfinite(loss) and all(g is not None and bool(torch.isfinite(g).all())
+                                             for g in grads.values())):
+            raise RuntimeError(f"step {step}: loss {loss} or a gradient not finite / missing")
+        zero = {n for n, g in grads.items() if not g.any()}
+        unet_norm = math.sqrt(sum(float(grads[n].float().square().sum()) for n in unet_names))
+        moved = [bool((m != m0).any()) for m, m0 in zip(trainer.masters, masters)]
+        changed = {prefix: sum(int((p != w).sum()) for n, p, w in
+                               zip(trainable, trainer.trainable, weights) if n.startswith(prefix))
+                   for prefix in ("model.diffusion_model.", "conditioner.")}
+        same_frozen = all(torch.equal(named[n], w) for n, w in frozen.items())
+        log("train_step", step=step, seconds=step_s[-1], loss=loss,
+            grad_norm=float(metrics["grad_norm"]), unet_grad_norm=unet_norm,
+            zero_grad_params=sorted(zero)[:4], n_zero_grad=len(zero),
+            masters_moved=sum(moved), weights_changed=changed, launches=launches, card=smi)
+        if zero - unreached or not unet_norm > 0:
+            raise RuntimeError(f"step {step}: zero gradients at {sorted(zero - unreached)[:8]}")
+        if not all(mv for mv, p in zip(moved, trainer.trainable) if p.grad.any()):
+            raise RuntimeError(f"step {step}: a master with a gradient did not move")
+        if not all(changed.values()):
+            raise RuntimeError(f"step {step}: trainable weights unchanged: {changed}")
+        if not same_frozen:
+            raise RuntimeError(f"step {step}: a frozen (VAE / CLIP) weight changed")
+        if launches != expected:
+            raise RuntimeError(f"step {step}: launches {launches}, expected {expected}")
+        del masters, weights, grads
+    ms = 1e3 * statistics.median(step_s[2:])
+    log("train", ms_per_step=ms, frames_per_s=bt / (ms / 1e3), step_seconds=step_s,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), batch_frames=bt, card=smi)
+
+    by_name, total_ms = device_profile(lambda: trainer.train_step(batch, gen), warm=False)
+    if total_ms is None:
+        log("train_profile", device_ms="not measured", card=smi)
+    else:
+        log("train_profile", device_ms=total_ms, wall_ms=ms, idle_share=1.0 - total_ms / ms,
+            kernels_ms={name: sum(v for k, v in by_name.items() if any(t in k for t in tags))
+                        for name, tags in PROFILE_TAGS.items()},
+            top=[[k[:90], v] for k, v in by_name.most_common(15)], card=smi)
+    return dict(total)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    log("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+
+    sys.path.insert(0, REPO)
+    from gcd_tpu_torch.ops import KERNELS, _native
+
+    t0 = time.perf_counter()
+    _, ptxas = _native.build()
+    _native.library()
+    log("build", seconds=time.perf_counter() - t0,
+        ptxas=[line.split(": ", 1)[-1] for line in ptxas.splitlines() if "Used" in line])
+
+    stats, launches = serve(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = train(smi)
+
+    # `launches`: the sample_video requests for K1-K5, the Adam steps for K6
+    # (which only training runs); `train_launches`: the Adam steps for all.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": launches[name],
+         "replaces": SOURCES[name][1],
+         "launches": train_launches[name] if name == "flash_bwd" else launches[name],
+         "train_launches": train_launches[name],
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]

@@ -1,20 +1,24 @@
-"""DiffusionEngine, inference side (port of gcd_tpu/engine/engine.py).
+"""DiffusionEngine (port of gcd_tpu/engine/engine.py).
 
 Holds the conditioner (`conditioner.*`), the VideoUNet
-(`model.diffusion_model`), the denoiser, the sampler and the first-stage VAE
-(`first_stage_model.{encoder,decoder}`), built from the reference-layout
-YAML (configs/infer_kubric.yaml). `sample_video(batch)` is the JAX engine's
-`sample_video`: conditioner (c and uc), CFG-doubled Euler-EDM sampling, then
-chunked decode; `sample_video_from_cond` is the part after the conditioner.
-Its public layout is the JAX package's channels-last one: frames in
-(B*T, H, W, 3), conditioning and latents in (B*T, h, w, C); modules run
-channels-first inside. `load_engine` (engine/build.py) puts an engine on the
-card.
+(`model.diffusion_model`), the denoiser, the sampler, the first-stage VAE
+(`first_stage_model.{encoder,decoder}`) and the training loss, built from
+the reference-layout YAML (configs/*.yaml). `sample_video(batch)` is the JAX
+engine's `sample_video`: conditioner (c and uc), CFG-doubled Euler-EDM
+sampling, then chunked decode; `sample_video_from_cond` is the part after
+the conditioner. `loss(batch, global_step)` is the JAX engine's `loss`: the
+sampled first-stage encoding without grad, the conditioner in training mode,
+then StandardDiffusionLoss; `trainable_parameter_names` is its
+`trainable_mask` by parameter name. The public layout is the JAX package's
+channels-last one: frames in (B*T, H, W, 3), conditioning and latents in
+(B*T, h, w, C); modules run channels-first inside. `load_engine`
+(engine/build.py) puts an engine on the card, `load_trainer`
+(engine/trainer.py) a trainer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Set, Tuple
 
 import torch
 from torch import nn
@@ -41,15 +45,27 @@ def _unit_interval(frames: torch.Tensor) -> torch.Tensor:
     return ((frames.float() + 1.0) / 2.0).clamp(0.0, 1.0)
 
 
+# ft_strategy "dummy" trains this one parameter of the UNet.
+DUMMY_TRAINABLE = "output_blocks.11.1.time_mixer.mix_factor"
+
+
 class DiffusionEngine(nn.Module):
     def __init__(self, network_config: Dict, denoiser_config: Dict,
                  first_stage_config: Dict, sampler_config: Dict,
                  conditioner_config: Optional[Dict] = None,
+                 loss_fn_config: Optional[Dict] = None,
+                 optimizer_config: Optional[Dict] = None,
+                 ft_strategy: str = "everything",
+                 base_learning_rate: Optional[float] = None,
                  scale_factor: float = 1.0,
                  en_and_decode_n_samples_a_time: Optional[int] = None, **unused):
         super().__init__()
-        # unused: the training and checkpoint settings of the reference's
-        # engine config.
+        # unused: the reference's checkpoint, EMA, scheduler, autocast and
+        # logging settings (no shipped config sets a scheduler or EMA).
+        self.loss_fn = instantiate_from_config(loss_fn_config) if loss_fn_config else None
+        self.optimizer_config = optimizer_config or {"target": "torch.optim.AdamW"}
+        self.ft_strategy = ft_strategy
+        self.base_learning_rate = base_learning_rate
         self.conditioner = instantiate_from_config(
             conditioner_config or {"target": "sgm.modules.GeneralConditioner",
                                    "params": {"emb_models": []}})
@@ -73,9 +89,12 @@ class DiffusionEngine(nn.Module):
                     image_only_indicator=image_only_indicator).float()
 
     def apply_conditioner(self, batch: Dict,
-                          force_zero_embeddings: Optional[Sequence[str]] = None) -> Dict:
-        """The conditioner on a batch dict: {"crossattn", "vector", "concat"}."""
-        return self.conditioner(batch, force_zero_embeddings)
+                          force_zero_embeddings: Optional[Sequence[str]] = None,
+                          train: bool = False, generator: Optional[torch.Generator] = None,
+                          ucg_keep: Optional[Dict[int, torch.Tensor]] = None) -> Dict:
+        """The conditioner on a batch dict: {"crossattn", "vector", "concat"};
+        `train` applies the conditioning dropout (GeneralConditioner)."""
+        return self.conditioner(batch, force_zero_embeddings, train, generator, ucg_keep)
 
     def get_unconditional_conditioning(
             self, batch: Dict, force_uc_zero_embeddings: Optional[Sequence[str]] = None
@@ -83,15 +102,19 @@ class DiffusionEngine(nn.Module):
         """(c, uc), uc with the `force_uc_zero_embeddings` keys zeroed."""
         return self.conditioner.get_unconditional_conditioning(batch, force_uc_zero_embeddings)
 
-    def encode_first_stage(self, x: torch.Tensor) -> torch.Tensor:
+    def encode_first_stage(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Frames (N, H, W, 3) in [-1, 1] -> scaled latents (N, H/8, W/8, 4),
-        encoded in chunks of en_and_decode_n_samples_a_time. The posterior's
-        mode: the JAX package samples it for training, which arrives with the
-        training slice."""
+        encoded in chunks of en_and_decode_n_samples_a_time: a sample of the
+        posterior, mean + std * noise, with the unit Gaussian `noise`
+        (N, H/8, W/8, 4) given or drawn chunk by chunk from `generator`."""
         vae = self.first_stage_model
         x = x.permute(0, 3, 1, 2).to(vae.encoder.conv_in.weight.dtype)
         n = self.en_and_decode_n_samples_a_time or x.shape[0]
-        z = torch.cat([vae.encode(chunk) for chunk in x.split(n)])
+        chunks = x.split(n)
+        noises = (noise.permute(0, 3, 1, 2).split(n) if noise is not None
+                  else [None] * len(chunks))
+        z = torch.cat([vae.encode(c, generator, e) for c, e in zip(chunks, noises)])
         return (z * self.scale_factor).permute(0, 2, 3, 1)
 
     def decode_first_stage(self, z: torch.Tensor,
@@ -103,6 +126,60 @@ class DiffusionEngine(nn.Module):
         n = decoding_t or self.en_and_decode_n_samples_a_time or z.shape[0]
         return torch.cat([self.first_stage_model.decode(chunk, chunk.shape[0])
                           for chunk in z.split(n)])
+
+    def loss(self, batch: Dict, global_step: int, generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict] = None) -> torch.Tensor:
+        """Per-sample training loss, (B*T,) fp32 (gcd_tpu engine.py `loss`).
+
+        `batch` is sample_video's plus "jpg", the target frames
+        (B*T, H, W, 3) in [-1, 1]. The random numbers come from `draws` where
+        it has them -- "posterior" (B*T, H/8, W/8, 4) for the first-stage
+        sample, "ucg_keep" {embedder index: (B*T,) keep mask} for the
+        conditioning dropout, and the loss's "sigma_rand", "noise" and
+        "offset" (StandardDiffusionLoss.draw) -- and otherwise from
+        `generator`, in that order."""
+        draws = draws or {}
+        t = int(batch["image_only_indicator"].shape[1])
+        with torch.no_grad():
+            z = self.encode_first_stage(batch["jpg"], generator,
+                                        draws.get("posterior")).float()
+        cond = self.apply_conditioner(batch, train=True, generator=generator,
+                                      ucg_keep=draws.get("ucg_keep"))
+        cond = {k: _channels_first(v) for k, v in cond.items()}
+
+        def network(xin, c_noise, c, image_only_indicator=None, **unused):
+            out = self.network_fn(xin.permute(0, 3, 1, 2), c_noise, c, t, image_only_indicator)
+            return out.permute(0, 2, 3, 1)
+
+        loss_draws = draws if "noise" in draws else None
+        return self.loss_fn.loss_from_cond(network, self.denoiser, cond, z,
+                                           dict(batch, num_video_frames=t), global_step,
+                                           generator, loss_draws)
+
+    def trainable_parameter_names(self) -> Set[str]:
+        """Names of the parameters a training step updates (gcd_tpu engine.py
+        `trainable_mask`): the UNet's by `ft_strategy` ("everything", "time":
+        names holding "time", "dummy": one time_mixer), the conditioner's
+        embedders marked is_trainable, never the first stage."""
+        unet_prefix, emb_prefix = "model.diffusion_model.", "conditioner.embedders."
+        rules = {"everything": lambda key: True, "time": lambda key: "time" in key,
+                 "dummy": lambda key: DUMMY_TRAINABLE in key}
+        if self.ft_strategy not in rules:
+            if self.ft_strategy == "time_lora":
+                raise NotImplementedError("ft_strategy 'time_lora' trains LoRA adapters, "
+                                          "which the port does not have yet (later work)")
+            raise NotImplementedError(f"ft_strategy {self.ft_strategy!r}")
+        names = set()
+        for name, _ in self.named_parameters():
+            if name.startswith(unet_prefix):
+                keep = rules[self.ft_strategy](name[len(unet_prefix):])
+            elif name.startswith(emb_prefix):
+                keep = self.conditioner.is_trainable[int(name.split(".")[2])]
+            else:
+                keep = False
+            if keep:
+                names.add(name)
+        return names
 
     @torch.no_grad()
     def sample_latents(self, c: Dict, uc: Dict, noise: torch.Tensor,

@@ -8,13 +8,16 @@ The camera embedder is last in GCD's configs, so its output is the tail of
 
 Batch tensors and outputs keep the JAX package's layouts (frames
 (N, H, W, 3) in [-1, 1], concat latents (N, h, w, C)); the CLIP tower and the
-VAE encoder run channels-first inside. Every embedder here is frozen and
-deterministic at inference; the training-only per-embedder `ucg_rate`
-dropout arrives with the training slice.
+VAE encoder run channels-first inside. Every embedder is deterministic;
+those not marked `is_trainable` run without grad (the JAX package's
+stop_gradient). With `train=True` each embedder's output is zeroed per frame
+with probability `ucg_rate` (the conditioning dropout of training), from
+explicit keep masks or a torch.Generator.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -160,15 +163,32 @@ class SphericalEmbedder(nn.Module):
 
 class GeneralConditioner(nn.Module):
     """Runs the embedders of `emb_models` (reference config entries with
-    target / params / input_key) and assembles {vector, crossattn, concat}."""
+    target / params / input_key / is_trainable / ucg_rate) and assembles
+    {vector, crossattn, concat}."""
 
     def __init__(self, emb_models: Sequence[Dict] = ()):
         super().__init__()
         self.embedders = nn.ModuleList(instantiate_from_config(cfg) for cfg in emb_models)
         self.input_keys = [cfg["input_key"] for cfg in emb_models]
+        self.is_trainable = [bool(cfg.get("is_trainable", False)) for cfg in emb_models]
+        self.ucg_rates = [float(cfg.get("ucg_rate", 0.0)) for cfg in emb_models]
 
-    def _embed(self, batch: Dict) -> List[Tuple[str, torch.Tensor]]:
-        return [(key, emb(batch[key])) for key, emb in zip(self.input_keys, self.embedders)]
+    def _embed(self, batch: Dict, train: bool = False,
+               generator: Optional[torch.Generator] = None,
+               ucg_keep: Optional[Dict[int, torch.Tensor]] = None
+               ) -> List[Tuple[str, torch.Tensor]]:
+        out = []
+        for i, (key, emb) in enumerate(zip(self.input_keys, self.embedders)):
+            with nullcontext() if self.is_trainable[i] else torch.no_grad():
+                e = emb(batch[key])
+            if train and self.ucg_rates[i] > 0.0:
+                keep = (ucg_keep or {}).get(i)
+                if keep is None:
+                    keep = torch.rand(e.shape[0], generator=generator,
+                                      device=e.device) < 1.0 - self.ucg_rates[i]
+                e = keep.to(e.dtype).reshape(-1, *[1] * (e.dim() - 1)) * e
+            out.append((key, e))
+        return out
 
     @staticmethod
     def _route(embs: List[Tuple[str, torch.Tensor]],
@@ -182,9 +202,14 @@ class GeneralConditioner(nn.Module):
             out[name] = torch.cat([out[name], emb], dim=-1) if name in out else emb
         return out
 
-    def forward(self, batch: Dict,
-                force_zero_embeddings: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
-        return self._route(self._embed(batch), force_zero_embeddings)
+    def forward(self, batch: Dict, force_zero_embeddings: Optional[Sequence[str]] = None,
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                ucg_keep: Optional[Dict[int, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """With `train`, embedder i's output is kept per frame where
+        `ucg_keep[i]` ((N,), 1 keeps, 0 zeroes) says, or with probability
+        1 - ucg_rate drawn from `generator`."""
+        return self._route(self._embed(batch, train, generator, ucg_keep),
+                           force_zero_embeddings)
 
     def get_unconditional_conditioning(
             self, batch: Dict, force_uc_zero_embeddings: Optional[Sequence[str]] = None,

@@ -9,19 +9,30 @@ Interface (torch layout, flattened video batch):
                channels (camera embedding) feed `aux_label_emb`
     image_only_indicator: (B, T)
 Parameter names are the reference's (model.diffusion_model.* key space).
+
+With `use_checkpoint`, every VideoResBlock and SpatialVideoTransformer call
+that records a graph is rematerialised (torch.utils.checkpoint, non-reentrant;
+the blocks gcd_tpu/models/unet.py wraps in nn.remat): only the block's
+inputs are kept, and its forward runs again in the backward. That recompute
+runs on PyTorch's autograd thread, where the caller's kernel switches are
+not set, so it re-enters the switches the forward saw (`context_fn`) and
+takes the same kernels.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import List, Optional, Sequence, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gcd_tpu_torch.models.layers import GroupNorm32
 from gcd_tpu_torch.models.resblock import Downsample, Upsample, VideoResBlock
 from gcd_tpu_torch.models.video_attention import SpatialVideoTransformer
 from gcd_tpu_torch.ops.basic import timestep_embedding
+from gcd_tpu_torch.ops.dispatch import current_flags, kernel_flags
 
 
 class VideoUNet(nn.Module):
@@ -45,8 +56,8 @@ class VideoUNet(nn.Module):
         super().__init__()
         # The forms GCD's configs use; the JAX package's other options
         # (scale-shift norm, resblock up/down, conv proj-in, per-pixel
-        # context) are not ported. use_checkpoint and the attention backend
-        # name only matter for training / the reference's CUDA backends.
+        # context) are not ported. The attention backend name only matters
+        # for the reference's CUDA backends.
         if not (use_linear_in_transformer and use_spatial_context):
             raise NotImplementedError("VideoUNet port covers use_linear_in_transformer="
                                       "True, use_spatial_context=True")
@@ -58,6 +69,7 @@ class VideoUNet(nn.Module):
                   if isinstance(transformer_depth, int) else list(transformer_depth))
         depth_middle = transformer_depth_middle or depths[-1]
         self.model_channels = mc
+        self.use_checkpoint = use_checkpoint
         self.aux_emb_dim = aux_emb_dim
         self.adm_in_channels = adm_in_channels
 
@@ -122,12 +134,19 @@ class VideoUNet(nn.Module):
         self.out = nn.Sequential(GroupNorm32(ch, silu=True), nn.Identity(),
                                  nn.Conv2d(ch, out_channels, 3, padding=1))
 
+    def _remat(self, block: nn.Module, *args) -> torch.Tensor:
+        if not (self.use_checkpoint and torch.is_grad_enabled()):
+            return block(*args)
+        flags = current_flags()
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=lambda: (nullcontext(), kernel_flags(**flags)))
+
     def _run(self, layers: nn.ModuleList, h, emb, context, t, ioi):
         for layer in layers:
             if isinstance(layer, VideoResBlock):
-                h = layer(h, emb, ioi, t)
+                h = self._remat(layer, h, emb, ioi, t)
             elif isinstance(layer, SpatialVideoTransformer):
-                h = layer(h, context, t, ioi)
+                h = self._remat(layer, h, context, t, ioi)
             else:
                 h = layer(h)
         return h

@@ -281,21 +281,45 @@ class VideoDecoder(Decoder):
 
 
 class DiagonalGaussianDistribution:
-    """The VAE posterior over channel-split moments (N, 2z, h, w). Inference
-    uses its mode; posterior sampling arrives with training."""
+    """The VAE posterior over channel-split moments (N, 2z, h, w), logvar
+    clamped to [-30, 20] (gcd_tpu/models/vae.py:502-518)."""
 
     def __init__(self, moments: torch.Tensor):
         self.mean, logvar = moments.chunk(2, dim=1)
         self.logvar = logvar.clamp(-30.0, 20.0)
+        self.std = torch.exp(0.5 * self.logvar)
+
+    def sample(self, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std * noise, the unit Gaussian `noise` (N, z, h, w) given
+        or drawn in fp32 from `generator`."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device)
+        return self.mean + self.std * noise.to(self.mean.dtype)
 
     def mode(self) -> torch.Tensor:
         return self.mean
 
 
+class DiagonalGaussianRegularizer:
+    """The first stage's posterior: a sample (the default, as in training)
+    or the mode (gcd_tpu/models/vae.py:527-540). Returns the latent only;
+    the KL term is not part of GCD's loss."""
+
+    def __init__(self, sample: bool = True):
+        self.sample = sample
+
+    def __call__(self, moments: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        posterior = DiagonalGaussianDistribution(moments)
+        return posterior.sample(generator, noise) if self.sample else posterior.mode()
+
+
 class AutoencodingEngine(nn.Module):
     """First-stage VAE wrapper (`first_stage_model.{encoder,decoder}.*`), no
-    quant convs. The regularizer and loss configs are accepted for config
-    parity; `encode` returns the posterior mode."""
+    quant convs. `encode` goes through the configured regularizer, by
+    default a DiagonalGaussianRegularizer that samples the posterior; the
+    loss config is accepted for config parity."""
 
     def __init__(self, encoder_config: dict, decoder_config: dict,
                  regularizer_config: Optional[dict] = None,
@@ -303,9 +327,14 @@ class AutoencodingEngine(nn.Module):
         super().__init__()
         self.encoder = instantiate_from_config(encoder_config)
         self.decoder = instantiate_from_config(decoder_config)
+        self.regularization = (instantiate_from_config(regularizer_config)
+                               if regularizer_config else DiagonalGaussianRegularizer())
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return DiagonalGaussianDistribution(self.encoder(x)).mode()
+    def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (N, 3, H, W) -> latents (N, z, H/8, W/8); a posterior sample
+        takes `noise` (N, z, H/8, W/8) or draws it from `generator`."""
+        return self.regularization(self.encoder(x), generator, noise)
 
     def decode(self, z: torch.Tensor, timesteps: int) -> torch.Tensor:
         return self.decoder(z, timesteps)

@@ -1,5 +1,10 @@
-from gcd_tpu_torch.ops.dispatch import kernel_enabled, kernel_flags
-from gcd_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from gcd_tpu_torch.ops.dispatch import current_flags, kernel_enabled, kernel_flags
+from gcd_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+)
 from gcd_tpu_torch.ops.fused_mlp import geglu_mlp, geglu_mlp_plain
 from gcd_tpu_torch.ops.fused_norm import (
     group_norm,
@@ -13,5 +18,6 @@ from gcd_tpu_torch.ops.temporal_attention import (
 )
 
 # The port's kernel wrappers, each with a plain-integer `launches` count.
-KERNELS = {"flash": flash_attention, "tattn": temporal_attention,
+KERNELS = {"flash": flash_attention, "flash_bwd": flash_attention_bwd,
+           "tattn": temporal_attention,
            "fused_mlp": geglu_mlp, "fused_gn": group_norm, "gn_stats": group_stats}

@@ -24,8 +24,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_attention.cu", "temporal_attention.cu", "fused_mlp.cu",
-           "fused_norm.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "temporal_attention.cu",
+           "fused_mlp.cu", "fused_norm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +36,7 @@ _L = ctypes.c_longlong
 # C signatures: device pointers, then sizes, then the stream.
 _SIGNATURES = {
     "gcd_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "gcd_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "gcd_temporal_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "gcd_geglu_mlp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gcd_group_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P),

@@ -4,6 +4,7 @@ Same thread-local pattern as gcd_tpu/ops/dispatch.py (kernel_flags /
 kernel_enabled), reduced to the kernels the port has:
 
   flash      K1, spatial multi-head self-attention (ops/flash_attention.py)
+  flash_bwd  K6, its backward (ops/flash_attention.py flash_attention_bwd)
   tattn      K2, frame-axis temporal attention (ops/temporal_attention.py)
   fused_mlp  K3, fused GEGLU feed-forward (ops/fused_mlp.py)
   fused_gn   K4, GroupNorm(+SiLU) (ops/fused_norm.py group_norm)
@@ -13,6 +14,12 @@ kernel_enabled), reduced to the kernels the port has:
 All default to on. `with kernel_flags(flash=False): ...` makes the wrapper
 run its plain PyTorch version on CUDA tensors too, which is how the kernel
 on/off A/B in chip_smoke.py is made. There are no environment overrides.
+
+The switches are per thread, and PyTorch runs a CUDA backward on an autograd
+thread of its own, where the stack is empty. So whatever runs in a backward
+is told its path explicitly: the attention Function records `flash_bwd` at
+forward, and the UNet's rematerialised blocks re-enter the caller's
+`current_flags()` for their recompute (models/unet.py).
 """
 
 from __future__ import annotations
@@ -20,8 +27,8 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 
-_DEFAULTS = {"flash": True, "tattn": True, "fused_mlp": True, "fused_gn": True,
-             "gn_stats": True}
+_DEFAULTS = {"flash": True, "flash_bwd": True, "tattn": True, "fused_mlp": True,
+             "fused_gn": True, "gn_stats": True}
 
 _tls = threading.local()
 
@@ -39,6 +46,11 @@ def kernel_enabled(name: str) -> bool:
         if name in frame:
             return frame[name]
     return _DEFAULTS[name]
+
+
+def current_flags() -> dict:
+    """Every switch's effective value for the calling thread."""
+    return {name: kernel_enabled(name) for name in _DEFAULTS}
 
 
 @contextmanager

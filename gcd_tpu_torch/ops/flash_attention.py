@@ -1,39 +1,58 @@
-"""K1: multi-head self-attention on the natural (B, S, H*D) layout.
+"""K1 / K6: multi-head self-attention on the natural (B, S, H*D) layout, and
+its backward.
 
-Port of gcd_tpu/ops/flash_attention.py (`_mh_kernel`, entry
-`flash_attention`). The CUDA kernel is csrc/flash_attention.cu;
-`flash_attention_plain` is the same computation in plain PyTorch, with the
-same fp32 islands and bf16 rounding points: fp32 logits, unnormalised
+Port of gcd_tpu/ops/flash_attention.py: `_mh_kernel` (K1, entry
+`flash_attention`) and `_bwd_kernel` (K6, entry `flash_attention_bwd`), with
+the JAX package's custom_vjp (`_flash3`) as a torch.autograd.Function. The
+CUDA kernels are csrc/flash_attention.cu and csrc/flash_attention_bwd.cu.
+
+`flash_attention_plain` is K1's computation in plain PyTorch, with the same
+fp32 islands and bf16 rounding points: fp32 logits, unnormalised
 P = exp(s - max) cast to the input dtype for the PV product, fp32
 accumulation, division by the row sum after PV.
 
-`flash_attention` takes the plain version for CPU tensors, or when
-`kernel_flags(flash=False)` is set; on a CUDA tensor it launches the kernel
-or raises.
+`flash_attention_bwd_plain` is K6's: fp32 logits, the exact normalised P in
+fp32 (not the forward's bf16 P), dV = P^T dO and dP = dO V^T in fp32,
+delta = rowsum(dP * P), dS = P (dP - delta) scale rounded to the input dtype
+before dQ = dS K and dK = dS^T Q, fp32 accumulation, results in the input
+dtype. Its gradient is that of exact attention whichever forward ran, as in
+the JAX package.
+
+Each wrapper takes its plain version for CPU tensors, or under
+`kernel_flags(flash=False)` / `kernel_flags(flash_bwd=False)`; on a CUDA
+tensor it launches its kernel or raises. The backward's path is the
+`flash_bwd` switch as it stood at the forward: PyTorch runs a CUDA backward
+on its own thread, where the caller's switches are not set.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from gcd_tpu_torch.ops import _native
-from gcd_tpu_torch.ops.dispatch import kernel_enabled
+from gcd_tpu_torch.ops.dispatch import kernel_enabled, kernel_flags
 
 KERNEL_HEAD_DIMS = (64, 128)
+
+
+def _heads_first(z: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, H*D) -> (B, H, S, D) fp32."""
+    b, s, hd = z.shape
+    return z.reshape(b, s, heads, hd // heads).transpose(1, 2).float()
+
+
+def _scale(hd: int, heads: int, scale: Optional[float]) -> float:
+    return float((hd // heads) ** -0.5 if scale is None else scale)
 
 
 def flash_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                           heads: int, scale: Optional[float] = None) -> torch.Tensor:
     """(B, Sq, H*D) x (B, Skv, H*D) -> (B, Sq, H*D), dtype of q3."""
     b, sq, hd = q3.shape
-    skv = k3.shape[1]
-    d = hd // heads
-    scale = float(d ** -0.5 if scale is None else scale)
-    qh = q3.reshape(b, sq, heads, d).transpose(1, 2).float()
-    kh = k3.reshape(b, skv, heads, d).transpose(1, 2).float()
-    vh = v3.reshape(b, skv, heads, d).transpose(1, 2).float()
+    scale = _scale(hd, heads, scale)
+    qh, kh, vh = (_heads_first(z, heads) for z in (q3, k3, v3))
     logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     denom = p.sum(dim=-1, keepdim=True)
@@ -41,9 +60,35 @@ def flash_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     return out.transpose(1, 2).reshape(b, sq, hd).to(q3.dtype)
 
 
-def flash_attention(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
-                    heads: int, scale: Optional[float] = None) -> torch.Tensor:
-    """Self-attention on (B, S, H*D) tokens; K1 on CUDA (bf16, D in {64, 128})."""
+def flash_attention_bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                              do3: torch.Tensor, heads: int,
+                              scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of self-attention w.r.t. q3, k3, v3 given the output's
+    gradient do3, all (B, S, H*D), in the dtypes of q3, k3, v3
+    (gcd_tpu/ops/flash_attention.py:_bwd_kernel)."""
+    b, sq, hd = q3.shape
+    skv = k3.shape[1]
+    scale = _scale(hd, heads, scale)
+    qh, kh, vh, doh = (_heads_first(z, heads) for z in (q3, k3, v3, do3))
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.matmul(ds.to(k3.dtype).float(), kh)
+    dk = torch.matmul(ds.to(q3.dtype).float().transpose(-1, -2), qh)
+
+    def back(z, s, dtype):
+        return z.transpose(1, 2).reshape(b, s, hd).to(dtype)
+
+    return back(dq, sq, q3.dtype), back(dk, skv, k3.dtype), back(dv, skv, v3.dtype)
+
+
+def _flash_forward(q3, k3, v3, heads: int, scale: Optional[float]) -> torch.Tensor:
+    """K1 on CUDA, the plain version on the CPU or under flash=False."""
     if q3.device.type == "cpu" or not kernel_enabled("flash"):
         return flash_attention_plain(q3, k3, v3, heads, scale)
     b, sq, hd = q3.shape
@@ -51,15 +96,67 @@ def flash_attention(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     if hd % heads or hd // heads not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd}/{heads} not in {KERNEL_HEAD_DIMS}")
     d = hd // heads
-    scale = float(d ** -0.5 if scale is None else scale)
     _native.check_cuda_operand("q", q3, torch.bfloat16, (b, sq, hd))
     _native.check_cuda_operand("k", k3, torch.bfloat16, (b, skv, hd))
     _native.check_cuda_operand("v", v3, torch.bfloat16, (b, skv, hd))
     out = torch.empty_like(q3)
     _native.launch("gcd_flash_attention", q3.data_ptr(), k3.data_ptr(),
-                   v3.data_ptr(), out.data_ptr(), b, sq, skv, heads, d, scale)
+                   v3.data_ptr(), out.data_ptr(), b, sq, skv, heads, d,
+                   _scale(hd, heads, scale))
     flash_attention.launches += 1
     return out
 
 
+def flash_attention_bwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                        do3: torch.Tensor, heads: int, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of self-attention on (B, S, H*D); K6 on CUDA (bf16,
+    D in {64, 128}, Sq = Skv)."""
+    if q3.device.type == "cpu" or not kernel_enabled("flash_bwd"):
+        return flash_attention_bwd_plain(q3, k3, v3, do3, heads, scale)
+    b, s, hd = q3.shape
+    if hd % heads or hd // heads not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {hd}/{heads} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    h, d = heads, hd // heads
+    for name, z in (("q", q3), ("k", k3), ("v", v3), ("do", do3)):
+        _native.check_cuda_operand(name, z, torch.bfloat16, (b, s, hd))
+    dq, dk, dv = (torch.empty_like(q3) for _ in range(3))
+    # Per (b, h, row): the row max, the row sum of exp(s - max) and delta.
+    stats = torch.empty((3, b * h * s), dtype=torch.float32, device=q3.device)
+    _native.launch("gcd_flash_attention_bwd", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                   do3.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                   stats.data_ptr(), b, s, h, d, _scale(hd, heads, scale))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K6 backward (gcd_tpu/ops/flash_attention.py `_flash3`):
+    saves q, k, v, and the `flash_bwd` switch of the forward's thread."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, heads, scale):
+        ctx.save_for_backward(q3, k3, v3)
+        ctx.heads, ctx.scale = heads, scale
+        ctx.flash_bwd = kernel_enabled("flash_bwd")
+        return _flash_forward(q3, k3, v3, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q3, k3, v3 = ctx.saved_tensors
+        with kernel_flags(flash_bwd=ctx.flash_bwd):
+            dq, dk, dv = flash_attention_bwd(q3, k3, v3, g.contiguous(), ctx.heads,
+                                             ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                    heads: int, scale: Optional[float] = None) -> torch.Tensor:
+    """Self-attention on (B, S, H*D) tokens; K1 on CUDA (bf16, D in {64, 128}),
+    differentiable through K6."""
+    return _FlashAttention.apply(q3, k3, v3, heads, scale)
+
+
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -13,7 +13,9 @@ wrapper allocates.
 
 `geglu_mlp` takes the plain version for CPU tensors, or when
 `kernel_flags(fused_mlp=False)` is set; on a CUDA tensor it launches the
-kernel or raises.
+kernel or raises. Its gradient is that of the plain version (the same erf
+GELU), recomputed from the saved inputs (ops/recompute.py; gcd_tpu's
+fused_mlp `_bwd`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
+from gcd_tpu_torch.ops.recompute import PlainGradient
 
 
 def geglu_mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -40,6 +43,11 @@ def geglu_mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def geglu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """GEGLU MLP; K3 on CUDA (bf16, C a multiple of 64, I of 256, C_out of 16)."""
+    return PlainGradient.apply(_geglu_forward, geglu_mlp_plain, x, w1, b1, w2, b2)
+
+
+def _geglu_forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu" or not kernel_enabled("fused_mlp"):
         return geglu_mlp_plain(x, w1, b1, w2, b2)
     c = x.shape[-1]

@@ -21,18 +21,22 @@ FUSED_MAX_VALUES values; larger groups and every channels-last tensor take
 K5 (`group_stats`) first and K4's apply pass after it. Each wrapper takes its
 plain version for CPU tensors, or under `kernel_flags(fused_gn=False)` /
 `kernel_flags(gn_stats=False)`; on a CUDA tensor it launches its kernel or
-raises.
+raises. `group_norm`'s gradient is that of `group_norm_plain`, recomputed
+from the saved x, weight and bias (ops/recompute.py; gcd_tpu's fused_norm
+`_bwd`); K5 runs inside its forward only.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Tuple
 
 import torch
 
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
+from gcd_tpu_torch.ops.recompute import PlainGradient
 
 # Largest group normalised in one pass (96 KB of bf16 in one block's shared
 # memory); must equal FUSED_MAX in csrc/fused_norm.cu.
@@ -140,6 +144,13 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                num_groups: int, eps: float, silu: bool) -> torch.Tensor:
     """GroupNorm(+SiLU) over dim 1; K4 on CUDA (bf16 x, weight and bias).
     The result has x's memory layout."""
+    args = dict(num_groups=num_groups, eps=eps, silu=silu)
+    return PlainGradient.apply(partial(_group_norm_forward, **args),
+                               partial(group_norm_plain, **args), x, weight, bias)
+
+
+def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                        num_groups: int, eps: float, silu: bool) -> torch.Tensor:
     if x.device.type == "cpu" or not kernel_enabled("fused_gn"):
         return group_norm_plain(x, weight, bias, num_groups, eps, silu)
     lay = _layout(x, num_groups, "group_norm")

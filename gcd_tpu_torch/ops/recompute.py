@@ -1,0 +1,37 @@
+"""The autograd Function of the kernels whose JAX backward is XLA, not Pallas.
+
+K2, K3 and K4 each have a custom_vjp in the JAX package whose backward is
+the vjp of the plain computation, recomputed from the saved inputs
+(gcd_tpu/ops/temporal_attention.py `_temporal_bwd`, fused_mlp.py `_bwd`,
+fused_norm.py `_bwd`). `PlainGradient` is that rule: its forward is the
+kernel's wrapper, its backward the gradient of the plain PyTorch version,
+recomputed under `torch.enable_grad()`. The same Function runs on the CPU,
+where the forward is the plain version too.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+class PlainGradient(torch.autograd.Function):
+    """apply(run, plain, *tensors): forward `run(*tensors)`; backward the
+    gradient of `plain(*tensors)` w.r.t. the tensors that need one."""
+
+    @staticmethod
+    def forward(ctx, run: Callable, plain: Callable, *tensors):
+        ctx.plain = plain
+        ctx.save_for_backward(*tensors)
+        return run(*tensors)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = ctx.plain(*inputs)
+            grads = iter(torch.autograd.grad(out, [t for t, n in zip(inputs, need) if n],
+                                             grad))
+        return (None, None, *(next(grads) if n else None for n in need))

@@ -9,17 +9,20 @@ dtype for PV and division after PV.
 
 `temporal_attention` takes the plain version for CPU tensors, or when
 `kernel_flags(tattn=False)` is set; on a CUDA tensor it launches the kernel
-or raises.
+or raises. Its gradient is that of the plain version, recomputed from the
+saved q, k, v (ops/recompute.py; gcd_tpu's `_temporal_bwd`).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
+from gcd_tpu_torch.ops.recompute import PlainGradient
 
 MAX_FRAMES = 16
 MAX_HEAD_DIM = 128
@@ -51,6 +54,13 @@ def temporal_attention(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        scale: Optional[float] = None) -> torch.Tensor:
     """Frame-axis attention on (B*T, S, H*D) tokens; K2 on CUDA (bf16,
     T <= 16, even D <= 128)."""
+    args = dict(timesteps=timesteps, heads=heads, scale=scale)
+    return PlainGradient.apply(partial(_temporal_forward, **args),
+                               partial(temporal_attention_plain, **args), q3, k3, v3)
+
+
+def _temporal_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                      timesteps: int, heads: int, scale: Optional[float]) -> torch.Tensor:
     if q3.device.type == "cpu" or not kernel_enabled("tattn"):
         return temporal_attention_plain(q3, k3, v3, timesteps, heads, scale)
     bt, s, c = q3.shape

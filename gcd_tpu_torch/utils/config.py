@@ -25,6 +25,8 @@ REGISTRY = {
         "gcd_tpu_torch.models.vae.AutoencodingEngine",
     "sgm.models.autoencoder.AutoencoderKLModeOnly":
         "gcd_tpu_torch.models.vae.AutoencoderKLModeOnly",
+    "sgm.modules.autoencoding.regularizers.DiagonalGaussianRegularizer":
+        "gcd_tpu_torch.models.vae.DiagonalGaussianRegularizer",
     "sgm.modules.diffusionmodules.model.Encoder":
         "gcd_tpu_torch.models.vae.Encoder",
     "sgm.modules.diffusionmodules.model.Decoder":
@@ -57,6 +59,28 @@ REGISTRY = {
         "gcd_tpu_torch.diffusion.guiders.LinearPredictionGuider",
     "sgm.modules.diffusionmodules.sampling.EulerEDMSampler":
         "gcd_tpu_torch.diffusion.sampling.EulerEDMSampler",
+    "sgm.modules.diffusionmodules.loss.StandardDiffusionLoss":
+        "gcd_tpu_torch.diffusion.loss.StandardDiffusionLoss",
+    "sgm.modules.diffusionmodules.sigma_sampling.EDMSampling":
+        "gcd_tpu_torch.diffusion.sigma_sampling.EDMSampling",
+    "sgm.modules.diffusionmodules.sigma_sampling.DiscreteSampling":
+        "gcd_tpu_torch.diffusion.sigma_sampling.DiscreteSampling",
+    "sgm.modules.diffusionmodules.loss_weighting.UnitWeighting":
+        "gcd_tpu_torch.diffusion.weighting.UnitWeighting",
+    "sgm.modules.diffusionmodules.denoiser_weighting.UnitWeighting":
+        "gcd_tpu_torch.diffusion.weighting.UnitWeighting",
+    "sgm.modules.diffusionmodules.loss_weighting.EDMWeighting":
+        "gcd_tpu_torch.diffusion.weighting.EDMWeighting",
+    "sgm.modules.diffusionmodules.denoiser_weighting.EDMWeighting":
+        "gcd_tpu_torch.diffusion.weighting.EDMWeighting",
+    "sgm.modules.diffusionmodules.loss_weighting.VWeighting":
+        "gcd_tpu_torch.diffusion.weighting.VWeighting",
+    "sgm.modules.diffusionmodules.denoiser_weighting.VWeighting":
+        "gcd_tpu_torch.diffusion.weighting.VWeighting",
+    "sgm.modules.diffusionmodules.loss_weighting.EpsWeighting":
+        "gcd_tpu_torch.diffusion.weighting.EpsWeighting",
+    "sgm.modules.diffusionmodules.denoiser_weighting.EpsWeighting":
+        "gcd_tpu_torch.diffusion.weighting.EpsWeighting",
 }
 
 
