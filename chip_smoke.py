@@ -12,31 +12,45 @@ without the final `ok` line):
                    one conditioner pass on a random 14-frame 384x256 batch;
                    checks the shapes of c and uc.
   4. kernels     - records every GroupNorm shape of that conditioner pass,
-                   one CFG-doubled UNet evaluation and one 14-frame decode
-                   (forward hooks), then holds each CUDA kernel against its
-                   plain PyTorch version at every main-path shape, bf16,
-                   relative L2 <= 1e-2 (each output): K1 flash attention, K6
-                   its backward, K2 temporal attention, K3 fused GEGLU MLP,
-                   K4 GroupNorm, K5 group statistics; K4 / K5 also on
-                   channels-first copies of those shapes; K4, K5 and K6
-                   bit-identical on a second call. CUDA-event and host
-                   enqueue times beside the bound and the one-call library
-                   equivalent.
+                   one CFG-doubled UNet evaluation and one 14-frame decode,
+                   and every K7 site of the UNet evaluation (forward hooks),
+                   then holds each CUDA kernel against its plain PyTorch
+                   version at every main-path shape, bf16, relative
+                   L2 <= 1e-2 (each output): K1 flash attention, K6 its
+                   backward, K2 temporal attention, K3 fused GEGLU MLP, K4
+                   GroupNorm, K5 group statistics, K7 GroupNorm -> SiLU ->
+                   3x3 conv (its 14 UNet shapes at N = 28, and at N = 56,
+                   the served batch); K4 / K5 also on channels-first copies of those
+                   shapes; K4, K5, K6 and K7 bit-identical on a second call.
+                   CUDA-event and host enqueue times beside the bound and the
+                   one-call library equivalent.
   5. ab          - the flagship UNet evaluation, the decode and the
                    conditioner with every kernel on vs off (relative
                    L2 <= 2e-2); the UNet's and the decode's wall times and
                    torch.profiler device time by kernel, with the GroupNorm
-                   kernels on vs off.
+                   kernels on vs off and with K7 on vs off.
   6. slice       - two requests through DiffusionEngine.sample_video:
                    random 14-frame 384x256 clips and camera moves, 25
                    Euler-EDM steps with per-frame CFG up to 1.5, one 14-frame
                    decode; checks the frames and each kernel's launch count.
+  served         - the same engine behind SamplerServer(max_batch=2) and the
+                   HTTP handler of gcd_tpu_torch.serve on 127.0.0.1: four
+                   concurrent POST /sample requests built with
+                   construct_batch from random clips and four camera moves
+                   answered in two batches of two clips (B*T = 56 in the
+                   UNet), GET /healthz, then request 0 again alone (a padded
+                   batch) with its seed, within 2e-2 of its batched frames;
+                   checks the frames and the launch counts of the two
+                   batches (from phase 4's site counts); wall time per
+                   batch, served frames/s, peak memory; then one batch timed
+                   with K7 on and off, frames within 2e-2.
   7. train       - load_trainer(configs/train_kubric_max90.yaml): random
                    bf16 weights, fp32 masters and Adam; a seeded batch of 2
                    clips of 14 frames at 384x256 (B*T = 28). One step's loss
                    and UNet gradient with every kernel on vs off (kernel
                    launches 0 when off: the rematerialised blocks' recompute
-                   on the autograd thread takes the caller's switches); then
+                   on the autograd thread takes the caller's switches), and
+                   timed with K7 on vs off; then
                    five Adam steps, each with a finite loss, a finite
                    gradient on every trainable parameter (zero only where the
                    graph does not reach), updated masters and weights, the
@@ -94,7 +108,8 @@ FP32_FLOPS = 67e12
 PROFILE_TAGS = {"flash": ("flash_attention_kernel",), "flash_bwd": ("rows_kernel", "dkdv_kernel"),
                 "tattn": ("temporal_attention_kernel",),
                 "fused_mlp": ("geglu_mlp_kernel", "bias_round_kernel"),
-                "fused_gn_and_gn_stats": ("group_norm", "group_stats")}
+                "fused_gn_and_gn_stats": ("group_norm", "group_stats"),
+                "fused_gn_conv": ("gn_silu_conv3x3_kernel",)}
 LEVELS = [("ds1", 1536, 320, 5), ("ds2", 384, 640, 5), ("ds4", 96, 1280, 5),
           ("mid", 24, 1280, 1)]
 SOURCES = {
@@ -110,7 +125,14 @@ SOURCES = {
                  "gcd_tpu/ops/fused_norm.py:34"),
     "gn_stats": ("gcd_tpu_torch/csrc/fused_norm.cu",
                  "gcd_tpu/ops/fused_norm.py:94"),
+    "fused_gn_conv": ("gcd_tpu_torch/csrc/fused_gn_conv.cu",
+                      "gcd_tpu/ops/fused_gn_conv.py:42"),
 }
+SERVE_BATCH = 2   # clips per served batch
+SERVE_REQUESTS = 4
+SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
+# (azimuth, elevation, radius) of the served requests' camera moves.
+SERVE_MOVES = [(30.0, 10.0, 0.0), (-20.0, 5.0, 0.0), (60.0, -10.0, 0.0), (0.0, 25.0, 0.0)]
 
 
 def log(phase: str, **fields) -> None:
@@ -221,13 +243,16 @@ def memory_layout(x: torch.Tensor) -> str:
 
 
 @contextmanager
-def record_groupnorms(engine, counter: Counter):
-    """Count every GroupNorm32 call by (shape, memory layout, eps, silu)."""
+def record_groupnorms(engine, counter: Counter, split: Counter):
+    """Count every GroupNorm32 call by (shape, memory layout, eps, silu), and
+    in split["calls"] those that run K5 before K4."""
     from gcd_tpu_torch.models.layers import GroupNorm32
+    from gcd_tpu_torch.ops.fused_norm import uses_split_path
 
     def hook(mod, inputs, _):
         x = inputs[0]
         counter[(tuple(x.shape), memory_layout(x), mod.eps, mod.silu)] += 1
+        split["calls"] += int(uses_split_path(x, mod.num_groups))
 
     handles = [m.register_forward_hook(hook) for m in engine.modules()
                if isinstance(m, GroupNorm32)]
@@ -236,6 +261,44 @@ def record_groupnorms(engine, counter: Counter):
     finally:
         for h in handles:
             h.remove()
+
+
+@contextmanager
+def record_gn_conv_sites(engine, counter: Counter):
+    """Count every K7 call of the 2D ResBlocks by (N, C, H, W, F): the
+    in_layers chain on x, the out_layers chain on (N, F, H, W)."""
+    from gcd_tpu_torch.models.resblock import ResBlock
+    from gcd_tpu_torch.ops import kernel_enabled
+    from gcd_tpu_torch.ops.fused_gn_conv import supported
+
+    def hook(mod, inputs, _):
+        x = inputs[0]
+        if x.dim() != 4 or not kernel_enabled("fused_gn_conv"):
+            return
+        n, c, h, w = x.shape
+        for conv, ch in zip(mod.fused_convs(), (c, mod.in_layers[2].out_channels)):
+            if supported(torch.empty(n, ch, h, w, device="meta"), conv.weight, G):
+                counter[(n, ch, h, w, conv.out_channels)] += 1
+
+    handles = [m.register_forward_hook(hook) for m in engine.modules()
+               if isinstance(m, ResBlock) and m.fused_convs()]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def gn_conv_modules(unet) -> int:
+    """The K7 sites of one UNet evaluation: two per 2D ResBlock."""
+    from gcd_tpu_torch.models.resblock import ResBlock
+
+    return sum(len(m.fused_convs()) for m in unet.modules() if isinstance(m, ResBlock))
+
+
+def gn_conv_label(site) -> str:
+    n, c, h, w, f = site
+    return f"({n},{c},{h},{w}) -> F={f}"
 
 
 def site_label(site) -> str:
@@ -342,9 +405,34 @@ def groupnorm_cases(gen: torch.Generator, sites: Counter):
                2 * n + 16 * shape[0] * G, 2 * n, FP32_FLOPS)
 
 
+def gn_conv_cases(gen: torch.Generator, sites: Counter):
+    """K7 cases at every recorded site: `sites` maps (N, C, H, W, F) to
+    launches per clip. The library call is one cuDNN conv (channels-last)
+    on the already-normalised input: the conv alone, nearly all the FLOPs."""
+    from gcd_tpu_torch.ops import gn_silu_conv3x3, gn_silu_conv3x3_plain, group_norm_plain
+
+    for (n, c, h, w, f), per_clip in sorted(sites.items()):
+        def randn(*shape, std=1.0, mean=0.0):
+            return (torch.randn(*shape, generator=gen, device="cuda") * std + mean).to(
+                torch.bfloat16)
+
+        x = randn(n, h, w, c, std=2.0, mean=0.5).permute(0, 3, 1, 2)
+        gw, gb = randn(c, std=0.1, mean=1.0), randn(c, std=0.1)
+        wt = randn(f, c, 3, 3, std=(9 * c) ** -0.5).contiguous(memory_format=torch.channels_last)
+        b = randn(f, std=0.1)
+        normed = group_norm_plain(x, gw, gb, G, 1e-5, True).contiguous(
+            memory_format=torch.channels_last)
+        yield ("fused_gn_conv", gn_conv_label((n, c, h, w, f)), per_clip,
+               lambda a=(x, gw, gb, wt, b): gn_silu_conv3x3(*a, G, 1e-5, True),
+               lambda a=(x, gw, gb, wt, b): gn_silu_conv3x3_plain(*a, G, 1e-5, True),
+               lambda y=normed, wt=wt, b=b: F.conv2d(y, wt, b, padding=1),
+               2 * (x.numel() + wt.numel() + n * f * h * w + 2 * c + f),
+               2 * n * h * w * 9 * c * f, BF16_FLOPS)
+
+
 def serve(smi: str):
     """Phases 3-6. Returns (per-kernel statistics of phase 4, launches over
-    phase 6's requests)."""
+    phase 6's requests, the engine)."""
     from gcd_tpu_torch.engine.build import load_engine
     from gcd_tpu_torch.models.attention import BasicTransformerBlock
     from gcd_tpu_torch.models.embedders import VideoPredictionEmbedderWithEncoder
@@ -362,8 +450,10 @@ def serve(smi: str):
     gen = torch.Generator("cuda").manual_seed(SEED + 2)
     batch = random_batch(gen)
     gn_calls = {"cond": Counter(), "unet": Counter(), "decode": Counter()}
+    gn_split = {stage: Counter() for stage in gn_calls}
+    gn_conv_calls = Counter()
     with torch.no_grad():
-        with record_groupnorms(engine, gn_calls["cond"]):
+        with record_groupnorms(engine, gn_calls["cond"], gn_split["cond"]):
             c, uc = engine.get_unconditional_conditioning(batch, UC_KEYS)
         _, cond_s = wall_s(lambda: engine.get_unconditional_conditioning(batch, UC_KEYS))
     want = {"crossattn": (T, 1, 1024), "vector": (T, 896), "concat": (T, HL, WL, 4)}
@@ -397,24 +487,38 @@ def serve(smi: str):
         return engine.decode_first_stage(z, T)
 
     with torch.no_grad():
-        with record_groupnorms(engine, gn_calls["unet"]):
+        with record_groupnorms(engine, gn_calls["unet"], gn_split["unet"]), \
+                record_gn_conv_sites(engine, gn_conv_calls):
             denoise()
-        with record_groupnorms(engine, gn_calls["decode"]):
+        with record_groupnorms(engine, gn_calls["decode"], gn_split["decode"]):
             decode()
     cond_encoders = [m.encoder.encoder for m in engine.conditioner.embedders
                      if isinstance(m, VideoPredictionEmbedderWithEncoder)]
+    # K7 takes the GroupNorm of 44 chains of the UNet: those GroupNorm32
+    # modules are not called.
+    k7_sites = gn_conv_modules(unet)
     gn_modules = {"cond": sum(count_modules(e, GroupNorm32) for e in cond_encoders),
-                  "unet": count_modules(unet, GroupNorm32),
+                  "unet": count_modules(unet, GroupNorm32) - k7_sites,
                   "decode": count_modules(engine.first_stage_model.decoder, GroupNorm32)}
     gn_per_pass = {stage: sum(calls.values()) for stage, calls in gn_calls.items()}
-    if gn_per_pass != gn_modules:
-        raise RuntimeError(f"GroupNorm calls per pass {gn_per_pass} != modules {gn_modules}")
+    if gn_per_pass != gn_modules or sum(gn_conv_calls.values()) != k7_sites:
+        raise RuntimeError(f"GroupNorm calls per pass {gn_per_pass} != modules {gn_modules}, "
+                           f"or K7 calls {sum(gn_conv_calls.values())} != sites {k7_sites}")
     per_clip = {"cond": 1, "unet": steps, "decode": 1}
     gn_sites = Counter()
     for stage, calls in gn_calls.items():
         for key, n in calls.items():
             gn_sites[key] += per_clip[stage] * n
-    log("groupnorm_sites", per_pass=gn_per_pass, distinct_shapes=len(gn_sites))
+    log("groupnorm_sites", per_pass=gn_per_pass, distinct_shapes=len(gn_sites),
+        gn_conv_per_pass=k7_sites, gn_conv_shapes=len(gn_conv_calls))
+    gn_conv_sites = Counter({site: steps * n for site, n in gn_conv_calls.items()})
+    # The served batch's shapes (B*T = 56 in the UNet): 0 launches per clip,
+    # `served_k7` launches per served batch.
+    served_k7 = {}
+    for (n, *rest), calls in gn_conv_calls.items():
+        site = (n * SERVE_BATCH, *rest)
+        gn_conv_sites[site] += 0
+        served_k7[gn_conv_label(site)] = steps * calls
     # The path's tensors are channels-last; K4 / K5 also take channels-first
     # ones (contiguous, and the time_stack view of a contiguous video), which
     # are held against the plain versions at the same shapes, 0 launches per
@@ -432,7 +536,9 @@ def serve(smi: str):
                     "library_ms": None, "t_bytes": 0.0, "t_ops": 0.0, "per_clip": 0}
              for name in KERNELS}
     gn_ms = {}  # site label -> (K4 ms, plain ms) per call
-    cases = itertools.chain(attention_mlp_cases(gen, steps), groupnorm_cases(gen, gn_checked))
+    served_k7_ms = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    cases = itertools.chain(attention_mlp_cases(gen, steps), groupnorm_cases(gen, gn_checked),
+                            gn_conv_cases(gen, gn_conv_sites))
     for name, label, n_clip, run, plain, library, nbytes, flops, peak in cases:
         out = run()
         torch.cuda.synchronize()
@@ -448,7 +554,8 @@ def serve(smi: str):
             library_host_ms=lib_host_ms, card=smi)
         if not err <= KERNEL_TOL:
             raise RuntimeError(f"{name} {label}: relative L2 {err} > {KERNEL_TOL}")
-        if name in ("fused_gn", "gn_stats", "flash_bwd") and rel_l2(run(), out) != 0.0:
+        if (name in ("fused_gn", "gn_stats", "flash_bwd", "fused_gn_conv")
+                and rel_l2(run(), out) != 0.0):
             raise RuntimeError(f"{name} {label}: two calls differ (no atomics: must not)")
         st = stats[name]
         st["max_abs_err"] = max(st["max_abs_err"], err_abs)
@@ -462,16 +569,23 @@ def serve(smi: str):
             st["library_ms"] = (st["library_ms"] or 0.0) + n_clip * lib_ms
         if name == "fused_gn" and n_clip:
             gn_ms[label] = (ms, plain_ms)
+        if name == "fused_gn_conv" and label in served_k7:
+            for key, t in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                           ("bound_ms", b_ms)):
+                served_k7_ms[key] += served_k7[label] * t
         del out, ref, run, plain, library
     torch.cuda.empty_cache()
     by_stage = {stage: {"k4_ms": sum(n * gn_ms[site_label(k)][0] for k, n in calls.items()),
                         "plain_ms": sum(n * gn_ms[site_label(k)][1] for k, n in calls.items())}
                 for stage, calls in gn_calls.items()}
     log("groupnorm_per_pass", **by_stage, card=smi)
+    log("gn_conv_served", per_batch=served_k7_ms, launches_per_batch=sum(served_k7.values()),
+        card=smi)
 
     # Phase 5: the modules with the kernels on vs off, and timed.
     all_off = dict.fromkeys(KERNELS, False)
     gn_off = {"fused_gn": False, "gn_stats": False}
+    k7_off = {"fused_gn_conv": False}
     with torch.no_grad():
         den_on, unet_s_on = wall_s(denoise)
         raw_on = network(x, torch.zeros(BT, device="cuda"), cond)
@@ -480,26 +594,32 @@ def serve(smi: str):
         with kernel_flags(**gn_off):
             _, unet_s_gn_off = wall_s(denoise)
             _, dec_s_gn_off = wall_s(decode)
+        with kernel_flags(**k7_off):
+            den_k7_off, unet_s_k7_off = wall_s(denoise)
         with kernel_flags(**all_off):
             den_off, unet_s_off = wall_s(denoise)
             raw_off = network(x, torch.zeros(BT, device="cuda"), cond)
             dec_off = decode()
             cat_off = engine.apply_conditioner(batch)["concat"]
     ab = {"denoiser_rel_l2": rel_l2(den_on, den_off), "unet_rel_l2": rel_l2(raw_on, raw_off),
-          "decode_rel_l2": rel_l2(dec_on, dec_off), "concat_rel_l2": rel_l2(cat_on, cat_off)}
+          "decode_rel_l2": rel_l2(dec_on, dec_off), "concat_rel_l2": rel_l2(cat_on, cat_off),
+          "denoiser_k7_off_rel_l2": rel_l2(den_on, den_k7_off)}
     log("ab", **ab, tol=AB_TOL, unet_out_std=float(raw_off.float().std()),
-        unet_s={"on": unet_s_on, "gn_off": unet_s_gn_off, "all_off": unet_s_off},
+        unet_s={"on": unet_s_on, "gn_off": unet_s_gn_off, "k7_off": unet_s_k7_off,
+                "all_off": unet_s_off},
         decode_s={"on": dec_s_on, "gn_off": dec_s_gn_off}, card=smi)
     if not all(v <= AB_TOL for v in ab.values()):
         raise RuntimeError(f"kernels on vs off: {ab} > {AB_TOL}")
-    del den_on, den_off, raw_on, raw_off, dec_on, dec_off
+    del den_on, den_off, den_k7_off, raw_on, raw_off, dec_on, dec_off
 
     # Device time by kernel over one UNet evaluation and one decode, GroupNorm
-    # kernels on and off; the idle share is against the unprofiled wall time.
-    walls = {"unet": unet_s_on, "unet_gn_off": unet_s_gn_off, "decode": dec_s_on,
-             "decode_gn_off": dec_s_gn_off}
+    # kernels on and off, K7 on and off; the idle share is against the
+    # unprofiled wall time.
+    walls = {"unet": unet_s_on, "unet_gn_off": unet_s_gn_off, "unet_k7_off": unet_s_k7_off,
+             "decode": dec_s_on, "decode_gn_off": dec_s_gn_off}
     for what, wall in walls.items():
-        with torch.no_grad(), kernel_flags(**(gn_off if what.endswith("gn_off") else {})):
+        flags = gn_off if what.endswith("gn_off") else k7_off if what.endswith("k7_off") else {}
+        with torch.no_grad(), kernel_flags(**flags):
             by_name, total = device_profile(denoise if what.startswith("unet") else decode)
         if total is None:
             log("profile", what=what, device_ms="not measured", card=smi)
@@ -508,16 +628,25 @@ def serve(smi: str):
             idle_share=1.0 - total / (1e3 * wall),
             groupnorm_kernels_ms=sum(ms for k, ms in by_name.items()
                                      if "group_norm" in k or "group_stats" in k),
+            gn_conv_kernel_ms=sum(ms for k, ms in by_name.items() if "gn_silu_conv3x3" in k),
             top=[[k[:90], ms] for k, ms in by_name.most_common(10)], card=smi)
 
-    # Phase 6: requests through the engine's entry point.
+    # Phase 6: requests through the engine's entry point. K4 / K5 launch
+    # once per GroupNorm pass (K5 only on the split path) and K5 once per K7.
+    def gn_launches(passes: dict) -> dict:
+        return {"fused_gn": sum(n * gn_modules[stage] for stage, n in passes.items()),
+                "gn_stats": sum(n * gn_split[stage]["calls"] for stage, n in passes.items())
+                + passes["unet"] * k7_sites}
+
     expected = {"flash": count_modules(unet, BasicTransformerBlock) * steps,
                 "flash_bwd": 0,
                 "tattn": count_modules(unet, VideoTransformerBlock) * steps,
                 "fused_mlp": count_modules(unet, FeedForward) * steps,
-                "fused_gn": gn_modules["cond"] + steps * gn_modules["unet"]
-                + gn_modules["decode"],
-                "gn_stats": stats["gn_stats"]["per_clip"]}
+                **gn_launches(per_clip),
+                "fused_gn_conv": steps * k7_sites}
+    # A served batch: one conditioner pass and one UNet pass for its clips,
+    # and one decode per clip (decoding_t = T).
+    per_batch = dict(expected, **gn_launches(dict(per_clip, decode=SERVE_BATCH)))
     clip_s = []
     torch.cuda.reset_peak_memory_stats()
     for fn in KERNELS.values():
@@ -542,7 +671,144 @@ def serve(smi: str):
         if n != CLIPS * expected[name] or (expected[name] == 0 and name != "flash_bwd"):
             raise RuntimeError(f"{name}: {n} launches over {CLIPS} clips, expected "
                                f"{CLIPS} x {expected[name]}")
-    return stats, launches
+    return stats, launches, served(engine, smi, per_batch)
+
+
+def post_npz(url: str, arrays: dict, timeout: float = 600.0) -> dict:
+    """POST an .npz to `url`; the answer's arrays. A non-200 answer raises."""
+    import io
+    import urllib.request
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        if resp.status != 200:
+            raise RuntimeError(f"POST {url}: HTTP {resp.status}")
+        out = np.load(io.BytesIO(resp.read()))
+        return {k: out[k] for k in out.files}
+
+
+def served(engine, smi: str, per_batch: dict) -> dict:
+    """The served phase: four concurrent HTTP requests through
+    SamplerServer(max_batch=2) on the engine of phases 3-6, then request 0
+    alone, then one batch timed with K7 on and off. Returns the launches of
+    the two batches. `per_batch` is the expected launches per served batch
+    (one UNet pass of 25 evaluations)."""
+    import json as json_
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from gcd_tpu_torch.engine.bundle import ModelBundle, camera_metadata, construct_batch
+    from gcd_tpu_torch.engine.server import (SamplerServer, _concat_requests,
+                                             make_engine_sample_fn)
+    from gcd_tpu_torch.ops import KERNELS, kernel_flags
+    from gcd_tpu_torch.serve import make_handler
+    from gcd_tpu_torch.utils.config import load_config
+
+    cfg = load_config(CONFIG)
+    bundle = ModelBundle(engine=engine, train_config=None, test_config=cfg, model_name="random",
+                         **camera_metadata(None, cfg))
+    sample_fn = make_engine_sample_fn(engine, SERVE_BATCH, T, decoding_t=T)
+    batch_s = []
+
+    def timed(batch, seeds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample_fn(batch, seeds)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    timed(engine.example_batch((H, W), T, SERVE_BATCH), [0] * SERVE_BATCH)  # warm-up
+    warm_s = time.perf_counter() - t0
+    batch_s.clear()
+    rng = np.random.default_rng(SEED + 30)
+    requests = []
+    for i, (az, el, radius) in enumerate(SERVE_MOVES[:SERVE_REQUESTS]):
+        clip = construct_batch(rng.uniform(size=(T, H, W, 3)).astype(np.float32), az, el,
+                               radius, T, 5, 127, 0.02, False, bundle, rng=rng)
+        clip.pop("num_video_frames")
+        requests.append(dict(clip, seed=np.int64(SEED + 40 + i)))
+
+    srv = SamplerServer(timed, T, max_batch=SERVE_BATCH, max_wait_ms=2000.0).start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv, T))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        for fn in KERNELS.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_REQUESTS) as pool:
+            outs = list(pool.map(lambda r: post_npz(f"{url}/sample", r), requests))
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated()
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
+            health = json_.loads(resp.read())
+        counts = (srv.batches_run, srv.requests_served)
+        lone = post_npz(f"{url}/sample", requests[0])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+    batches = SERVE_REQUESTS // SERVE_BATCH
+    expected = {name: batches * n for name, n in per_batch.items()}
+    frames = [o["sampled_video"] for o in outs]
+    lone_err = float(np.linalg.norm(lone["sampled_video"] - frames[0])
+                     / np.linalg.norm(frames[0]))
+
+    # What the default costs end to end: the first batch again, straight
+    # through make_engine_sample_fn, with K7 on and off (on, off, off, on).
+    with kernel_flags(fused_gn_conv=False):
+        sample_fn_k7_off = make_engine_sample_fn(engine, SERVE_BATCH, T, decoding_t=T)
+    pair = _concat_requests([{k: v for k, v in r.items() if k != "seed"}
+                             for r in requests[:SERVE_BATCH]], SERVE_BATCH)
+    pair_seeds = [int(r["seed"]) for r in requests[:SERVE_BATCH]]
+    k7_s = {"on": [], "off": []}
+    k7_frames = {}
+    for which in ("on", "off", "off", "on"):
+        fn = sample_fn if which == "on" else sample_fn_k7_off
+        KERNELS["fused_gn_conv"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k7_frames[which] = fn(pair, pair_seeds)["sampled_video"]
+        torch.cuda.synchronize()
+        k7_s[which].append(time.perf_counter() - t0)
+        if (KERNELS["fused_gn_conv"].launches == 0) != (which == "off"):
+            raise RuntimeError(f"K7 {which}: {KERNELS['fused_gn_conv'].launches} launches")
+    k7_err = rel_l2(k7_frames["on"], k7_frames["off"])
+    log("served_k7_ab", batch_seconds=k7_s, on_over_off=statistics.mean(k7_s["on"])
+        / statistics.mean(k7_s["off"]), frames_rel_l2=k7_err, tol=SERVE_TOL, card=smi)
+    if not k7_err <= SERVE_TOL:
+        raise RuntimeError(f"served batch, K7 on vs off: {k7_err} > {SERVE_TOL}")
+    log("served", batch_seconds=batch_s[:batches], lone_batch_seconds=batch_s[batches:],
+        warmup_seconds=warm_s, requests_wall_s=wall,
+        served_frames_per_s=SERVE_REQUESTS * T / wall, peak_mem_bytes=peak,
+        batch_frames=SERVE_BATCH * T, unet_batch=2 * SERVE_BATCH * T,
+        batches_run=counts[0], requests_served=counts[1], healthz=health,
+        lone_rel_l2=lone_err, tol=SERVE_TOL, launches=launches, expected=expected,
+        frames_std=[float(f.std()) for f in frames], card=smi)
+    for f in frames:
+        if f.shape != (T, H, W, 3) or not (np.isfinite(f).all() and f.min() >= 0
+                                            and f.max() <= 1):
+            raise RuntimeError(f"served frames {f.shape} not finite in [0, 1]")
+    if counts != (batches, SERVE_REQUESTS) or not health.get("ok"):
+        raise RuntimeError(f"batches_run, requests_served {counts}, healthz {health}")
+    if not lone_err <= SERVE_TOL:
+        raise RuntimeError(f"request 0 alone vs batched: {lone_err} > {SERVE_TOL}")
+    if launches != expected:
+        raise RuntimeError(f"served launches {launches}, expected {expected}")
+    return launches
 
 
 def train(smi: str) -> dict:
@@ -579,8 +845,10 @@ def train(smi: str) -> dict:
     # Launches per step: the rematerialised blocks run forward twice (the
     # forward, then the recompute in the backward); K6 once per spatial
     # block; the first stage encodes the batch without grad in chunks, the
-    # conditioner's frame encoder once.
+    # conditioner's frame encoder once. K7 takes 44 of the UNet's GroupNorms
+    # (all in rematerialised blocks), in the forward and the recompute.
     blocks = count_modules(unet, BasicTransformerBlock)
+    k7_sites = gn_conv_modules(unet)
     remat_gn = sum(count_modules(m, GroupNorm32) for m in unet.modules()
                    if isinstance(m, (VideoResBlock, SpatialVideoTransformer)))
     chunks = -(-bt // (engine.en_and_decode_n_samples_a_time or bt))
@@ -591,7 +859,9 @@ def train(smi: str) -> dict:
                 "tattn": 2 * count_modules(unet, VideoTransformerBlock),
                 "fused_mlp": 2 * count_modules(unet, FeedForward),
                 "fused_gn": remat_gn + count_modules(unet, GroupNorm32) + cond_gn
-                + chunks * count_modules(engine.first_stage_model.encoder, GroupNorm32)}
+                + chunks * count_modules(engine.first_stage_model.encoder, GroupNorm32)
+                - 2 * k7_sites,
+                "fused_gn_conv": 2 * k7_sites}
 
     def reset():
         for fn in KERNELS.values():
@@ -623,7 +893,7 @@ def train(smi: str) -> dict:
     launches_on = counts()
     for h in hooks:
         h.remove()
-    expected["gn_stats"] = gn_calls["split"]
+    expected["gn_stats"] = gn_calls["split"] + 2 * k7_sites
     reset()
     with kernel_flags(**dict.fromkeys(KERNELS, False)):
         loss_off, grads_off = loss_and_unet_grads(SEED + 21)
@@ -648,6 +918,17 @@ def train(smi: str) -> dict:
     if launches_on != expected or gn_calls["calls"] != expected["fused_gn"]:
         raise RuntimeError(f"launches {launches_on} (GroupNorm calls {gn_calls['calls']}), "
                            f"expected {expected}")
+
+    # What K7 costs the step: its loss and gradient with K7 on and off
+    # (on, off, off, on), everything else on.
+    k7_s = {"on": [], "off": []}
+    for which in ("on", "off", "off", "on"):
+        with kernel_flags(fused_gn_conv=which == "on"):
+            t0 = time.perf_counter()
+            loss_and_unet_grads(SEED + 21)
+            k7_s[which].append(time.perf_counter() - t0)
+    log("train_k7_ab", loss_and_backward_seconds=k7_s,
+        on_over_off=statistics.mean(k7_s["on"]) / statistics.mean(k7_s["off"]), card=smi)
 
     # Adam steps. A gradient may be exactly zero only where the graph does not
     # reach: the cross-attentions over one context token never read their
@@ -729,18 +1010,19 @@ def main() -> int:
     log("build", seconds=time.perf_counter() - t0,
         ptxas=[line.split(": ", 1)[-1] for line in ptxas.splitlines() if "Used" in line])
 
-    stats, launches = serve(smi)
+    stats, launches, served_launches = serve(smi)
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = train(smi)
 
-    # `launches`: the sample_video requests for K1-K5, the Adam steps for K6
-    # (which only training runs); `train_launches`: the Adam steps for all.
+    # `launches`: the sample_video requests for K1-K5 and K7, the Adam steps
+    # for K6 (which only training runs); `served_launches`: the served phase's
+    # two batches; `train_launches`: the Adam steps for all.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": train_launches[name] if name == "flash_bwd" else launches[name],
-         "train_launches": train_launches[name],
+         "served_launches": served_launches[name], "train_launches": train_launches[name],
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]

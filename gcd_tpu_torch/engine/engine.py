@@ -9,7 +9,8 @@ sampling, then chunked decode; `sample_video_from_cond` is the part after
 the conditioner. `loss(batch, global_step)` is the JAX engine's `loss`: the
 sampled first-stage encoding without grad, the conditioner in training mode,
 then StandardDiffusionLoss; `trainable_parameter_names` is its
-`trainable_mask` by parameter name. The public layout is the JAX package's
+`trainable_mask` by parameter name; `example_batch` its shape-correct batch.
+The public layout is the JAX package's
 channels-last one: frames in (B*T, H, W, 3), conditioning and latents in
 (B*T, h, w, C); modules run channels-first inside. `load_engine`
 (engine/build.py) puts an engine on the card, `load_trainer`
@@ -18,7 +19,7 @@ channels-last one: frames in (B*T, H, W, 3), conditioning and latents in
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Set, Tuple
+from typing import Dict, Optional, Sequence, Set, Tuple, Union
 
 import torch
 from torch import nn
@@ -180,6 +181,25 @@ class DiffusionEngine(nn.Module):
             if keep:
                 names.add(name)
         return names
+
+    @staticmethod
+    def example_batch(img_hw: Tuple[int, int] = (256, 384), t: int = 14, b: int = 1,
+                      device: Optional[Union[str, torch.device]] = None) -> Dict:
+        """A shape-correct batch of `b` clips of `t` frames (gcd_tpu engine.py
+        example_batch): zero frames, the default conditioning scalars, zero
+        camera moves; the server warms up on it."""
+        h, w = img_hw
+        bt = b * t
+
+        def full(shape, value=0.0):
+            return torch.full(shape, value, device=device)
+
+        return {"jpg": full((bt, h, w, 3)), "cond_frames": full((bt, h, w, 3)),
+                "cond_frames_without_noise": full((bt, h, w, 3)),
+                "cond_aug": full((bt,), 0.02), "motion_bucket_id": full((bt,), 127.0),
+                "fps_id": full((bt,), 5.0), "image_only_indicator": full((b, t)),
+                "scaled_relative_angles": full((bt, 3)),
+                "scaled_relative_pose": full((bt, 3, 4)), "num_video_frames": t}
 
     @torch.no_grad()
     def sample_latents(self, c: Dict, uc: Dict, noise: torch.Tensor,

@@ -1,8 +1,14 @@
 """UNet residual blocks and resampling (port of gcd_tpu/models/resblock.py).
 
-Plain cuDNN conv2d / conv3d; the JAX package's XLA conv rewrites
-(ops/subpixel.py, ops/temporal_conv.py, ops/spatial_conv.py) are TPU-only
-and not ported. Images are (N, C, H, W), videos (B, C, T, H, W).
+The 2D ResBlocks (the spatial half of each VideoResBlock) run their
+GroupNorm -> SiLU -> 3x3 conv chains, in_layers and out_layers (after the
+embedding is added), through K7 (ops/fused_gn_conv.py) under the
+`fused_gn_conv` switch, where its shape rule holds, as
+gcd_tpu/models/resblock.py:132-190 does; the parameters keep their names.
+Every other conv is a plain cuDNN conv2d / conv3d; the JAX package's XLA
+conv rewrites (ops/subpixel.py, ops/temporal_conv.py, ops/spatial_conv.py)
+are TPU-only and not ported. Images are (N, C, H, W), videos
+(B, C, T, H, W).
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from gcd_tpu_torch.models.layers import AlphaBlender, GroupNorm32
+from gcd_tpu_torch.ops.dispatch import kernel_enabled
+from gcd_tpu_torch.ops.fused_gn_conv import gn_silu_conv3x3, supported
 
 
 class Upsample(nn.Module):
@@ -58,17 +66,39 @@ class ResBlock(nn.Module):
                                         nn.Identity(), conv(out_ch, out_ch, ks, padding=pad))
         self.skip_connection = (nn.Identity() if out_ch == channels
                                 else conv(channels, out_ch, 1))
+        for c in self.fused_convs():
+            # (F, 3, 3, C) memory, the layout K7 reads in place. Module.to,
+            # to_empty and load_state_dict's copy_ all keep a weight's strides.
+            c.weight.data = c.weight.data.contiguous(memory_format=torch.channels_last)
+
+    def _norm_conv(self, layers: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+        """layers[-1](layers[0](x)): K7 for a 2D 3x3 chain under the switch
+        where it takes the shape, else GroupNorm32 then the conv."""
+        norm, conv = layers[0], layers[-1]
+        if (x.dim() == 4 and kernel_enabled("fused_gn_conv")
+                and supported(x, conv.weight, norm.num_groups)):
+            return gn_silu_conv3x3(x, norm.weight, norm.bias, conv.weight, conv.bias,
+                                   norm.num_groups, norm.eps, norm.silu)
+        return conv(norm(x))
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         """x (N, C, H, W) with emb (N, E), or x (B, C, T, H, W) with emb (B, T, E)."""
-        h = self.in_layers[2](self.in_layers[0](x))
+        h = self._norm_conv(self.in_layers, x)
         emb_out = self.emb_layers(emb)
         if x.dim() == 5:
             emb_out = emb_out.transpose(1, 2)  # (B, C, T)
         emb_out = emb_out.reshape(*emb_out.shape, *([1] * (h.dim() - emb_out.dim())))
         h = h + emb_out.to(h.dtype)
-        h = self.out_layers[3](self.out_layers[0](h))
+        h = self._norm_conv(self.out_layers, h)
         return self.skip_connection(x) + h
+
+    def fused_convs(self):
+        """The convs K7 can take: those of a 2D block's in_layers and
+        out_layers."""
+        if not (isinstance(self.in_layers[2], nn.Conv2d)
+                and self.in_layers[2].kernel_size == (3, 3)):
+            return []
+        return [self.in_layers[2], self.out_layers[3]]
 
 
 class VideoResBlock(ResBlock):

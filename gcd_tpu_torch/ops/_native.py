@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "temporal_attention.cu",
-           "fused_mlp.cu", "fused_norm.cu")
+           "fused_mlp.cu", "fused_norm.cu", "fused_gn_conv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,8 @@ _SIGNATURES = {
                        _P),
     "gcd_group_stats_cl": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gcd_group_norm_cl": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    "gcd_gn_silu_conv3x3": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                            _P),
 }
 
 _lock = threading.Lock()

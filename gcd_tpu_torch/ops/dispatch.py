@@ -9,9 +9,16 @@ kernel_enabled), reduced to the kernels the port has:
   fused_mlp  K3, fused GEGLU feed-forward (ops/fused_mlp.py)
   fused_gn   K4, GroupNorm(+SiLU) (ops/fused_norm.py group_norm)
   gn_stats   K5, per-group sums, the first pass of K4 on large groups
-             (ops/fused_norm.py group_stats)
+             and of K7 (ops/fused_norm.py group_stats)
+  fused_gn_conv
+             K7, GroupNorm -> SiLU -> 3x3 conv in one kernel at the 2D
+             ResBlocks' in_layers / out_layers (ops/fused_gn_conv.py,
+             models/resblock.py)
 
-All default to on. `with kernel_flags(flash=False): ...` makes the wrapper
+All default to on. The JAX package parks `fused_gn_conv` off by default for
+a TPU reason: its opaque Pallas boundary costs XLA the epilogue fusions
+around the ResBlock (gcd_tpu/models/resblock.py:104-109). The port runs
+eagerly with no such fusions, and runs every kernel at every site it serves. `with kernel_flags(flash=False): ...` makes the wrapper
 run its plain PyTorch version on CUDA tensors too, which is how the kernel
 on/off A/B in chip_smoke.py is made. There are no environment overrides.
 
@@ -28,7 +35,7 @@ import threading
 from contextlib import contextmanager
 
 _DEFAULTS = {"flash": True, "flash_bwd": True, "tattn": True, "fused_mlp": True,
-             "fused_gn": True, "gn_stats": True}
+             "fused_gn": True, "gn_stats": True, "fused_gn_conv": True}
 
 _tls = threading.local()
 

@@ -1,0 +1,137 @@
+"""K7: GroupNorm -> SiLU -> 3x3 same-pad convolution in one kernel.
+
+Port of gcd_tpu/ops/fused_gn_conv.py: `_kernel` (pallas_call in
+`_fused_forward`, entry `gn_silu_conv3x3`). The CUDA kernel is
+csrc/fused_gn_conv.cu. Semantics are those of `_xla_chain`: GroupNorm with
+fp32 statistics and the variance clamped at 0, the optional SiLU, one
+rounding to x.dtype; then the 3x3 conv with padding 1 and fp32
+accumulation, the fp32 bias, one rounding to x.dtype.
+
+What bounds it on the H100: operations (at the UNet's ResBlock shapes the
+products are 5-7x the time of the bytes at the card's peaks), so the kernel
+is an implicit GEMM on tensor cores. K5 (`group_stats`, channels-last)
+computes the statistics first, as K4's split path does; the kernel
+normalises each operand tile as it loads it, zeroes the taps outside the
+plane after the normalisation, and never writes the normalised activation
+to device memory -- the pass of K4 plus the cuDNN read it replaces.
+
+Tensors are torch's: x (N, C, H, W), conv weight (F, C, 3, 3). On CUDA the
+kernel takes x in channels_last memory (the layout of the port's
+activations) and the weight in channels_last memory, (F, 3, 3, C) in
+memory, in which the 2D ResBlocks build the routed convs
+(models/resblock.py); it raises on anything else, and its output
+is channels_last. CPU tensors, and CUDA tensors under
+`kernel_flags(fused_gn_conv=False)`, take `gn_silu_conv3x3_plain`.
+
+The gradient is that of the plain chain (gcd_tpu's `_bwd`): the backward
+recomputes GroupNorm + SiLU from the saved x and takes the conv's input and
+weight gradients directly from the incoming gradient -- the conv forward is
+not run again (ops/recompute.py).
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import torch
+import torch.nn.functional as F
+
+from gcd_tpu_torch.ops import _native
+from gcd_tpu_torch.ops.dispatch import kernel_enabled
+from gcd_tpu_torch.ops.fused_norm import group_norm_plain, group_stats
+from gcd_tpu_torch.ops.recompute import PlainGradient
+
+
+def gn_silu_conv3x3_plain(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Tensor,
+                          conv_weight: torch.Tensor, conv_bias: torch.Tensor,
+                          groups: int = 32, eps: float = 1e-5, silu: bool = True
+                          ) -> torch.Tensor:
+    """GroupNorm(groups, eps) (+ SiLU) -> 3x3 conv, padding 1, fp32
+    accumulation and bias, one rounding to x.dtype."""
+    y = group_norm_plain(x, gn_weight, gn_bias, groups, eps, silu)
+    out = F.conv2d(y.float(), conv_weight.to(y.dtype).float(), padding=1)
+    return (out + conv_bias.float()[:, None, None]).to(x.dtype)
+
+
+def supported(x: torch.Tensor, conv_weight: torch.Tensor, groups: int) -> bool:
+    """The shapes K7 takes (gcd_tpu's `supported`, less its VMEM budget):
+    a 4D input, a 3x3 weight, C divisible by the groups and by 64, F by 64."""
+    if x.dim() != 4 or conv_weight.dim() != 4 or tuple(conv_weight.shape[2:]) != (3, 3):
+        return False
+    c, f = x.shape[1], conv_weight.shape[0]
+    return conv_weight.shape[1] == c and c % groups == 0 and c % 64 == 0 and f % 64 == 0
+
+
+class _ConvGradient(torch.autograd.Function):
+    """conv2d(y, w, padding=1) + b for the backward only: its forward makes
+    no product (the output is a zero-stride placeholder of the right shape),
+    its backward is the plain chain's conv gradient, in y's dtype with the
+    rounding points of the fp32-accumulating conv."""
+
+    @staticmethod
+    def forward(ctx, y, weight, bias):
+        ctx.save_for_backward(y, weight)
+        ctx.bias_dtype = bias.dtype
+        n, _, h, w = y.shape
+        return y.new_zeros(()).expand(n, weight.shape[0], h, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, weight = ctx.saved_tensors
+        need_y, need_w, need_b = ctx.needs_input_grad
+        g = grad.to(y.dtype)
+        gy, gw, _ = torch.ops.aten.convolution_backward(
+            g, y, weight.to(y.dtype), None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [need_y, need_w, False])
+        gb = grad.float().sum(dim=(0, 2, 3)).to(ctx.bias_dtype) if need_b else None
+        return gy, None if gw is None else gw.to(weight.dtype), gb
+
+
+def _gradient_chain(x, gn_weight, gn_bias, conv_weight, conv_bias, groups, eps, silu):
+    """The plain chain as the backward differentiates it: GroupNorm + SiLU
+    recomputed, the conv through _ConvGradient."""
+    y = group_norm_plain(x, gn_weight, gn_bias, groups, eps, silu)
+    return _ConvGradient.apply(y, conv_weight, conv_bias)
+
+
+def gn_silu_conv3x3(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Tensor,
+                    conv_weight: torch.Tensor, conv_bias: torch.Tensor,
+                    groups: int = 32, eps: float = 1e-5, silu: bool = True) -> torch.Tensor:
+    """GroupNorm(groups, eps) (+ SiLU) -> 3x3 same-pad conv; K7 on CUDA."""
+    args = dict(groups=groups, eps=eps, silu=silu)
+    return PlainGradient.apply(partial(_forward, **args), partial(_gradient_chain, **args),
+                               x, gn_weight, gn_bias, conv_weight, conv_bias)
+
+
+def _forward(x, gn_weight, gn_bias, conv_weight, conv_bias, groups, eps, silu):
+    if x.device.type == "cpu" or not kernel_enabled("fused_gn_conv"):
+        return gn_silu_conv3x3_plain(x, gn_weight, gn_bias, conv_weight, conv_bias,
+                                     groups, eps, silu)
+    if not supported(x, conv_weight, groups):
+        raise ValueError(f"gn_silu_conv3x3: K7 takes (N, C, H, W) with C % {groups}, "
+                         f"C % 64 and F % 64 == 0 and a (F, C, 3, 3) weight; got "
+                         f"{tuple(x.shape)} and {tuple(conv_weight.shape)}")
+    n, c, h, w = x.shape
+    f = conv_weight.shape[0]
+    fmt = torch.channels_last
+    for name, t in (("x", x), ("conv_weight", conv_weight)):
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
+            raise ValueError(f"gn_silu_conv3x3: {name} must be a bf16 CUDA tensor, "
+                             f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous(memory_format=fmt) or t.data_ptr() % 16:
+            raise ValueError(f"gn_silu_conv3x3: {name} must be channels_last and 16-byte "
+                             f"aligned, got strides {t.stride()}")
+    _native.check_cuda_operand("gn_weight", gn_weight, torch.bfloat16, (c,), align=2)
+    _native.check_cuda_operand("gn_bias", gn_bias, torch.bfloat16, (c,), align=2)
+    _native.check_cuda_operand("conv_bias", conv_bias, torch.bfloat16, (f,), align=2)
+    s1, s2 = group_stats(x, groups)
+    out = torch.empty((n, f, h, w), dtype=x.dtype, device=x.device, memory_format=fmt)
+    _native.launch("gcd_gn_silu_conv3x3", x.data_ptr(), conv_weight.data_ptr(),
+                   gn_weight.data_ptr(), gn_bias.data_ptr(), conv_bias.data_ptr(),
+                   s1.data_ptr(), s2.data_ptr(), out.data_ptr(), n, h, w, c, f, groups,
+                   float(eps), int(silu))
+    gn_silu_conv3x3.launches += 1
+    return out
+
+
+gn_silu_conv3x3.launches = 0

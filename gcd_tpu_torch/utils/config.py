@@ -1,7 +1,8 @@
 """YAML configs with `target:` / `params:` instantiation, for the port.
 
-The include + deep-merge loader is that of gcd_tpu/utils/config.py:92-130
-(which cannot be imported here: gcd_tpu.utils pulls in jax). Target strings
+The include + deep-merge loader and the dotted-path helpers are those of
+gcd_tpu/utils/config.py:92-130,165-180 (which cannot be imported here:
+gcd_tpu.utils pulls in jax). Target strings
 resolve through a registry of the reference's `sgm.*` names for the classes
 the port has, so configs/*.yaml drive it unchanged; any other target must be
 an importable `gcd_tpu_torch.*` path.
@@ -127,3 +128,22 @@ def deep_merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]
         else:
             out[k] = v
     return out
+
+
+def set_by_path(cfg: Dict[str, Any], path: str, value: Any) -> None:
+    """Set a dotted path in place, making the dicts on the way."""
+    node = cfg
+    parts = path.split(".")
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = value
+
+
+def get_by_path(cfg: Dict[str, Any], path: str, default: Any = None) -> Any:
+    """The value at a dotted path, or `default` where the path ends early."""
+    node = cfg
+    for p in path.split("."):
+        if not isinstance(node, dict) or p not in node:
+            return default
+        node = node[p]
+    return node

@@ -142,17 +142,22 @@ def test_port_imports_no_jax():
         "'gcd_tpu_torch.')]\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
-        "assert len(mods) >= 35, mods\n"
+        "assert len(mods) >= 40, mods\n"
         "training = {'gcd_tpu_torch.engine.trainer', 'gcd_tpu_torch.diffusion.loss',\n"
         "            'gcd_tpu_torch.diffusion.sigma_sampling',\n"
         "            'gcd_tpu_torch.diffusion.weighting', 'gcd_tpu_torch.ops.recompute'}\n"
-        "assert training <= set(mods), sorted(training - set(mods))\n")
+        "serving = {'gcd_tpu_torch.ops.fused_gn_conv', 'gcd_tpu_torch.engine.server',\n"
+        "           'gcd_tpu_torch.engine.bundle', 'gcd_tpu_torch.serve',\n"
+        "           'gcd_tpu_torch.io.checkpoint'}\n"
+        "assert training | serving <= set(mods), sorted((training | serving) - set(mods))\n")
 
 
 def test_chip_smoke_imports_no_jax():
     """The same for chip_smoke.py and everything it imports, at top level or
     inside its functions."""
     mods = _chip_smoke_imports()
-    assert {"gcd_tpu_torch.engine.build", "gcd_tpu_torch.engine.trainer"} <= set(mods)
+    assert {"gcd_tpu_torch.engine.build", "gcd_tpu_torch.engine.trainer",
+            "gcd_tpu_torch.engine.server", "gcd_tpu_torch.engine.bundle",
+            "gcd_tpu_torch.serve"} <= set(mods)
     _run_no_jax("import importlib, chip_smoke\n"
                 + "".join(f"importlib.import_module({m!r})\n" for m in mods))
