@@ -6,7 +6,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero
 without the final `ok` line):
   1. device      - require CUDA; print nvidia-smi's name and power limit.
   2. build       - compile gcd_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
-                   process per source.
+                   process per source; the ptxas report (registers, spills,
+                   stack) of the wgmma kernels K1 and K7.
   3. conditioner - load_engine(configs/infer_kubric.yaml): random bf16
                    weights (std 0.02 on every leaf, seeded), ViT-H/14 tower;
                    one conditioner pass on a random 14-frame 384x256 batch;
@@ -20,10 +21,15 @@ without the final `ok` line):
                    backward, K2 temporal attention, K3 fused GEGLU MLP, K4
                    GroupNorm, K5 group statistics, K7 GroupNorm -> SiLU ->
                    3x3 conv (its 14 UNet shapes at N = 28, and at N = 56,
-                   the served batch); K4 / K5 also on channels-first copies of those
-                   shapes; K4, K5, K6 and K7 bit-identical on a second call.
-                   CUDA-event and host enqueue times beside the bound and the
-                   one-call library equivalent.
+                   the served batch; K1 likewise at B = 28 and B = 56, and
+                   at D = 128 at ds2's width); K4 / K5
+                   also on channels-first copies of those shapes; K1, K4, K5,
+                   K6 and K7 bit-identical on a second call. CUDA-event and
+                   host enqueue times beside the bound (achieved TFLOP/s and
+                   share of the bound) and the one-call library equivalent
+                   (K5's: torch.var_mean over the grouped view); K1's and
+                   K7's cases, and their library calls, also by
+                   torch.profiler device time.
   5. ab          - the flagship UNet evaluation, the decode and the
                    conditioner with every kernel on vs off (relative
                    L2 <= 2e-2); the UNet's and the decode's wall times and
@@ -32,7 +38,9 @@ without the final `ok` line):
   6. slice       - two requests through DiffusionEngine.sample_video:
                    random 14-frame 384x256 clips and camera moves, 25
                    Euler-EDM steps with per-frame CFG up to 1.5, one 14-frame
-                   decode; checks the frames and each kernel's launch count.
+                   decode; checks the frames and each kernel's launch count;
+                   then the first request timed with K7 on and off (on, off,
+                   off, on), frames within 2e-2.
   served         - the same engine behind SamplerServer(max_batch=2) and the
                    HTTP handler of gcd_tpu_torch.serve on 127.0.0.1: four
                    concurrent POST /sample requests built with
@@ -53,7 +61,9 @@ without the final `ok` line):
                    timed with K7 on vs off; then
                    five Adam steps, each with a finite loss, a finite
                    gradient on every trainable parameter (zero only where the
-                   graph does not reach), updated masters and weights, the
+                   graph does not reach, or at a blend factor where that
+                   step's fp32 sums show bf16 rounding made the zero:
+                   BlendWitness), updated masters and weights, the
                    frozen VAE and CLIP bit-identical, and each kernel's
                    launches equal to the step's site count (forward, remat
                    recompute, backward); ms per step, frames/s, peak memory
@@ -109,7 +119,7 @@ PROFILE_TAGS = {"flash": ("flash_attention_kernel",), "flash_bwd": ("rows_kernel
                 "tattn": ("temporal_attention_kernel",),
                 "fused_mlp": ("geglu_mlp_kernel", "bias_round_kernel"),
                 "fused_gn_and_gn_stats": ("group_norm", "group_stats"),
-                "fused_gn_conv": ("gn_silu_conv3x3_kernel",)}
+                "fused_gn_conv": ("gn_silu_conv3x3_kernel", "splitk_sum_kernel")}
 LEVELS = [("ds1", 1536, 320, 5), ("ds2", 384, 640, 5), ("ds4", 96, 1280, 5),
           ("mid", 24, 1280, 1)]
 SOURCES = {
@@ -128,6 +138,10 @@ SOURCES = {
     "fused_gn_conv": ("gcd_tpu_torch/csrc/fused_gn_conv.cu",
                       "gcd_tpu/ops/fused_gn_conv.py:42"),
 }
+# Kernels whose phase-4 cases are also timed by device time (torch.profiler).
+DEVICE_TIMED = ("flash", "fused_gn_conv")
+# The wgmma kernels' entry functions (K1, K7), whose ptxas lines the build logs.
+WGMMA_ENTRIES = ("flash_attention_kernel", "gn_silu_conv3x3_kernel")
 SERVE_BATCH = 2   # clips per served batch
 SERVE_REQUESTS = 4
 SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
@@ -204,10 +218,108 @@ def device_profile(fn, warm: bool = True):
     return (by_name, total) if total > 0 else (None, None)
 
 
+def device_ms(fn, iters: int = 10):
+    """Device ms per call of fn (every kernel it launches) under
+    torch.profiler: unlike the CUDA-event time, independent of how fast the
+    host enqueues; None if the profiler saw no device time."""
+    _, total = device_profile(lambda: [fn() for _ in range(iters)])
+    return None if total is None else total / iters
+
+
 def bound(nbytes: float, flops: float, peak: float):
     """(ms, what bounds it) for the least time the card could take."""
     t_bytes, t_ops = nbytes / HBM_BPS, flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bf16_half_ulp(v: torch.Tensor) -> torch.Tensor:
+    """Half a bf16 ulp of each value (0 at 0): the most that rounding v to
+    bf16 moves it."""
+    half = torch.ldexp(torch.ones_like(v), torch.frexp(v).exponent - 9)
+    return torch.where(v == 0, torch.zeros_like(v), half)
+
+
+class BlendWitness:
+    """What made a blend factor's gradient exactly zero at a training step.
+
+    A blend (AlphaBlender: alpha * x_spatial + (1 - alpha) * x_temporal, in
+    bf16 as the reference's) gives its alpha, per frame, the bf16 sum
+    bf16(sum g * x_spatial) - bf16(sum g * x_temporal); the products g * x
+    and the two sums are each rounded to bf16 by autograd. Hooks on every
+    blender: its first call in a step is the forward, whose output and alpha
+    get gradient hooks; its second is the rematerialised recompute in the
+    backward, whose inputs are the tensors the blend's backward multiplies.
+    When alpha's gradient arrives, the two sums and their difference are
+    taken again in fp32 at every frame, with the slack the roundings
+    have: half a bf16 ulp of each sum, plus 2^-8 of sum |g| (|x_s| + |x_t|)
+    over the values where the branches differ (their products round
+    differently; elsewhere they are the same bf16 product). A frame whose
+    gradient reads zero is explained by rounding when its fp32 difference is
+    within that slack. Nothing here synchronises inside the step."""
+
+    def __init__(self, model):
+        from gcd_tpu_torch.models.layers import AlphaBlender
+
+        self.calls, self.held, self.frames = Counter(), {}, {}
+        self.handles = []
+        for name, mod in model.named_modules():
+            if isinstance(mod, AlphaBlender):
+                self.handles.append(mod.register_forward_pre_hook(
+                    lambda m, inputs, name=name: self._pre(name, inputs)))
+                self.handles.append(mod.register_forward_hook(
+                    lambda m, inputs, out, name=name: self._post(name, inputs, out)))
+
+    def reset(self):
+        self.calls.clear()
+        self.held.clear()
+        self.frames.clear()
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+    def _pre(self, name, inputs):
+        self.calls[name] += 1
+        if self.calls[name] == 2:
+            self.held[name] = inputs[:2]
+
+    def _post(self, name, inputs, out):
+        alpha = inputs[2]
+        if self.calls[name] == 1 and out.requires_grad and alpha.requires_grad:
+            out.register_hook(lambda g: self.held.__setitem__(name + ".g", g))
+            alpha.register_hook(lambda ga: self._sums(name, ga))
+
+    @torch.no_grad()
+    def _sums(self, name, ga):
+        # The blend's backward has run, so the recompute has given its inputs
+        # (g, from the output's hook, may have come before the recompute).
+        g, held = self.held.pop(name + ".g", None), self.held.pop(name, None)
+        if g is None or held is None:  # explain() says so
+            return
+        xs, xt = (x.float() for x in held)
+        gf = g.float()
+        a = (gf * xs).sum_to_size(ga.shape)
+        b = (gf * xt).sum_to_size(ga.shape)
+        differ = xs != xt
+        self.frames[name] = {
+            "grad": ga, "diff": (gf * (xs - xt)).sum_to_size(ga.shape),
+            "slack": bf16_half_ulp(a) + bf16_half_ulp(b) + 2.0 ** -8 * (
+                gf.abs() * (xs.abs() + xt.abs()) * differ).sum_to_size(ga.shape),
+            "differ": differ.sum()}
+
+    def explain(self, name: str) -> dict:
+        """The evidence for blender `name` (a module name) at this step."""
+        if self.calls[name] != 2 or name not in self.frames:
+            return {"explained": False, "calls": self.calls[name]}
+        fr = self.frames[name]
+        zero = fr["grad"] == 0
+        ratio = torch.where(fr["diff"] == 0, torch.zeros_like(fr["diff"]),
+                            fr["diff"].abs() / fr["slack"])[zero]
+        return {"explained": bool(zero.all()) and bool((ratio <= 1).all()),
+                "zero_frames": int(zero.sum()), "frames": zero.numel(),
+                "max_diff_over_slack": float(ratio.max()) if ratio.numel() else None,
+                "max_abs_diff": float(fr["diff"].abs().max()),
+                "values_where_branches_differ": int(fr["differ"])}
 
 
 def random_batch(gen: torch.Generator, clips: int = 1, target: bool = False) -> dict:
@@ -310,6 +422,24 @@ def count_modules(module, cls) -> int:
     return sum(isinstance(m, cls) for m in module.modules())
 
 
+def flash_label(level: str, b: int, s: int, heads: int) -> str:
+    return f"{level} ({b},{s},{heads}x64)"
+
+
+def grouped_var_mean(x: torch.Tensor):
+    """The library call for K5: torch.var_mean over each (sample, group) of
+    x's own memory layout (channels-last, contiguous, or the (B, C, T, H, W)
+    view of a (B, T, C, H, W) buffer), without a copy."""
+    n, c = x.shape[:2]
+    last = x.movedim(1, -1)
+    if last.is_contiguous():
+        return torch.var_mean(last.reshape(n, -1, G, c // G), dim=(1, 3))
+    if x.is_contiguous():
+        return torch.var_mean(x.reshape(n, G, -1), dim=-1)
+    t = x.transpose(1, 2)  # (B, T, C, H, W), contiguous
+    return torch.var_mean(t.reshape(n, t.shape[1], G, -1), dim=(1, 3))
+
+
 def sdpa_backward(q, k, v, g, heads: int):
     """The library call for K6: torch.autograd.grad through PyTorch's fused
     attention on pre-transposed (B, H, S, D) inputs, its forward run once
@@ -344,6 +474,15 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
                lambda q=q, k=k, v=v, h=heads: flash_attention_plain(q, k, v, h),
                lambda sh=sh: F.scaled_dot_product_attention(*sh),
                qkv_bytes, 4 * BT * s * s * c, BF16_FLOPS)
+        # The served batch's shape (two clips, B*T = 56): 0 launches per clip.
+        bs = SERVE_BATCH * BT
+        q2, k2, v2 = randn(bs, s, c), randn(bs, s, c), randn(bs, s, c)
+        sh2 = [z.reshape(bs, s, heads, 64).transpose(1, 2).contiguous() for z in (q2, k2, v2)]
+        yield ("flash", flash_label(name, bs, s, heads), 0,
+               lambda q=q2, k=k2, v=v2, h=heads: flash_attention(q, k, v, h),
+               lambda q=q2, k=k2, v=v2, h=heads: flash_attention_plain(q, k, v, h),
+               lambda sh=sh2: F.scaled_dot_product_attention(*sh),
+               2 * qkv_bytes, 4 * bs * s * s * c, BF16_FLOPS)
         # The training shapes: B*T = 28 (2 clips of 14 frames), one K6 per
         # spatial transformer block per step. Five S x S x D products per
         # head; q, k, v, dO read and dQ, dK, dV written once.
@@ -353,6 +492,15 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
                lambda q=q, k=k, v=v, do=do, h=heads: flash_attention_bwd_plain(q, k, v, do, h),
                sdpa_backward(q, k, v, do, heads), 7 * BT * s * c * 2,
                10 * BT * s * s * c, BF16_FLOPS)
+        if name == "ds2":
+            # K1 at D = 128 (not on the UNet's path; 0 launches per clip).
+            h2 = c // 128
+            sh3 = [z.reshape(BT, s, h2, 128).transpose(1, 2).contiguous() for z in (q, k, v)]
+            yield ("flash", f"{name} ({BT},{s},{h2}x128)", 0,
+                   lambda q=q, k=k, v=v, h=h2: flash_attention(q, k, v, h),
+                   lambda q=q, k=k, v=v, h=h2: flash_attention_plain(q, k, v, h),
+                   lambda sh=sh3: F.scaled_dot_product_attention(*sh),
+                   qkv_bytes, 4 * BT * s * s * c, BF16_FLOPS)
         th = [z.reshape(BT // T, T, s, heads, 64).permute(0, 2, 3, 1, 4)
               .reshape(BT // T * s, heads, T, 64).contiguous() for z in (q, k, v)]
         yield ("tattn", f"{name} ({BT},{s},{c}) T={T}", blocks * steps,
@@ -401,7 +549,8 @@ def groupnorm_cases(gen: torch.Generator, sites: Counter):
                lambda x=x, wt=wt, bs=bs, e=eps: F.group_norm(x, G, wt, bs, e),
                4 * n + 4 * c, n * (12 if silu else 8), FP32_FLOPS)
         yield ("gn_stats", label, per_clip if uses_split_path(x, G) else 0,
-               lambda x=x: group_stats(x, G), lambda x=x: group_stats_plain(x, G), None,
+               lambda x=x: group_stats(x, G), lambda x=x: group_stats_plain(x, G),
+               lambda x=x: grouped_var_mean(x),
                2 * n + 16 * shape[0] * G, 2 * n, FP32_FLOPS)
 
 
@@ -519,6 +668,10 @@ def serve(smi: str):
         site = (n * SERVE_BATCH, *rest)
         gn_conv_sites[site] += 0
         served_k7[gn_conv_label(site)] = steps * calls
+    # K1's served shapes (B*T = 56): its launches per served batch.
+    served_k1 = {flash_label(name, SERVE_BATCH * BT, s, c // 64): steps * blocks
+                 for name, s, c, blocks in LEVELS}
+    served_sites = {"fused_gn_conv": served_k7, "flash": served_k1}
     # The path's tensors are channels-last; K4 / K5 also take channels-first
     # ones (contiguous, and the time_stack view of a contiguous video), which
     # are held against the plain versions at the same shapes, 0 launches per
@@ -536,7 +689,9 @@ def serve(smi: str):
                     "library_ms": None, "t_bytes": 0.0, "t_ops": 0.0, "per_clip": 0}
              for name in KERNELS}
     gn_ms = {}  # site label -> (K4 ms, plain ms) per call
-    served_k7_ms = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    served_ms = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                        "device_ms": 0.0, "library_device_ms": 0.0}
+                 for name in served_sites}
     cases = itertools.chain(attention_mlp_cases(gen, steps), groupnorm_cases(gen, gn_checked),
                             gn_conv_cases(gen, gn_conv_sites))
     for name, label, n_clip, run, plain, library, nbytes, flops, peak in cases:
@@ -548,13 +703,19 @@ def serve(smi: str):
         (ms, host_ms), (plain_ms, plain_host_ms) = cuda_ms(run), cuda_ms(plain)
         lib_ms, lib_host_ms = cuda_ms(library) if library is not None else (None, None)
         b_ms, b_by = bound(nbytes, flops, peak)
+        # K1 and K7 also by device time, theirs and their library call's: at
+        # the small shapes the host's enqueue can outlast the device.
+        dev = {}
+        if name in DEVICE_TIMED:
+            dev = {"device_ms": device_ms(run), "library_device_ms": device_ms(library)}
         log("kernel", kernel=name, shape=label, per_clip=n_clip, rel_l2=err,
-            max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by, host_ms=host_ms, plain_host_ms=plain_host_ms,
+            max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **dev,
+            bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+            achieved_tflops=flops / ms / 1e9, host_ms=host_ms, plain_host_ms=plain_host_ms,
             library_host_ms=lib_host_ms, card=smi)
         if not err <= KERNEL_TOL:
             raise RuntimeError(f"{name} {label}: relative L2 {err} > {KERNEL_TOL}")
-        if (name in ("fused_gn", "gn_stats", "flash_bwd", "fused_gn_conv")
+        if (name in ("flash", "fused_gn", "gn_stats", "flash_bwd", "fused_gn_conv")
                 and rel_l2(run(), out) != 0.0):
             raise RuntimeError(f"{name} {label}: two calls differ (no atomics: must not)")
         st = stats[name]
@@ -567,20 +728,24 @@ def serve(smi: str):
         st["per_clip"] += n_clip
         if lib_ms is not None:
             st["library_ms"] = (st["library_ms"] or 0.0) + n_clip * lib_ms
+        for key, t in dev.items():
+            st[key] = None if t is None or st.get(key, 0.0) is None else (
+                st.get(key, 0.0) + n_clip * t)
         if name == "fused_gn" and n_clip:
             gn_ms[label] = (ms, plain_ms)
-        if name == "fused_gn_conv" and label in served_k7:
+        if label in served_sites.get(name, ()):
             for key, t in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                           ("bound_ms", b_ms)):
-                served_k7_ms[key] += served_k7[label] * t
+                           ("bound_ms", b_ms), *dev.items()):
+                served_ms[name][key] += served_sites[name][label] * (t or 0.0)
         del out, ref, run, plain, library
     torch.cuda.empty_cache()
     by_stage = {stage: {"k4_ms": sum(n * gn_ms[site_label(k)][0] for k, n in calls.items()),
                         "plain_ms": sum(n * gn_ms[site_label(k)][1] for k, n in calls.items())}
                 for stage, calls in gn_calls.items()}
     log("groupnorm_per_pass", **by_stage, card=smi)
-    log("gn_conv_served", per_batch=served_k7_ms, launches_per_batch=sum(served_k7.values()),
-        card=smi)
+    for name, sites in served_sites.items():
+        log("kernel_served", kernel=name, per_batch=served_ms[name],
+            launches_per_batch=sum(sites.values()), card=smi)
 
     # Phase 5: the modules with the kernels on vs off, and timed.
     all_off = dict.fromkeys(KERNELS, False)
@@ -628,7 +793,8 @@ def serve(smi: str):
             idle_share=1.0 - total / (1e3 * wall),
             groupnorm_kernels_ms=sum(ms for k, ms in by_name.items()
                                      if "group_norm" in k or "group_stats" in k),
-            gn_conv_kernel_ms=sum(ms for k, ms in by_name.items() if "gn_silu_conv3x3" in k),
+            gn_conv_kernel_ms=sum(ms for k, ms in by_name.items()
+                                  if any(t in k for t in PROFILE_TAGS["fused_gn_conv"])),
             top=[[k[:90], ms] for k, ms in by_name.most_common(10)], card=smi)
 
     # Phase 6: requests through the engine's entry point. K4 / K5 launch
@@ -671,6 +837,26 @@ def serve(smi: str):
         if n != CLIPS * expected[name] or (expected[name] == 0 and name != "flash_bwd"):
             raise RuntimeError(f"{name}: {n} launches over {CLIPS} clips, expected "
                                f"{CLIPS} x {expected[name]}")
+
+    # What K7 costs the clip: the first request again with K7 on and off
+    # (on, off, off, on), the same batch and draws.
+    k7_s, k7_frames = {"on": [], "off": []}, {}
+    for which in ("on", "off", "off", "on"):
+        gen = torch.Generator("cuda").manual_seed(SEED + 10)
+        batch = random_batch(gen)
+        with kernel_flags(fused_gn_conv=which == "on"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            k7_frames[which] = engine.sample_video(batch, generator=gen,
+                                                   decoding_t=T)["sampled_video"]
+            torch.cuda.synchronize()
+            k7_s[which].append(time.perf_counter() - t0)
+    k7_rel = rel_l2(k7_frames["on"], k7_frames["off"])
+    log("slice_k7_ab", clip_seconds=k7_s,
+        on_over_off=statistics.mean(k7_s["on"]) / statistics.mean(k7_s["off"]),
+        frames_rel_l2=k7_rel, tol=AB_TOL, card=smi)
+    if not k7_rel <= AB_TOL:
+        raise RuntimeError(f"clip frames, K7 on vs off: relative L2 {k7_rel} > {AB_TOL}")
     return stats, launches, served(engine, smi, per_batch)
 
 
@@ -932,9 +1118,14 @@ def train(smi: str) -> dict:
 
     # Adam steps. A gradient may be exactly zero only where the graph does not
     # reach: the cross-attentions over one context token never read their
-    # queries, so their to_q / to_k and the norm2 before them get none.
+    # queries, so their to_q / to_k and the norm2 before them get none. The
+    # one other zero allowed at a step is a blend factor's
+    # (time_mixer.mix_factor), and only with that step's evidence that bf16
+    # rounding made it: every frame reads zero and each is explained
+    # (BlendWitness).
     unreached = {n for n in unet_names if n.endswith(
         ("attn2.to_q.weight", "attn2.to_k.weight", "norm2.weight", "norm2.bias"))}
+    witness = BlendWitness(engine)
     frozen = {n: p.detach().clone() for n, p in named.items() if not p.requires_grad}
     total = Counter()
     step_s = []
@@ -943,6 +1134,7 @@ def train(smi: str) -> dict:
         masters = [m.clone() for m in trainer.masters]
         weights = [p.detach().clone() for p in trainer.trainable]
         reset()
+        witness.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch, gen)
@@ -962,12 +1154,17 @@ def train(smi: str) -> dict:
                                zip(trainable, trainer.trainable, weights) if n.startswith(prefix))
                    for prefix in ("model.diffusion_model.", "conditioner.")}
         same_frozen = all(torch.equal(named[n], w) for n, w in frozen.items())
+        blend_zero = {n for n in zero - unreached if n.endswith("time_mixer.mix_factor")}
+        evidence = {n: witness.explain(n[:-len(".mix_factor")]) for n in sorted(blend_zero)}
         log("train_step", step=step, seconds=step_s[-1], loss=loss,
             grad_norm=float(metrics["grad_norm"]), unet_grad_norm=unet_norm,
             zero_grad_params=sorted(zero)[:4], n_zero_grad=len(zero),
+            zero_reached=sorted(zero - unreached), blend_zero_evidence=evidence,
             masters_moved=sum(moved), weights_changed=changed, launches=launches, card=smi)
-        if zero - unreached or not unet_norm > 0:
-            raise RuntimeError(f"step {step}: zero gradients at {sorted(zero - unreached)[:8]}")
+        explained = {n for n, e in evidence.items() if e["explained"]}
+        if zero - unreached - explained or not unet_norm > 0:
+            raise RuntimeError(f"step {step}: zero gradients at "
+                               f"{sorted(zero - unreached - explained)[:8]}, not explained")
         if not all(mv for mv, p in zip(moved, trainer.trainable) if p.grad.any()):
             raise RuntimeError(f"step {step}: a master with a gradient did not move")
         if not all(changed.values()):
@@ -977,6 +1174,7 @@ def train(smi: str) -> dict:
         if launches != expected:
             raise RuntimeError(f"step {step}: launches {launches}, expected {expected}")
         del masters, weights, grads
+    witness.remove()
     ms = 1e3 * statistics.median(step_s[2:])
     log("train", ms_per_step=ms, frames_per_s=bt / (ms / 1e3), step_seconds=step_s,
         peak_mem_bytes=torch.cuda.max_memory_allocated(), batch_frames=bt, card=smi)
@@ -1007,8 +1205,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _, ptxas = _native.build()
     _native.library()
-    log("build", seconds=time.perf_counter() - t0,
-        ptxas=[line.split(": ", 1)[-1] for line in ptxas.splitlines() if "Used" in line])
+    # nvcc -Xptxas -v's registers, shared memory, spills and stack of K1's and
+    # K7's entry functions (mangled names); empty when the build was cached.
+    entry, ptxas_lines = "", {}
+    for line in ptxas.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif any(k in entry for k in WGMMA_ENTRIES) and ("Used" in line
+                                                          or "stack frame" in line):
+            ptxas_lines.setdefault(entry, []).append(line.split(": ", 1)[-1].strip())
+    log("build", seconds=time.perf_counter() - t0, ptxas=ptxas_lines)
 
     stats, launches, served_launches = serve(smi)
     gc.collect()
@@ -1027,7 +1233,8 @@ def main() -> int:
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]
          else "operations",
-         "library_ms": stats[name]["library_ms"]}
+         "library_ms": stats[name]["library_ms"],
+         **{k: stats[name][k] for k in ("device_ms", "library_device_ms") if k in stats[name]}}
         for name in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

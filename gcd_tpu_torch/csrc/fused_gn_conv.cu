@@ -1,5 +1,5 @@
-// K7: GroupNorm -> SiLU -> 3x3 same-pad convolution in one kernel, for
-// Hopper (sm_90a).
+// K7: GroupNorm -> SiLU -> 3x3 same-pad convolution, for Hopper (sm_90a),
+// on wgmma.
 //
 // Replaces gcd_tpu/ops/fused_gn_conv.py::_kernel (pallas_call in
 // _fused_forward, entry gn_silu_conv3x3). For x (N, H, W, C) channels-last,
@@ -19,85 +19,94 @@
 //
 // What bounds it: operations. Per UNet evaluation the 44 sites do 3.4 TFLOP
 // of products against well under 1 GB of traffic, far above the H100's
-// ridge point, so the products run on tensor cores (mma.sync m16n8k16 bf16,
-// fp32 accumulators, operands from shared memory through ldmatrix).
+// ridge point, so the products run on wgmma (bf16, fp32 accumulators).
 //
-// Design. The TPU kernel holds a whole sample plane in VMEM and computes the
-// statistics in-kernel; a Hopper block cannot see a plane, so K5 runs first
-// and this kernel is an implicit GEMM: M = N*H*W output pixels, N = F
-// filters, K = 9*C (channel slices of BK outer, the 9 taps inner). Block
-// (pixel tile, filter tile) owns a 64 x 160 output tile; 8 warps of 32 x 40.
-// Both operands stream through a 4-stage cp.async ring: the A tile (pixels x
-// channels of one tap) straight from x, zero-filled where the tap leaves the
-// plane; the B tile (filters x channels of one tap), contiguous in the
-// channels_last weight. After its products of one k-step, each thread
-// normalises in place the A values it copied for the next (scale and shift
-// per channel from the statistics, SiLU, one bf16 rounding, zero outside the
-// plane), so the normalised activation never reaches device memory and one
-// barrier per k-step publishes it. Each block runs its whole K loop, with no
-// atomics, so two calls give bit-identical results. At under 128 registers a
-// thread and 70 KB of shared memory a block, two blocks fit an SM; 128-pixel
-// tiles needed 184 registers, one block an SM, and ran slower.
+// Design. An implicit GEMM, M = output pixels, N = filters, K = 9 * C, with
+// the normalisation done once per input value and block:
+//   - A block owns a spatial output tile of 192 pixels -- TH x TW pixels of
+//     one sample, or NS whole planes of TH x TW = H x W when a plane is
+//     smaller (4 x 6: eight planes, 8 x 12: two) -- and BN = 160 filters (which divides
+//     320, 640 and 1280). The wrapper picks the tile (ops/fused_gn_conv.py
+//     tile_plan) and a split of the channel chunks over blocks when the
+//     tiles alone would leave SMs idle.
+//   - The producer warpgroup's first lane walks the block's channel chunks
+//     of 64. Per chunk it
+//     loads, with TMA, the (NS, TH + 2, TW + 2, 64) halo tile of x (a 4D
+//     tensor map; positions off the plane read as zero) and, with bulk
+//     copies, the chunk's per-(sample, channel) scale and shift, into a
+//     2-stage halo ring, one chunk ahead; and the nine (160 filters x 64
+//     channels) weight tiles of the chunk's taps, with TMA, into a 4-stage
+//     weight ring. Every stage has a full and an empty mbarrier. Both rings
+//     are 128-byte swizzled.
+//   - Three consumer warpgroups (64 pixels each) normalise the halo tile in
+//     place, once: t = x * scale + shift, the SiLU, one bf16 rounding, and a
+//     zero written wherever the halo position lies off the plane or past the
+//     last sample (a per-block table of each halo pixel's sample, or -1,
+//     built once; TMA's zero fill pads x, not a). Chunk i + 1's halo is
+//     normalised right after chunk i's products. Two ways of hiding it
+//     under the products -- slices between the taps' wgmma issues, and the
+//     producer warpgroup's three idle warps as normalisers -- ran slower in
+//     design runs on the H100, so the normalisation still stands between
+//     the chunks.
+//   - For each tap, every lane gives ldmatrix the shared-memory address of
+//     its pixel's shifted halo row (a shifted window is no canonical wgmma
+//     layout), which returns the m16n8k16 A fragments; wgmma m64n160k16
+//     multiplies them from registers with the tap's weight tile from
+//     shared memory (K-major descriptor). The fragments of tap t + 1 load
+//     while the products of tap t run; the weight stage of tap t is
+//     released as soon as they complete.
+//   - Scale and shift are computed once per call, per (sample, channel),
+//     by K5's finalize pass (fused_norm.cu) from its sums, gamma and beta;
+//     the C entry point launches K5 itself, so a call is one ctypes call
+//     and one scratch allocation on the host.
+//   - Split-K (4 x 6 and 8 x 12 planes, when the tiles alone would leave
+//     SMs idle or a wave ragged): each split writes fp32 partial sums and a
+//     second kernel adds them in split order with the bias. There are no
+//     atomics anywhere, so two calls give bit-identical results.
+// A block is three consumer warpgroups and one producer warpgroup (512
+// threads, one block per SM at 186 KB of shared memory). ptxas gives a
+// wgmma kernel of 512 threads 128 registers a thread, too few for the 80
+// accumulators and two sets of A fragments (it spilled); setmaxnreg moves
+// the producer warpgroup down to 56 and the consumers up to 152 (the ptxas
+// report is printed by chip_smoke.py).
 //
-// Requires C % 32 == 0, C % G == 0, F % 8 == 0, 16-byte aligned x, w and
-// out (the wrapper checks, and asks C % 64 and F % 64 as the TPU rule does).
+// Requires C % 64 == 0, C % G == 0, F % 8 == 0, x, w, out 16-byte aligned
+// (the wrapper checks, and asks F % 64 as the TPU rule does).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 64;              // output pixels per block
-constexpr int BN = 160;             // filters per block (divides 320, 640, 1280)
-constexpr int BK = 32;              // channels of one tap per k-step
-constexpr int STAGES = 4;           // cp.async ring depth
-constexpr int THREADS = 256;        // 8 warps: 2 along pixels x 4 along filters
-constexpr int WARPS_N = 4;
-constexpr int WN = BN / WARPS_N;    // 40 filters per warp
-constexpr int NT = WN / 8;          // n8 tiles per warp
-constexpr int LDK = BK + 8;         // staged row pitch (bf16): 80 bytes, ldmatrix conflict-free
-constexpr int WM = BM / 2;          // pixels per warp
-constexpr int MT = WM / 16;         // m16 tiles per warp
-constexpr int A_STAGE = BM * LDK;   // bf16 values
-constexpr int STAGE = (BM + BN) * LDK;
-constexpr int SMEM = STAGES * STAGE * 2;      // bytes: 71,680
-constexpr int CPT = BM * (BK / 8) / THREADS;  // 16-byte A chunks per thread
-constexpr int TPR = (BK / 8) / CPT;           // threads per A row
+// The tiling constants BM, BN, CK, HALO_MAX and NS_MAX have Python mirrors in
+// ops/fused_gn_conv.py (BLOCK_PIXELS, BLOCK_FILTERS, CHUNK, HALO_MAX,
+// SAMPLES_MAX), from which tile_plan picks the tile; a test pins the two to
+// each other (tests/test_torch_fused_gn_conv.py).
+constexpr int BN = 160;             // filters per block
+constexpr int CK = 64;              // channels per chunk
+constexpr int CWG = 3;              // consumer warpgroups, 64 pixels each
+constexpr int BM = 64 * CWG;        // output pixels per block
+constexpr int THREADS = 128 * (CWG + 1);  // the consumers, then the producer warpgroup
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 152;  // 3 x 128 x 152 + 128 x 56 = 64 K
+constexpr int CONSUMERS = 128 * CWG;
+constexpr int HALO_MAX = 384;       // halo pixels per block
+constexpr int NS_MAX = 8;           // samples per block
+constexpr int HALO_BYTES = HALO_MAX * CK * 2;
+constexpr int TABLE_BYTES = NS_MAX * CK * 8;
+constexpr int HSTAGE = HALO_BYTES + TABLE_BYTES;  // a multiple of 1024
+constexpr int HSTAGES = 2;
+constexpr int WTILE = BN * CK * 2;                // a multiple of 1024
+constexpr int WSTAGES = 4;
+constexpr int SMEM = 1024 + HSTAGES * HSTAGE + WSTAGES * WTILE + 256 + HALO_MAX * 2;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+struct Plan {
+  int N, H, W, C, F;
+  int TH, TW, NS;         // output tile: NS samples x TH rows x TW columns
+  int tiles_y, tiles_x;   // tiles per sample plane
+  int splits;             // channel-chunk splits (blockIdx.z)
+  int silu;
+};
 
 __device__ __forceinline__ float silu(float t) {
   const float h = 0.5f * t;
@@ -106,188 +115,304 @@ __device__ __forceinline__ float silu(float t) {
   return fmaf(h, th, h);
 }
 
-struct Shape {
-  int N, H, W, C, F, G;
-  float eps;
-  int silu;
-};
-
-__global__ void __launch_bounds__(THREADS, 2)
-gn_silu_conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                       const bf16* __restrict__ gamma, const bf16* __restrict__ beta,
-                       const bf16* __restrict__ bias, const float* __restrict__ s1,
-                       const float* __restrict__ s2, bf16* __restrict__ out, Shape sh) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int warp_m = warp / WARPS_N, warp_n = warp % WARPS_N;
-  const int C = sh.C, HW = sh.H * sh.W;
-  const long long M = (long long)sh.N * HW;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int f0 = blockIdx.y * BN;
-  const int KS = 9 * (C / BK);
-
-  // The A row this thread copies and normalises: pixel m0 + arow, channels
-  // aq*8 .. (aq + CPT)*8 - 1 of each slice.
-  const int arow = tid / TPR, aq = (tid % TPR) * CPT;
-  const long long am = m0 + arow;
-  const bool row_ok = am < M;
-  const int an = row_ok ? (int)(am / HW) : 0;
-  const int arem = row_ok ? (int)(am % HW) : 0;
-  const int py = arem / sh.W, px = arem % sh.W;
-  const bf16* xrow = x + (long long)an * HW * C + aq * 8;
-
-  auto inside = [&](int tap, int& iy, int& ix) {
-    iy = py + tap / 3 - 1;
-    ix = px + tap % 3 - 1;
-    return row_ok && iy >= 0 && iy < sh.H && ix >= 0 && ix < sh.W;
-  };
-
-  // Copy k-step ks into stage ks % STAGES; always commits a group, so the
-  // group count stays one per k-step.
-  auto issue = [&](int ks) {
-    if (ks < KS) {
-      const int tap = ks % 9, c0 = (ks / 9) * BK;
-      bf16* as = smem + (ks % STAGES) * STAGE;
-      bf16* bs = as + A_STAGE;
-      int iy, ix;
-      const bool ok = inside(tap, iy, ix);
-      const bf16* src = xrow + ((long long)iy * sh.W + ix) * C + c0;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j)
-        cp_async16(as + arow * LDK + (aq + j) * 8, ok ? src + j * 8 : x, ok);
-      for (int e = tid; e < BN * (BK / 8); e += THREADS) {
-        const int row = e / (BK / 8), part = e % (BK / 8);
-        const bool okb = f0 + row < sh.F;
-        cp_async16(bs + row * LDK + part * 8,
-                   okb ? w + (long long)(f0 + row) * 9 * C + tap * C + c0 + part * 8 : w, okb);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float scale[CPT * 8], shift[CPT * 8];
-  const int cpg = C / sh.G;
-  const float count = (float)HW * (float)cpg;
-
-  // Normalise this thread's A chunks of k-step ks in place.
-  auto transform = [&](int ks) {
-    if (ks >= KS) return;
-    const int tap = ks % 9;
-    if (tap == 0) {  // a new channel slice: its per-channel scale and shift
-      const int c0 = (ks / 9) * BK + aq * 8;
-#pragma unroll
-      for (int j = 0; j < CPT * 8; ++j) {
-        const int c = c0 + j;
-        const int ng = an * sh.G + c / cpg;
-        const float mean = s1[ng] / count;
-        const float inv = rsqrtf(fmaxf(s2[ng] / count - mean * mean, 0.0f) + sh.eps);
-        scale[j] = inv * __bfloat162float(gamma[c]);
-        shift[j] = __bfloat162float(beta[c]) - mean * scale[j];
-      }
-    }
-    int iy, ix;
-    const bool ok = inside(tap, iy, ix);
-    bf16* a = smem + (ks % STAGES) * STAGE + arow * LDK + aq * 8;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (ok) {
-        u = *reinterpret_cast<const uint4*>(a + j * 8);
-        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 v = __bfloat1622float2(h2[e]);
-          float t0 = fmaf(v.x, scale[j * 8 + 2 * e], shift[j * 8 + 2 * e]);
-          float t1 = fmaf(v.y, scale[j * 8 + 2 * e + 1], shift[j * 8 + 2 * e + 1]);
-          if (sh.silu) {
-            t0 = silu(t0);
-            t1 = silu(t1);
-          }
-          h2[e] = __floats2bfloat162_rn(t0, t1);
-        }
-      }
-      *reinterpret_cast<uint4*>(a + j * 8) = u;
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) issue(s);
-  cp_async_wait<STAGES - 2>();
-  transform(0);
-  for (int ks = 0; ks < KS; ++ks) {
-    __syncthreads();  // k-step ks normalised everywhere; every warp done with ks - 1
-    issue(ks + STAGES - 1);  // into the stage of ks - 1
-    const bf16* as = smem + (ks % STAGES) * STAGE + (warp_m * WM) * LDK;
-    const bf16* bs = smem + (ks % STAGES) * STAGE + A_STAGE + (warp_n * WN) * LDK;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[MT][4], bfr[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldsm_x4(af[i], as + (i * 16 + (lane & 15)) * LDK + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        ldsm_x2(bfr[j], bs + (j * 8 + (lane & 7)) * LDK + kk + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
-    }
-    cp_async_wait<STAGES - 2>();  // this thread's copies of ks + 1 have landed
-    transform(ks + 1);
+// Two channels of x (a bf16 pair) normalised with their (scale, shift)
+// pairs ss, SiLU'd when `on`, rounded to a bf16 pair.
+__device__ __forceinline__ uint32_t norm_pair(uint32_t x2, float4 ss, int on) {
+  const float2 v = unpack_bf16(x2);
+  float t0 = fmaf(v.x, ss.x, ss.y), t1 = fmaf(v.y, ss.z, ss.w);
+  if (on) {
+    t0 = silu(t0);
+    t1 = silu(t1);
   }
-  cp_async_wait<0>();
+  return pack_bf16(t0, t1);
+}
 
-  // Epilogue: accumulator rows lane / 4 and lane / 4 + 8, columns
-  // 2 * (lane % 4) and the next, of each m16 x n8 tile.
+// Normalise a halo tile in place: this consumer thread's steps, step k the
+// 16 bytes (8 channels) e = tid + k * CONSUMERS < E, of halo pixel e / 8,
+// logical channel group e % 8. `where[hp]` is the halo pixel's sample in
+// the tile, or -1 off the plane or past the last sample.
+__device__ __forceinline__ void normalise(unsigned char* hb, const int16_t* where, int E,
+                                          int silu_on, int tid) {
+  const float2* tbl = reinterpret_cast<const float2*>(hb + HALO_BYTES);
+  for (int e = tid; e < E; e += CONSUMERS) {
+    const int hp = e >> 3, j = e & 7;
+    const int ns = where[hp];
+    uint4* a = reinterpret_cast<uint4*>(hb + hp * 128 + ((j ^ (hp & 7)) << 4));
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (ns >= 0) {
+      const uint4 v = *a;
+      const float4* t4 = reinterpret_cast<const float4*>(tbl + ns * CK + j * 8);
+      u.x = norm_pair(v.x, t4[0], silu_on);
+      u.y = norm_pair(v.y, t4[1], silu_on);
+      u.z = norm_pair(v.z, t4[2], silu_on);
+      u.w = norm_pair(v.w, t4[3], silu_on);
+    }
+    *a = u;
+  }
+}
+
+// The A fragments of one tap: 16 pixels x 64 channels of the warp, from the
+// normalised halo at `hsm`, halo pixel hp of this lane's row.
+__device__ __forceinline__ void load_a(uint32_t (&fr)[4][4], uint32_t hsm, int hp, int khalf) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = f0 + warp_n * WN + j * 8 + (lane & 3) * 2;
-    if (col >= sh.F) continue;
-    const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
+  for (int kk = 0; kk < 4; ++kk)
+    ldsm_x4(fr[kk], hsm + hp * 128 + (((2 * kk + khalf) ^ (hp & 7)) << 4));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+gn_silu_conv3x3_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const float2* __restrict__ table, const bf16* __restrict__ bias,
+                       bf16* __restrict__ out, float* __restrict__ partial, Plan p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* halo = base;                          // [HSTAGES][halo | table]
+  unsigned char* wts = base + HSTAGES * HSTAGE;        // [WSTAGES][BN rows of 128 bytes]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(wts + WSTAGES * WTILE);
+  uint64_t* hfull = bars;
+  uint64_t* hempty = bars + HSTAGES;
+  uint64_t* wfull = bars + 2 * HSTAGES;
+  uint64_t* wempty = bars + 2 * HSTAGES + WSTAGES;
+  int16_t* where = reinterpret_cast<int16_t*>(bars + 32);  // [HALO_MAX]
+
+  const int tiles = p.tiles_y * p.tiles_x;
+  const int nb = blockIdx.x / tiles, rem = blockIdx.x % tiles;
+  const int n0 = nb * p.NS, y0 = (rem / p.tiles_x) * p.TH, x0 = (rem % p.tiles_x) * p.TW;
+  const int f0 = blockIdx.y * BN;
+  const int chunks = p.C / CK;
+  const int cb = blockIdx.z * chunks / p.splits, nch = (blockIdx.z + 1) * chunks / p.splits - cb;
+  const int HWp = p.TW + 2, HP = (p.TH + 2) * HWp;  // halo row length, pixels per sample
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < HSTAGES; ++s) {
+      mbar_init(&hfull[s], 1);
+      mbar_init(&hempty[s], CWG * 4);
+    }
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(&wfull[s], 1);
+      mbar_init(&wempty[s], CWG * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= CWG * 4) {
+    // The producer warpgroup hands its registers to the consumers; its first
+    // lane issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    // Producer: the halo of chunk 0, then per chunk i its nine weight tiles
+    // and the halo of chunk i + 1.
+    if (warp == CWG * 4 && lane == 0) {
+      const int valid_ns = min(p.NS, p.N - n0);
+      const uint32_t halo_tx = p.NS * HP * CK * 2 + valid_ns * CK * 8;
+      // Step 0 loads halo 0; step i + 1 the weights of chunk i, then halo i + 1.
+      for (int i = -1; i < nch; ++i) {
+        for (int tap = 0; i >= 0 && tap < 9; ++tap) {
+          const int wi = i * 9 + tap, ws = wi % WSTAGES;
+          mbar_wait(&wempty[ws], ((wi / WSTAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(&wfull[ws], WTILE);
+          tma_load_2d(wts + ws * WTILE, &wmap, &wfull[ws], tap * p.C + (cb + i) * CK, f0);
+        }
+        const int h = i + 1, hs = h % HSTAGES, c0 = (cb + h) * CK;
+        if (h >= nch) break;
+        mbar_wait(&hempty[hs], ((h / HSTAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&hfull[hs], halo_tx);
+        unsigned char* hb = halo + hs * HSTAGE;
+        tma_load_4d(hb, &xmap, &hfull[hs], c0, x0 - 1, y0 - 1, n0);
+        for (int s = 0; s < valid_ns; ++s)
+          bulk_load(hb + HALO_BYTES + s * CK * 8, table + (size_t)(n0 + s) * p.C + c0, CK * 8,
+                    &hfull[hs]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  // Consumers. Lane l of warp wi in warpgroup g reads, through ldmatrix, the
+  // halo row of pixel g * 64 + wi * 16 + (l % 16), channels 8 (l / 16) + 16 kk.
+  const int tid = threadIdx.x, g = warp / 4, wi = warp % 4;
+  const int tile_px = p.NS * p.TH * p.TW;
+  int hbase = 0;
+  {
+    const int px = g * 64 + wi * 16 + (lane & 15);
+    if (px < tile_px) {
+      const int ns = px / (p.TH * p.TW), r = px % (p.TH * p.TW);
+      hbase = ns * HP + (r / p.TW) * HWp + r % p.TW;
+    }
+  }
+  const int khalf = lane >> 4;
+  // Each halo pixel's sample in the tile, or -1 where a is zero.
+  for (int hp = tid; hp < p.NS * HP; hp += CONSUMERS) {
+    const int ns = hp / HP, r = hp % HP;
+    const int yy = y0 - 1 + r / HWp, xx = x0 - 1 + r % HWp;
+    where[hp] = (n0 + ns < p.N && yy >= 0 && yy < p.H && xx >= 0 && xx < p.W) ? ns : -1;
+  }
+  named_barrier(1, CONSUMERS);
+  const int E = p.NS * HP * 8;
+
+  float acc[80];
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const long long r0 = m0 + warp_m * WM + i * 16 + (lane >> 2);
-      if (r0 < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + r0 * sh.F + col) =
-            __floats2bfloat162_rn(acc[i][j][0] + b0, acc[i][j][1] + b1);
-      if (r0 + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (r0 + 8) * sh.F + col) =
-            __floats2bfloat162_rn(acc[i][j][2] + b0, acc[i][j][3] + b1);
+  for (int i = 0; i < 80; ++i) acc[i] = 0.0f;
+  uint32_t afr[2][4][4];
+
+  mbar_wait(&hfull[0], 0);
+  normalise(halo, where, E, p.silu, tid);
+  named_barrier(1, CONSUMERS);
+
+  for (int i = 0; i < nch; ++i) {
+    const int hs = i % HSTAGES;
+    const uint32_t hsm = smem_u32(halo + hs * HSTAGE);
+    const bool next = i + 1 < nch;
+    unsigned char* hn = halo + ((i + 1) % HSTAGES) * HSTAGE;
+
+    load_a(afr[0], hsm, hbase, khalf);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int wi9 = i * 9 + tap, ws = wi9 % WSTAGES;
+      mbar_wait(&wfull[ws], (wi9 / WSTAGES) & 1);
+      const uint32_t wb = smem_u32(wts + ws * WTILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n160k16_rs(acc, afr[tap & 1][kk], desc_sw128(wb + kk * 32, 0, 1024));
+      wgmma_commit();
+      if (tap > 0) {
+        wgmma_wait<1>();  // the products of tap - 1 are done
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(afr[(tap - 1) & 1][kk]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&wempty[(wi9 - 1) % WSTAGES]);
+      }
+      if (tap < 8)
+        load_a(afr[(tap + 1) & 1], hsm, hbase + ((tap + 1) / 3) * HWp + (tap + 1) % 3, khalf);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(afr[0][kk]);
+    fence_proxy_async();  // this proxy wrote the halo stage the TMA refills
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&wempty[(i * 9 + 8) % WSTAGES]);
+      mbar_arrive(&hempty[hs]);
+    }
+    if (next) {
+      mbar_wait(&hfull[(i + 1) % HSTAGES], ((i + 1) / HSTAGES) & 1);
+      normalise(hn, where, E, p.silu, tid);
+    }
+    named_barrier(1, CONSUMERS);  // the next chunk's halo is normalised
+  }
+
+  // Epilogue: accumulator rows lane / 4 and lane / 4 + 8 of the warp's 16
+  // pixels, filters f0 + 8 c + 2 (lane % 4) and the next.
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int px = g * 64 + wi * 16 + lane / 4 + 8 * half;
+    if (px >= tile_px) continue;
+    const int ns = px / (p.TH * p.TW), r = px % (p.TH * p.TW);
+    const int n = n0 + ns, y = y0 + r / p.TW, x = x0 + r % p.TW;
+    if (n >= p.N || y >= p.H || x >= p.W) continue;
+    const size_t row = ((size_t)n * p.H + y) * p.W + x;
+#pragma unroll
+    for (int c = 0; c < BN / 8; ++c) {
+      const int f = f0 + 8 * c + 2 * (lane & 3);
+      if (f >= p.F) continue;
+      const float v0 = acc[4 * c + 2 * half], v1 = acc[4 * c + 2 * half + 1];
+      if (p.splits == 1) {
+        *reinterpret_cast<uint32_t*>(out + row * p.F + f) =
+            pack_bf16(v0 + __bfloat162float(bias[f]), v1 + __bfloat162float(bias[f + 1]));
+      } else {
+        const size_t m = (size_t)p.N * p.H * p.W;
+        *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.z * m + row) * p.F + f) =
+            make_float2(v0, v1);
+      }
     }
   }
 }
 
+// out = bf16(sum over splits, in split order, of the partial sums + bias).
+__global__ void splitk_sum_kernel(const float2* __restrict__ partial,
+                                  const bf16* __restrict__ bias, bf16* __restrict__ out,
+                                  long long pairs, int F, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  const int f = (int)((2 * i) % F);
+  float2 s = partial[i];
+  for (int k = 1; k < splits; ++k) {
+    const float2 t = partial[k * pairs + i];
+    s.x += t.x;
+    s.y += t.y;
+  }
+  *reinterpret_cast<uint32_t*>(out + 2 * i) =
+      pack_bf16(s.x + __bfloat162float(bias[f]), s.y + __bfloat162float(bias[f + 1]));
+}
+
 }  // namespace
 
-// K7: out (N, H, W, F) = conv3x3(silu(groupnorm(x)), w) + bias, channels-last,
-// with the group sums s1, s2 (N, G) fp32 from gcd_group_stats_cl.
+// K5, channels-last, with the scale / shift table (fused_norm.cu).
+extern "C" int gcd_group_stats_cl(const void* x, void* part, void* s1, void* s2, int N, int C,
+                                  int P, int G, int ptile, const void* gamma, const void* beta,
+                                  void* table, float eps, void* stream);
+
+// K7: out (N, H, W, F) = conv3x3(silu(x * scale + shift), w) + bias,
+// channels-last, with `table` (N, C) float2 the per-(sample, channel)
+// (scale, shift). With `stats`, K5 writes the table first from x, gamma,
+// beta and eps (its scratch `part`, N * ceil(H * W / ptile) * C / 2 float2,
+// and its sums s1, s2, (N, G) fp32 each); else the table is given. `partial`
+// is (splits, N * H * W, F) fp32 scratch when splits > 1 (else unused). TH,
+// TW, NS, splits: the tile plan. Tensor maps come from cached_bf16_map: the
+// weights' stay put, and the UNet's activations come back to the same
+// addresses evaluation after evaluation.
 extern "C" int gcd_gn_silu_conv3x3(const void* x, const void* w, const void* gamma,
-                                   const void* beta, const void* bias, const void* s1,
-                                   const void* s2, void* out, int N, int H, int W, int C,
-                                   int F, int G, float eps, int silu, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || G <= 0 || C <= 0 || C % BK || C % G || F <= 0 || F % 8)
+                                   const void* beta, const void* bias, void* part, void* s1,
+                                   void* s2, void* table, void* partial, void* out, int N, int H,
+                                   int W, int C, int F, int G, int ptile, float eps, int stats,
+                                   int silu_on, int TH, int TW, int NS, int splits,
+                                   void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % CK || F <= 0 || F % 8 ||
+      TH <= 0 || TW <= 0 || NS <= 0 || NS > NS_MAX || TH * TW * NS > BM ||
+      NS * (TH + 2) * (TW + 2) > HALO_MAX || TW + 2 > 256 || TH + 2 > 256 || splits <= 0 ||
+      splits > C / CK)
     return (int)cudaErrorInvalidValue;
-  Shape sh;
-  sh.N = N; sh.H = H; sh.W = W; sh.C = C; sh.F = F; sh.G = G; sh.eps = eps; sh.silu = silu;
-  const long long mblocks = ((long long)N * H * W + BM - 1) / BM;
-  if (mblocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(gn_silu_conv3x3_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  cudaStream_t st = (cudaStream_t)stream;
+  Plan p;
+  p.N = N; p.H = H; p.W = W; p.C = C; p.F = F;
+  p.TH = TH; p.TW = TW; p.NS = NS;
+  p.tiles_y = (H + TH - 1) / TH;
+  p.tiles_x = (W + TW - 1) / TW;
+  p.splits = splits;
+  p.silu = silu_on;
+  const long long blocks = (long long)((N + NS - 1) / NS) * p.tiles_y * p.tiles_x;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+
+  CUtensorMap xm, wm;
+  const uint64_t xdims[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H, (uint64_t)N};
+  const uint64_t xstr[3] = {(uint64_t)C * 2, (uint64_t)W * C * 2, (uint64_t)H * W * C * 2};
+  const uint32_t xbox[4] = {(uint32_t)CK, (uint32_t)(TW + 2), (uint32_t)(TH + 2), (uint32_t)NS};
+  const uint64_t wdims[2] = {(uint64_t)9 * C, (uint64_t)F};
+  const uint64_t wstr[1] = {(uint64_t)9 * C * 2};
+  const uint32_t wbox[2] = {(uint32_t)CK, (uint32_t)BN};
+  if (!cached_bf16_map(&xm, x, 4, xdims, xstr, xbox) ||
+      !cached_bf16_map(&wm, w, 2, wdims, wstr, wbox))
+    return (int)cudaErrorInvalidValue;
+
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = smem_limit_once(gn_silu_conv3x3_kernel, SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)mblocks, (unsigned)((F + BN - 1) / BN));
-  gn_silu_conv3x3_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w, (const bf16*)gamma, (const bf16*)beta, (const bf16*)bias,
-      (const float*)s1, (const float*)s2, (bf16*)out, sh);
+  if (stats) {
+    const int e = gcd_group_stats_cl(x, part, s1, s2, N, C, H * W, G, ptile, gamma, beta, table,
+                                     eps, stream);
+    if (e) return e;
+  }
+  const dim3 grid((unsigned)blocks, (unsigned)((F + BN - 1) / BN), (unsigned)splits);
+  gn_silu_conv3x3_kernel<<<grid, THREADS, SMEM, st>>>(xm, wm, (const float2*)table,
+                                                      (const bf16*)bias, (bf16*)out,
+                                                      (float*)partial, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long pairs = (long long)N * H * W * F / 2;
+  splitk_sum_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, st>>>(
+      (const float2*)partial, (const bf16*)bias, (bf16*)out, pairs, F, splits);
   return (int)cudaGetLastError();
 }

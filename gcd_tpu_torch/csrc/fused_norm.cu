@@ -206,10 +206,16 @@ group_stats_partial_kernel(const bf16* __restrict__ x, float2* __restrict__ part
 //   channels-first: partial i < P is part[ng*P + i].
 //   channels-last:  partial i = t*ppg + j (tile t, the group's pair j) is
 //                   part[(n*tiles + t)*pairs + g*ppg + j].
+// With a `table` (channels-last only; K7 takes it), the block also writes
+// its group's per-channel (scale, shift) = (inv * gamma, beta - mean * scale)
+// for a = x * scale + shift, with mean and inv from `count` values as K4's
+// apply pass forms them.
 __global__ void __launch_bounds__(THREADS)
 group_stats_finalize_kernel(const float2* __restrict__ part, float* __restrict__ s1,
                             float* __restrict__ s2, int G, int P, int tiles, int pairs,
-                            int channels_last) {
+                            int channels_last, const bf16* __restrict__ gamma,
+                            const bf16* __restrict__ beta, float2* __restrict__ table,
+                            float count, float eps) {
   const int ng = blockIdx.x;
   float a = 0.0f, b = 0.0f;
   if (!channels_last) {
@@ -232,6 +238,16 @@ group_stats_finalize_kernel(const float2* __restrict__ part, float* __restrict__
   if (threadIdx.x == 0) {
     s1[ng] = tot.x;
     s2[ng] = tot.y;
+  }
+  if (table) {
+    const int cpg = 2 * pairs / G, c0 = (ng % G) * cpg;
+    const float mean = tot.x / count;
+    const float inv = rsqrtf(fmaxf(tot.y / count - mean * mean, 0.0f) + eps);
+    for (int c = c0 + threadIdx.x; c < c0 + cpg; c += THREADS) {
+      const float scale = inv * __bfloat162float(gamma[c]);
+      table[(long long)(ng / G) * 2 * pairs + c] =
+          make_float2(scale, __bfloat162float(beta[c]) - mean * scale);
+    }
   }
 }
 
@@ -353,14 +369,17 @@ extern "C" int gcd_group_stats(const void* x, void* part, void* s1, void* s2, in
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   group_stats_finalize_kernel<<<(unsigned)(N * G), THREADS, 0, st>>>(
-      (const float2*)part, (float*)s1, (float*)s2, G, F * chunks, 0, 0, 0);
+      (const float2*)part, (float*)s1, (float*)s2, G, F * chunks, 0, 0, 0, nullptr, nullptr,
+      nullptr, 0.0f, 0.0f);
   return (int)cudaGetLastError();
 }
 
 // K5, channels-last (N, P, C). `part` is scratch of N*ceil(P/ptile)*(C/2)
-// float2.
+// float2. With a non-null `table` ((N, C) float2), also the GroupNorm's
+// per-(sample, channel) scale and shift for gamma, beta and eps (K7's).
 extern "C" int gcd_group_stats_cl(const void* x, void* part, void* s1, void* s2, int N, int C,
-                                  int P, int G, int ptile, void* stream) {
+                                  int P, int G, int ptile, const void* gamma, const void* beta,
+                                  void* table, float eps, void* stream) {
   if (!valid_cl(N, C, P, G, ptile)) return (int)cudaErrorInvalidValue;
   const int tiles = (P + ptile - 1) / ptile;
   const dim3 grid(tiles, (C / 2 + CL_PAIRS - 1) / CL_PAIRS, N);
@@ -370,7 +389,8 @@ extern "C" int gcd_group_stats_cl(const void* x, void* part, void* s1, void* s2,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   group_stats_finalize_kernel<<<(unsigned)(N * G), THREADS, 0, st>>>(
-      (const float2*)part, (float*)s1, (float*)s2, G, 0, tiles, C / 2, 1);
+      (const float2*)part, (float*)s1, (float*)s2, G, 0, tiles, C / 2, 1, (const bf16*)gamma,
+      (const bf16*)beta, (float2*)table, (float)P * (float)(C / G), eps);
   return (int)cudaGetLastError();
 }
 

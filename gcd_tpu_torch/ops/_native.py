@@ -1,11 +1,19 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
 The sources are compiled with nvcc at first use into a plain-C shared
-library, keyed by a hash of the sources and flags, under
+library, keyed by a hash of the sources, the headers they share
+(csrc/*.cuh) and the flags, under
 gcd_tpu_torch/_build/ (listed in .gitignore), and bound with ctypes. Each C
 entry point launches on the stream it is given and returns
 cudaGetLastError(); `launch` raises on a non-zero code. Nothing here runs
 at import time, so the CPU tests import every module without nvcc or a card.
+
+The wgmma kernels (K1, K7) take TMA tensor maps, which the C entry points
+encode with the driver's cuTensorMapEncodeTiled, keeping the last few
+hundred by address and shape (the weights stay put, and the activations
+come back to the same addresses). They find it
+with dlopen/dlsym in the libcuda.so.1 that the CUDA runtime has loaded
+(csrc/hopper.cuh), so the link needs no -lcuda.
 """
 
 from __future__ import annotations
@@ -42,10 +50,10 @@ _SIGNATURES = {
     "gcd_group_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P),
     "gcd_group_norm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _F, _I, _I,
                        _P),
-    "gcd_group_stats_cl": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gcd_group_stats_cl": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P),
     "gcd_group_norm_cl": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
-    "gcd_gn_silu_conv3x3": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                            _P),
+    "gcd_gn_silu_conv3x3": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _F, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -69,8 +77,9 @@ def build() -> Tuple[Path, str]:
     link. Returns (library path, the compilers' stderr -- the ptxas
     register/shared-memory report -- or "" when it was cached)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
+    for path in [*(CSRC / name for name in SOURCES), *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
     out = BUILD_DIR / f"libgcdkernels-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out, ""
@@ -119,7 +128,9 @@ def launch(name: str, *args) -> None:
     """Call one C entry point on the current CUDA stream; raise if the
     launch was refused."""
     lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
+    # torch.cuda.current_stream().cuda_stream, without building a Stream
+    # object (about 10 us a call on the H100 machine's host).
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
     code = getattr(lib, name)(*args, stream)
     if code != 0:
         msg = lib.gcd_error_string(code).decode()

@@ -155,7 +155,9 @@ def flash_attention(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                     heads: int, scale: Optional[float] = None) -> torch.Tensor:
     """Self-attention on (B, S, H*D) tokens; K1 on CUDA (bf16, D in {64, 128}),
     differentiable through K6."""
-    return _FlashAttention.apply(q3, k3, v3, heads, scale)
+    if torch.is_grad_enabled() and (q3.requires_grad or k3.requires_grad or v3.requires_grad):
+        return _FlashAttention.apply(q3, k3, v3, heads, scale)
+    return _flash_forward(q3, k3, v3, heads, scale)
 
 
 flash_attention.launches = 0

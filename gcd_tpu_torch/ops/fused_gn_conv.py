@@ -9,11 +9,16 @@ accumulation, the fp32 bias, one rounding to x.dtype.
 
 What bounds it on the H100: operations (at the UNet's ResBlock shapes the
 products are 5-7x the time of the bytes at the card's peaks), so the kernel
-is an implicit GEMM on tensor cores. K5 (`group_stats`, channels-last)
-computes the statistics first, as K4's split path does; the kernel
-normalises each operand tile as it loads it, zeroes the taps outside the
-plane after the normalisation, and never writes the normalised activation
-to device memory -- the pass of K4 plus the cuDNN read it replaces.
+is an implicit GEMM on wgmma. K5 (channels-last; launched by K7's C entry
+point, and counted under `gn_stats`) computes the statistics first, as K4's
+split path does, and its finalize pass the per-(sample, channel) scale and
+shift (under `kernel_flags(gn_stats=False)`, `group_scale_shift_plain`
+does); each block normalises the halo
+tile of its output pixels once per 64-channel chunk, zeroes the positions
+off the plane after the normalisation, and never writes the normalised
+activation to device memory -- the pass of K4 plus the cuDNN read it
+replaces. `tile_plan` picks each block's output tile and how many blocks
+share a tile's channel chunks (split-K, summed in a fixed order).
 
 Tensors are torch's: x (N, C, H, W), conv weight (F, C, 3, 3). On CUDA the
 kernel takes x in channels_last memory (the layout of the port's
@@ -31,15 +36,22 @@ not run again (ops/recompute.py).
 
 from __future__ import annotations
 
-from functools import partial
+import itertools
+from functools import lru_cache, partial
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
-from gcd_tpu_torch.ops.fused_norm import group_norm_plain, group_stats
-from gcd_tpu_torch.ops.recompute import PlainGradient
+from gcd_tpu_torch.ops.fused_norm import (
+    CL_PIXEL_TILE,
+    group_norm_plain,
+    group_scale_shift_plain,
+    group_stats,
+)
+from gcd_tpu_torch.ops.recompute import plain_gradient
 
 
 def gn_silu_conv3x3_plain(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Tensor,
@@ -60,6 +72,62 @@ def supported(x: torch.Tensor, conv_weight: torch.Tensor, groups: int) -> bool:
         return False
     c, f = x.shape[1], conv_weight.shape[0]
     return conv_weight.shape[1] == c and c % groups == 0 and c % 64 == 0 and f % 64 == 0
+
+
+# The kernel's fixed tiling, mirrors of csrc/fused_gn_conv.cu's BM, BN, CK,
+# HALO_MAX and NS_MAX: output pixels and filters per block, channels per
+# chunk, halo pixels and samples per block.
+BLOCK_PIXELS, BLOCK_FILTERS, CHUNK, HALO_MAX, SAMPLES_MAX = 192, 160, 64, 384, 8
+
+
+class TilePlan(NamedTuple):
+    """Each block's output tile is `samples` x `rows` x `cols` pixels (whole
+    planes when a plane has at most BLOCK_PIXELS), times BLOCK_FILTERS
+    filters; the C / CHUNK channel chunks are split over `splits` blocks
+    per tile, split s taking chunks [s * chunks // splits, (s + 1) *
+    chunks // splits)."""
+    rows: int
+    cols: int
+    samples: int
+    splits: int
+
+
+@lru_cache(maxsize=None)
+def tile_plan(n: int, h: int, w: int, c: int, f: int, sms: int) -> TilePlan:
+    """The tile and split-K plan K7 runs (n, h, w, c, f) with on `sms` SMs.
+
+    One block fits an SM, so blocks run in waves of `sms`. The split count
+    minimises waves x (chunks per block + 1, for the block's fill and
+    epilogue), plus half a chunk per extra split for the fp32 partial sums
+    and their second pass."""
+    rows = cols = samples = 0
+    if h * w <= BLOCK_PIXELS:
+        rows, cols = h, w
+        samples = min(BLOCK_PIXELS // (h * w), SAMPLES_MAX, n)
+        while samples and samples * (h + 2) * (w + 2) > HALO_MAX:
+            samples -= 1
+    if not samples:
+        samples = 1
+        shapes = [(r, BLOCK_PIXELS // r) for r in range(1, BLOCK_PIXELS + 1)
+                  if BLOCK_PIXELS % r == 0]
+        rows, cols = min(
+            ((r, q) for r, q in shapes if (r + 2) * (q + 2) <= HALO_MAX),
+            key=lambda rq: (-(-h // rq[0]) * rq[0] * -(-w // rq[1]) * rq[1],
+                            (rq[0] + 2) * (rq[1] + 2)))
+    tiles = -(-n // samples) * -(-h // rows) * -(-w // cols)
+    blocks = tiles * -(-f // BLOCK_FILTERS)
+    chunks = c // CHUNK
+
+    def cost(s):
+        return -(-blocks * s // sms) * (-(-chunks // s) + 1) + 0.5 * (s - 1)
+
+    splits = min(range(1, min(chunks, 16) + 1), key=cost)
+    return TilePlan(rows, cols, samples, splits)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 class _ConvGradient(torch.autograd.Function):
@@ -99,8 +167,8 @@ def gn_silu_conv3x3(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Ten
                     groups: int = 32, eps: float = 1e-5, silu: bool = True) -> torch.Tensor:
     """GroupNorm(groups, eps) (+ SiLU) -> 3x3 same-pad conv; K7 on CUDA."""
     args = dict(groups=groups, eps=eps, silu=silu)
-    return PlainGradient.apply(partial(_forward, **args), partial(_gradient_chain, **args),
-                               x, gn_weight, gn_bias, conv_weight, conv_bias)
+    return plain_gradient(partial(_forward, **args), partial(_gradient_chain, **args),
+                          x, gn_weight, gn_bias, conv_weight, conv_bias)
 
 
 def _forward(x, gn_weight, gn_bias, conv_weight, conv_bias, groups, eps, silu):
@@ -124,12 +192,27 @@ def _forward(x, gn_weight, gn_bias, conv_weight, conv_bias, groups, eps, silu):
     _native.check_cuda_operand("gn_weight", gn_weight, torch.bfloat16, (c,), align=2)
     _native.check_cuda_operand("gn_bias", gn_bias, torch.bfloat16, (c,), align=2)
     _native.check_cuda_operand("conv_bias", conv_bias, torch.bfloat16, (f,), align=2)
-    s1, s2 = group_stats(x, groups)
+    plan = tile_plan(n, h, w, c, f, _sm_count(x.device.index or 0))
+    stats = kernel_enabled("gn_stats")
+    # One fp32 scratch: K5's partial sums, its group sums (s1, s2) and the
+    # scale / shift table, K7's split-K partial sums; each part a multiple
+    # of 16 bytes.
+    sizes = [n * -(-h * w // CL_PIXEL_TILE) * c, n * groups, n * groups, 2 * n * c,
+             plan.splits * n * h * w * f if plan.splits > 1 else 0]
+    sizes = [-(-size // 4) * 4 for size in sizes]
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    part, s1, s2, table, partial_sums = (
+        scratch.data_ptr() + 4 * offset for offset in itertools.accumulate([0] + sizes[:-1]))
+    if not stats:
+        plain_table = group_scale_shift_plain(x, gn_weight, gn_bias, groups, eps)
+        scratch.narrow(0, sum(sizes[:3]), 2 * n * c).copy_(plain_table.flatten())
     out = torch.empty((n, f, h, w), dtype=x.dtype, device=x.device, memory_format=fmt)
     _native.launch("gcd_gn_silu_conv3x3", x.data_ptr(), conv_weight.data_ptr(),
-                   gn_weight.data_ptr(), gn_bias.data_ptr(), conv_bias.data_ptr(),
-                   s1.data_ptr(), s2.data_ptr(), out.data_ptr(), n, h, w, c, f, groups,
-                   float(eps), int(silu))
+                   gn_weight.data_ptr(), gn_bias.data_ptr(), conv_bias.data_ptr(), part, s1, s2,
+                   table, partial_sums, out.data_ptr(), n, h, w, c, f, groups, CL_PIXEL_TILE,
+                   float(eps), int(stats), int(silu), *plan)
+    if stats:
+        group_stats.launches += 1
     gn_silu_conv3x3.launches += 1
     return out
 

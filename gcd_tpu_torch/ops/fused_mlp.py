@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
-from gcd_tpu_torch.ops.recompute import PlainGradient
+from gcd_tpu_torch.ops.recompute import plain_gradient
 
 
 def geglu_mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -43,7 +43,7 @@ def geglu_mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def geglu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """GEGLU MLP; K3 on CUDA (bf16, C a multiple of 64, I of 256, C_out of 16)."""
-    return PlainGradient.apply(_geglu_forward, geglu_mlp_plain, x, w1, b1, w2, b2)
+    return plain_gradient(_geglu_forward, geglu_mlp_plain, x, w1, b1, w2, b2)
 
 
 def _geglu_forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

@@ -36,7 +36,7 @@ import torch
 
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
-from gcd_tpu_torch.ops.recompute import PlainGradient
+from gcd_tpu_torch.ops.recompute import plain_gradient
 
 # Largest group normalised in one pass (96 KB of bf16 in one block's shared
 # memory); must equal FUSED_MAX in csrc/fused_norm.cu.
@@ -128,7 +128,7 @@ def group_stats(x: torch.Tensor, num_groups: int) -> Tuple[torch.Tensor, torch.T
         tiles = -(-lay[2] // CL_PIXEL_TILE)
         part = torch.empty((n * tiles * (c // 2), 2), dtype=torch.float32, device=x.device)
         _native.launch("gcd_group_stats_cl", x.data_ptr(), part.data_ptr(), s1.data_ptr(),
-                       s2.data_ptr(), *lay, num_groups, CL_PIXEL_TILE)
+                       s2.data_ptr(), *lay, num_groups, CL_PIXEL_TILE, None, None, None, 0.0)
     else:
         f, l = lay[2:4]
         chunks = -(-(c // num_groups) * l // STATS_CHUNK)
@@ -140,13 +140,28 @@ def group_stats(x: torch.Tensor, num_groups: int) -> Tuple[torch.Tensor, torch.T
     return s1, s2
 
 
+def group_scale_shift_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                            num_groups: int, eps: float) -> torch.Tensor:
+    """(N, C, 2) fp32: per (sample, channel) the GroupNorm's (scale, shift),
+    normalised x = x * scale + shift, from `group_stats_plain`'s sums. K5's
+    finalize pass writes this table for K7 (csrc/fused_norm.cu)."""
+    n, c = x.shape[:2]
+    s1, s2 = group_stats_plain(x, num_groups)
+    count = x[0].numel() // num_groups
+    mean = s1 / count
+    inv = torch.rsqrt((s2 / count - mean * mean).clamp_min(0.0) + eps)
+    scale = inv.repeat_interleave(c // num_groups, 1) * weight.float()
+    shift = bias.float() - mean.repeat_interleave(c // num_groups, 1) * scale
+    return torch.stack((scale, shift), dim=-1)
+
+
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                num_groups: int, eps: float, silu: bool) -> torch.Tensor:
     """GroupNorm(+SiLU) over dim 1; K4 on CUDA (bf16 x, weight and bias).
     The result has x's memory layout."""
     args = dict(num_groups=num_groups, eps=eps, silu=silu)
-    return PlainGradient.apply(partial(_group_norm_forward, **args),
-                               partial(group_norm_plain, **args), x, weight, bias)
+    return plain_gradient(partial(_group_norm_forward, **args),
+                          partial(group_norm_plain, **args), x, weight, bias)
 
 
 def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -35,3 +35,13 @@ class PlainGradient(torch.autograd.Function):
             grads = iter(torch.autograd.grad(out, [t for t, n in zip(inputs, need) if n],
                                              grad))
         return (None, None, *(next(grads) if n else None for n in need))
+
+
+def plain_gradient(run: Callable, plain: Callable, *tensors: torch.Tensor):
+    """PlainGradient.apply(run, plain, *tensors) where a gradient is asked
+    for; else run(*tensors) alone, which gives the same values without the
+    Function's host time (about 20 us a call on the H100 machine's host,
+    ahead of every kernel launch on the inference path)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return PlainGradient.apply(run, plain, *tensors)
+    return run(*tensors)

@@ -22,7 +22,7 @@ import torch
 
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
-from gcd_tpu_torch.ops.recompute import PlainGradient
+from gcd_tpu_torch.ops.recompute import plain_gradient
 
 MAX_FRAMES = 16
 MAX_HEAD_DIM = 128
@@ -55,8 +55,8 @@ def temporal_attention(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     """Frame-axis attention on (B*T, S, H*D) tokens; K2 on CUDA (bf16,
     T <= 16, even D <= 128)."""
     args = dict(timesteps=timesteps, heads=heads, scale=scale)
-    return PlainGradient.apply(partial(_temporal_forward, **args),
-                               partial(temporal_attention_plain, **args), q3, k3, v3)
+    return plain_gradient(partial(_temporal_forward, **args),
+                          partial(temporal_attention_plain, **args), q3, k3, v3)
 
 
 def _temporal_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,

@@ -1,0 +1,82 @@
+"""chip_smoke.py's training-phase evidence on the CPU: `BlendWitness`, which
+decides whether a blend factor's exactly-zero gradient at a step was made by
+bf16 rounding (then the step may pass) or not (then it fails).
+
+A tiny rematerialised block blends x with x + scale * linear(x) in bf16,
+as the UNet's VideoResBlock and SpatialVideoTransformer do.
+"""
+
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402
+from gcd_tpu_torch.models.layers import AlphaBlender  # noqa: E402
+
+B, T, N, C = 2, 3, 8, 16
+
+
+class _Block(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.branch = nn.Linear(C, C)
+        self.time_mixer = AlphaBlender(0.5, "learned_with_images")
+
+    def forward(self, x, ioi):
+        alpha = self.time_mixer.get_alpha(ioi).reshape(-1)[:, None, None]
+        return self.time_mixer(x, x + self.branch(x), alpha)
+
+
+def _step(block, x):
+    """One forward and backward with the block rematerialised; the witness's
+    evidence for the block's blender, and its mix_factor gradient."""
+    witness = chip_smoke.BlendWitness(block)
+    block.zero_grad(set_to_none=True)
+    ioi = torch.zeros(B, T)
+    out = checkpoint(block, x, ioi, use_reentrant=False)
+    weights = torch.linspace(-1.0, 1.0, out.numel()).reshape(out.shape)
+    (out.float() * weights).sum().backward()
+    witness.remove()
+    return witness, block.time_mixer.mix_factor.grad
+
+
+def _block(branch_scale: float) -> _Block:
+    torch.manual_seed(0)
+    block = _Block().to(torch.bfloat16)
+    with torch.no_grad():
+        block.branch.weight.mul_(branch_scale)
+        block.branch.bias.mul_(branch_scale)
+    return block
+
+
+@pytest.mark.parametrize("branch_scale", [0.0, 1e-6])
+def test_blend_witness_explains_a_zero_that_rounding_makes(branch_scale):
+    """A temporal branch of zero, or one below bf16 resolution of x: the
+    factor's gradient is exactly zero at every frame, and the fp32 sums show
+    why."""
+    x = torch.randn(B * T, N, C, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    witness, grad = _step(_block(branch_scale), x)
+    assert witness.calls["time_mixer"] == 2  # the forward and the recompute
+    assert float(grad.abs().sum()) == 0.0
+    evidence = witness.explain("time_mixer")
+    assert evidence["explained"]
+    assert evidence["zero_frames"] == evidence["frames"] == B * T
+
+
+def test_blend_witness_refuses_a_zero_that_rounding_cannot_make():
+    """A live temporal branch: the gradient is not zero; were it read as zero
+    at every frame, the fp32 sums would refuse it."""
+    x = torch.randn(B * T, N, C, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    witness, grad = _step(_block(1.0), x)
+    assert float(grad.abs().sum()) > 0.0
+    assert witness.explain("time_mixer")["zero_frames"] == 0
+    frames = witness.frames["time_mixer"]
+    frames["grad"] = torch.zeros_like(frames["grad"])
+    evidence = witness.explain("time_mixer")
+    assert not evidence["explained"] and evidence["max_diff_over_slack"] > 1.0
