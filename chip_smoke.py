@@ -7,7 +7,7 @@ without the final `ok` line):
   1. device      - require CUDA; print nvidia-smi's name and power limit.
   2. build       - compile gcd_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
                    process per source; the ptxas report (registers, spills,
-                   stack) of the wgmma kernels K1 and K7.
+                   stack) of the wgmma kernels K1, K3 and K7.
   3. conditioner - load_engine(configs/infer_kubric.yaml): random bf16
                    weights (std 0.02 on every leaf, seeded), ViT-H/14 tower;
                    one conditioner pass on a random 14-frame 384x256 batch;
@@ -21,14 +21,15 @@ without the final `ok` line):
                    backward, K2 temporal attention, K3 fused GEGLU MLP, K4
                    GroupNorm, K5 group statistics, K7 GroupNorm -> SiLU ->
                    3x3 conv (its 14 UNet shapes at N = 28, and at N = 56,
-                   the served batch; K1 likewise at B = 28 and B = 56, and
-                   at D = 128 at ds2's width); K4 / K5
-                   also on channels-first copies of those shapes; K1, K4, K5,
-                   K6 and K7 bit-identical on a second call. CUDA-event and
+                   the served batch; K1 and K3 likewise at B = 28 and
+                   B = 56, K1 also at D = 128 at ds2's width); K4 / K5
+                   also on channels-first copies of those shapes; every
+                   kernel bit-identical on a second call (none uses
+                   atomics). CUDA-event and
                    host enqueue times beside the bound (achieved TFLOP/s and
                    share of the bound) and the one-call library equivalent
-                   (K5's: torch.var_mean over the grouped view); K1's and
-                   K7's cases, and their library calls, also by
+                   (K5's: torch.var_mean over the grouped view); K1's, K3's,
+                   K5's and K7's cases, and their library calls, also by
                    torch.profiler device time.
   5. ab          - the flagship UNet evaluation, the decode and the
                    conditioner with every kernel on vs off (relative
@@ -117,7 +118,7 @@ FP32_FLOPS = 67e12
 # Substrings of each port kernel's device function names, for the profile.
 PROFILE_TAGS = {"flash": ("flash_attention_kernel",), "flash_bwd": ("rows_kernel", "dkdv_kernel"),
                 "tattn": ("temporal_attention_kernel",),
-                "fused_mlp": ("geglu_mlp_kernel", "bias_round_kernel"),
+                "fused_mlp": ("geglu_up_kernel", "geglu_down_kernel"),
                 "fused_gn_and_gn_stats": ("group_norm", "group_stats"),
                 "fused_gn_conv": ("gn_silu_conv3x3_kernel", "splitk_sum_kernel")}
 LEVELS = [("ds1", 1536, 320, 5), ("ds2", 384, 640, 5), ("ds4", 96, 1280, 5),
@@ -139,9 +140,11 @@ SOURCES = {
                       "gcd_tpu/ops/fused_gn_conv.py:42"),
 }
 # Kernels whose phase-4 cases are also timed by device time (torch.profiler).
-DEVICE_TIMED = ("flash", "fused_gn_conv")
-# The wgmma kernels' entry functions (K1, K7), whose ptxas lines the build logs.
-WGMMA_ENTRIES = ("flash_attention_kernel", "gn_silu_conv3x3_kernel")
+DEVICE_TIMED = ("flash", "fused_mlp", "gn_stats", "fused_gn_conv")
+# The wgmma kernels' entry functions (K1, K3, K7), whose ptxas lines the build
+# logs.
+WGMMA_ENTRIES = ("flash_attention_kernel", "geglu_up_kernel", "geglu_down_kernel",
+                 "gn_silu_conv3x3_kernel")
 SERVE_BATCH = 2   # clips per served batch
 SERVE_REQUESTS = 4
 SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
@@ -253,9 +256,14 @@ class BlendWitness:
     taken again in fp32 at every frame, with the slack the roundings
     have: half a bf16 ulp of each sum, plus 2^-8 of sum |g| (|x_s| + |x_t|)
     over the values where the branches differ (their products round
-    differently; elsewhere they are the same bf16 product). A frame whose
-    gradient reads zero is explained by rounding when its fp32 difference is
-    within that slack. Nothing here synchronises inside the step."""
+    differently; elsewhere they are the same bf16 product). The factor's
+    gradient is its frames' readings summed. Its zero is explained by
+    rounding when every frame's fp32 difference lies within that slack (the
+    frame's true value is below what the roundings resolve), every frame's
+    reading lies within that slack (plus half a bf16 ulp of the reading,
+    the subtraction's own rounding) of its fp32 difference, and the readings
+    sum to zero: frames that read zero, or frames that read small values
+    which cancel. Nothing here synchronises inside the step."""
 
     def __init__(self, model):
         from gcd_tpu_torch.models.layers import AlphaBlender
@@ -312,13 +320,20 @@ class BlendWitness:
         if self.calls[name] != 2 or name not in self.frames:
             return {"explained": False, "calls": self.calls[name]}
         fr = self.frames[name]
-        zero = fr["grad"] == 0
-        ratio = torch.where(fr["diff"] == 0, torch.zeros_like(fr["diff"]),
-                            fr["diff"].abs() / fr["slack"])[zero]
-        return {"explained": bool(zero.all()) and bool((ratio <= 1).all()),
-                "zero_frames": int(zero.sum()), "frames": zero.numel(),
-                "max_diff_over_slack": float(ratio.max()) if ratio.numel() else None,
-                "max_abs_diff": float(fr["diff"].abs().max()),
+        grad, diff, slack = fr["grad"].float(), fr["diff"], fr["slack"]
+        value = torch.where(diff == 0, torch.zeros_like(diff), diff.abs() / slack)
+        err = (grad - diff).abs()
+        err = torch.where(err == 0, torch.zeros_like(err), err / (slack + bf16_half_ulp(grad)))
+        cancel = float(grad.sum().to(torch.bfloat16)) == 0.0
+        nonzero = (grad != 0).flatten().nonzero().flatten().tolist()
+        return {"explained": bool((value <= 1).all()) and bool((err <= 1).all()) and cancel,
+                "zero_frames": grad.numel() - len(nonzero), "frames": grad.numel(),
+                "max_diff_over_slack": float(value.max()),
+                "max_reading_err_over_slack": float(err.max()),
+                "max_abs_diff": float(diff.abs().max()),
+                # Frames that read nonzero: (reading, fp32 difference, slack).
+                "nonzero_frames": [[float(grad.flatten()[i]), float(diff.flatten()[i]),
+                                    float(slack.flatten()[i])] for i in nonzero],
                 "values_where_branches_differ": int(fr["differ"])}
 
 
@@ -426,6 +441,10 @@ def flash_label(level: str, b: int, s: int, heads: int) -> str:
     return f"{level} ({b},{s},{heads}x64)"
 
 
+def mlp_label(level: str, m: int, c: int, inner: int) -> str:
+    return f"{level} M={m} C={c} I={inner}"
+
+
 def grouped_var_mean(x: torch.Tensor):
     """The library call for K5: torch.var_mean over each (sample, group) of
     x's own memory layout (channels-last, contiguous, or the (B, C, T, H, W)
@@ -508,15 +527,18 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
                lambda q=q, k=k, v=v, h=heads: temporal_attention_plain(q, k, v, T, h),
                lambda th=th: F.scaled_dot_product_attention(*th),
                qkv_bytes, 4 * BT * s * T * c, BF16_FLOPS)
-        m, inner = BT * s, 4 * c
-        x = randn(m, c)
+        inner = 4 * c
         w1, b1 = randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, std=0.1)
         w2, b2 = randn(c, inner, std=inner ** -0.5), randn(c, std=0.1)
-        yield ("fused_mlp", f"{name} M={m} C={c} I={inner}", 3 * blocks * steps,
-               lambda a=(x, w1, b1, w2, b2): geglu_mlp(*a),
-               lambda a=(x, w1, b1, w2, b2): geglu_mlp_plain(*a), None,
-               2 * (2 * m * c + 3 * inner * c + 2 * inner + c), 6 * m * c * inner,
-               BF16_FLOPS)
+        # One clip's shape, and the served batch's (two clips): 0 launches per
+        # clip.
+        for m, launches in ((BT * s, 3 * blocks * steps), (SERVE_BATCH * BT * s, 0)):
+            x = randn(m, c)
+            yield ("fused_mlp", mlp_label(name, m, c, inner), launches,
+                   lambda a=(x, w1, b1, w2, b2): geglu_mlp(*a),
+                   lambda a=(x, w1, b1, w2, b2): geglu_mlp_plain(*a), None,
+                   2 * (2 * m * c + 3 * inner * c + 2 * inner + c), 6 * m * c * inner,
+                   BF16_FLOPS)
 
 
 def groupnorm_cases(gen: torch.Generator, sites: Counter):
@@ -671,7 +693,10 @@ def serve(smi: str):
     # K1's served shapes (B*T = 56): its launches per served batch.
     served_k1 = {flash_label(name, SERVE_BATCH * BT, s, c // 64): steps * blocks
                  for name, s, c, blocks in LEVELS}
-    served_sites = {"fused_gn_conv": served_k7, "flash": served_k1}
+    # K3's served shapes: three feed-forwards per transformer block.
+    served_k3 = {mlp_label(name, SERVE_BATCH * BT * s, c, 4 * c): 3 * steps * blocks
+                 for name, s, c, blocks in LEVELS}
+    served_sites = {"fused_gn_conv": served_k7, "flash": served_k1, "fused_mlp": served_k3}
     # The path's tensors are channels-last; K4 / K5 also take channels-first
     # ones (contiguous, and the time_stack view of a contiguous video), which
     # are held against the plain versions at the same shapes, 0 launches per
@@ -690,7 +715,7 @@ def serve(smi: str):
              for name in KERNELS}
     gn_ms = {}  # site label -> (K4 ms, plain ms) per call
     served_ms = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                        "device_ms": 0.0, "library_device_ms": 0.0}
+                        "device_ms": 0.0, "plain_device_ms": 0.0, "library_device_ms": 0.0}
                  for name in served_sites}
     cases = itertools.chain(attention_mlp_cases(gen, steps), groupnorm_cases(gen, gn_checked),
                             gn_conv_cases(gen, gn_conv_sites))
@@ -703,11 +728,13 @@ def serve(smi: str):
         (ms, host_ms), (plain_ms, plain_host_ms) = cuda_ms(run), cuda_ms(plain)
         lib_ms, lib_host_ms = cuda_ms(library) if library is not None else (None, None)
         b_ms, b_by = bound(nbytes, flops, peak)
-        # K1 and K7 also by device time, theirs and their library call's: at
-        # the small shapes the host's enqueue can outlast the device.
+        # K1, K3, K5 and K7 also by device time, theirs, their plain
+        # version's and their library call's: at the small shapes the host's
+        # enqueue can outlast the device.
         dev = {}
         if name in DEVICE_TIMED:
-            dev = {"device_ms": device_ms(run), "library_device_ms": device_ms(library)}
+            dev = {"device_ms": device_ms(run), "plain_device_ms": device_ms(plain),
+                   "library_device_ms": None if library is None else device_ms(library)}
         log("kernel", kernel=name, shape=label, per_clip=n_clip, rel_l2=err,
             max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **dev,
             bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
@@ -715,8 +742,7 @@ def serve(smi: str):
             library_host_ms=lib_host_ms, card=smi)
         if not err <= KERNEL_TOL:
             raise RuntimeError(f"{name} {label}: relative L2 {err} > {KERNEL_TOL}")
-        if (name in ("flash", "fused_gn", "gn_stats", "flash_bwd", "fused_gn_conv")
-                and rel_l2(run(), out) != 0.0):
+        if rel_l2(run(), out) != 0.0:
             raise RuntimeError(f"{name} {label}: two calls differ (no atomics: must not)")
         st = stats[name]
         st["max_abs_err"] = max(st["max_abs_err"], err_abs)
@@ -795,6 +821,8 @@ def serve(smi: str):
                                      if "group_norm" in k or "group_stats" in k),
             gn_conv_kernel_ms=sum(ms for k, ms in by_name.items()
                                   if any(t in k for t in PROFILE_TAGS["fused_gn_conv"])),
+            kernels_ms={name: sum(v for k, v in by_name.items() if any(t in k for t in tags))
+                        for name, tags in PROFILE_TAGS.items()},
             top=[[k[:90], ms] for k, ms in by_name.most_common(10)], card=smi)
 
     # Phase 6: requests through the engine's entry point. K4 / K5 launch
@@ -894,7 +922,7 @@ def served(engine, smi: str, per_batch: dict) -> dict:
     from gcd_tpu_torch.engine.bundle import ModelBundle, camera_metadata, construct_batch
     from gcd_tpu_torch.engine.server import (SamplerServer, _concat_requests,
                                              make_engine_sample_fn)
-    from gcd_tpu_torch.ops import KERNELS, kernel_flags
+    from gcd_tpu_torch.ops import KERNELS, _native, kernel_flags
     from gcd_tpu_torch.serve import make_handler
     from gcd_tpu_torch.utils.config import load_config
 
@@ -980,6 +1008,10 @@ def served(engine, smi: str, per_batch: dict) -> dict:
     log("served", batch_seconds=batch_s[:batches], lone_batch_seconds=batch_s[batches:],
         warmup_seconds=warm_s, requests_wall_s=wall,
         served_frames_per_s=SERVE_REQUESTS * T / wall, peak_mem_bytes=peak,
+        # Device memory the kernels' per-stream scratch (K3's h, K5's
+        # tickets and partials) holds after the served batches.
+        stream_scratch_bytes=sum(b.numel() * b.element_size()
+                                 for b in _native._scratch.values()),
         batch_frames=SERVE_BATCH * T, unet_batch=2 * SERVE_BATCH * T,
         batches_run=counts[0], requests_served=counts[1], healthz=health,
         lone_rel_l2=lone_err, tol=SERVE_TOL, launches=launches, expected=expected,
@@ -1121,8 +1153,9 @@ def train(smi: str) -> dict:
     # queries, so their to_q / to_k and the norm2 before them get none. The
     # one other zero allowed at a step is a blend factor's
     # (time_mixer.mix_factor), and only with that step's evidence that bf16
-    # rounding made it: every frame reads zero and each is explained
-    # (BlendWitness).
+    # rounding made it: every frame's fp32 value is within its rounding
+    # slack, every reading is within that slack of the fp32 value, and the
+    # readings sum to zero (BlendWitness).
     unreached = {n for n in unet_names if n.endswith(
         ("attn2.to_q.weight", "attn2.to_k.weight", "norm2.weight", "norm2.bias"))}
     witness = BlendWitness(engine)
@@ -1234,7 +1267,8 @@ def main() -> int:
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]
          else "operations",
          "library_ms": stats[name]["library_ms"],
-         **{k: stats[name][k] for k in ("device_ms", "library_device_ms") if k in stats[name]}}
+         **{k: stats[name][k] for k in ("device_ms", "plain_device_ms", "library_device_ms")
+            if k in stats[name]}}
         for name in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

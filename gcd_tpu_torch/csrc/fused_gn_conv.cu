@@ -56,7 +56,7 @@
 //     while the products of tap t run; the weight stage of tap t is
 //     released as soon as they complete.
 //   - Scale and shift are computed once per call, per (sample, channel),
-//     by K5's finalize pass (fused_norm.cu) from its sums, gamma and beta;
+//     by K5 (fused_norm.cu, one launch) from its sums, gamma and beta;
 //     the C entry point launches K5 itself, so a call is one ctypes call
 //     and one scratch allocation on the host.
 //   - Split-K (4 x 6 and 8 x 12 planes, when the tiles alone would leave
@@ -351,23 +351,23 @@ __global__ void splitk_sum_kernel(const float2* __restrict__ partial,
 }  // namespace
 
 // K5, channels-last, with the scale / shift table (fused_norm.cu).
-extern "C" int gcd_group_stats_cl(const void* x, void* part, void* s1, void* s2, int N, int C,
-                                  int P, int G, int ptile, const void* gamma, const void* beta,
+extern "C" int gcd_group_stats_cl(const void* x, void* work, void* s1, void* s2, int N, int C,
+                                  int P, int G, const void* gamma, const void* beta,
                                   void* table, float eps, void* stream);
 
 // K7: out (N, H, W, F) = conv3x3(silu(x * scale + shift), w) + bias,
 // channels-last, with `table` (N, C) float2 the per-(sample, channel)
 // (scale, shift). With `stats`, K5 writes the table first from x, gamma,
-// beta and eps (its scratch `part`, N * ceil(H * W / ptile) * C / 2 float2,
-// and its sums s1, s2, (N, G) fp32 each); else the table is given. `partial`
+// beta and eps (its scratch `work`, as gcd_group_stats_cl takes it, and its
+// sums s1, s2, (N, G) fp32 each); else the table is given. `partial`
 // is (splits, N * H * W, F) fp32 scratch when splits > 1 (else unused). TH,
 // TW, NS, splits: the tile plan. Tensor maps come from cached_bf16_map: the
 // weights' stay put, and the UNet's activations come back to the same
 // addresses evaluation after evaluation.
 extern "C" int gcd_gn_silu_conv3x3(const void* x, const void* w, const void* gamma,
-                                   const void* beta, const void* bias, void* part, void* s1,
+                                   const void* beta, const void* bias, void* work, void* s1,
                                    void* s2, void* table, void* partial, void* out, int N, int H,
-                                   int W, int C, int F, int G, int ptile, float eps, int stats,
+                                   int W, int C, int F, int G, float eps, int stats,
                                    int silu_on, int TH, int TW, int NS, int splits,
                                    void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % CK || F <= 0 || F % 8 ||
@@ -401,8 +401,8 @@ extern "C" int gcd_gn_silu_conv3x3(const void* x, const void* w, const void* gam
   cudaError_t err = smem_limit_once(gn_silu_conv3x3_kernel, SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
   if (stats) {
-    const int e = gcd_group_stats_cl(x, part, s1, s2, N, C, H * W, G, ptile, gamma, beta, table,
-                                     eps, stream);
+    const int e = gcd_group_stats_cl(x, work, s1, s2, N, C, H * W, G, gamma, beta, table, eps,
+                                     stream);
     if (e) return e;
   }
   const dim3 grid((unsigned)blocks, (unsigned)((F + BN - 1) / BN), (unsigned)splits);

@@ -32,31 +32,63 @@
 // port's convolutions produce (its engine takes channels-last frames and
 // latents, and cuDNN keeps that memory format), and the TPU kernel's own.
 // A group's values are strided by C, so every group of a sample is reduced
-// together: a block covers 64 channels (a 128-byte row of each pixel, as
-// bf16 pairs; C/G is even, so a pair never straddles two groups) over a
-// tile of pixels and writes per-pair partials; one block per group adds its
-// pairs' partials over all tiles in a fixed order; the apply pass reads x
-// again. 2 reads + 1 write.
+// together. K5 here is one launch (group_stats_cl_kernel): a sample's pixels
+// are cut into blocks of `rows` pixels, each block reads its rows as one
+// contiguous span with 16-byte loads (8 channels; every main-path C is a
+// multiple of 8), each thread always the same 8 channels, all of a thread's
+// loads issued before its sums. A thread folds its per-channel sums into
+// the (at most two) groups its 8 channels touch, in registers; `sub` lanes
+// per group add the block's thread sums through 8 KB of shared memory, in
+// a fixed order. Small blocks (256 threads where C <= 2048, at most 64
+// registers) keep four blocks an SM, and a call aims at one wave of them;
+// the partition is computed on the host and passed by value. A block writes
+// its group partials; the last block of a sample to finish -- elected by an
+// atomic ticket (atomicInc wrapping at the block count, so each call leaves
+// the ticket zero), which orders nothing but the election -- adds the
+// sample's partials in a fixed order and writes the sums and, for K7, the
+// (scale, shift) table from each group's mean and 1 / std. A sample of one
+// block skips the partials and the ticket. Where a sample has many blocks
+// (at least CL_CLUSTER_FROM: the time_stack views at N = 2, the decoder's
+// planes at N = 1), its blocks form thread-block clusters of 8, whose first
+// block adds the cluster's sums through distributed shared memory, so that
+// the last block adds an eighth as many partials. K4's apply pass reads x
+// again: 2 reads + 1 write.
 //
-// Neither path uses atomics: the partition and the order of every sum depend
-// only on the shape, so the statistics are bit-identical from run to run.
-// Requires bf16 x / gamma / beta and C % G == 0; channels-first also
-// L % 8 == 0 and a 16-byte-aligned x (16-byte accesses), channels-last an
-// even C / G and a 4-byte-aligned x (the wrapper checks).
+// No sum is taken in atomic order: the partition and the order of every sum
+// depend only on the shape, so the statistics are bit-identical from run to
+// run. Requires bf16 x / gamma / beta and C % G == 0; channels-first also
+// L % 8 == 0 and a 16-byte-aligned x (16-byte accesses); K4's channels-last
+// apply pass an even C / G and a 4-byte-aligned x (the wrapper checks);
+// channels-last K5 C % 8 == 0, C <= 4096, an even C / G of at least 4 (8
+// aligned channels then touch at most two groups), G <= 256 and no more than the
+// block's whole warps' threads, and a 16-byte-aligned x.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 typedef __nv_bfloat16 bf16;
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int VEC = 8;               // bf16 values per 16-byte access
 constexpr int FUSED_MAX = 49152;     // values of one group on the one-pass path
-constexpr int CL_PAIRS = 32;         // channels-last: channel pairs per block
-constexpr int CL_LANES = THREADS / CL_PAIRS;  // channels-last: pixel lanes per block
+constexpr int CL_PAIRS = 32;         // channels-last apply: channel pairs per block
+constexpr int CL_LANES = THREADS / CL_PAIRS;  // channels-last apply: pixel lanes per block
+// Channels-last K5 partition; ops/fused_norm.py mirrors CL_THREADS,
+// CL_MAX_THREADS, CL_UNROLL, CL_BLOCKS and TICKETS (cl_stats_plan,
+// cl_stats_work), and a test pins them.
+constexpr int CL_THREADS = 256;      // threads a block aims at
+constexpr int CL_MAX_THREADS = 512;  // most threads of a block (C / 8 when larger)
+constexpr int CL_UNROLL = 8;         // 16-byte loads in flight per thread
+constexpr int CL_BLOCKS = 512;       // blocks a call aims at, at most (one wave)
+constexpr int CL_CLUSTER = 8;        // blocks a cluster
+constexpr int CL_CLUSTER_FROM = 64;  // blocks a sample from which they form clusters
+constexpr int CL_SUB = 8;            // most lanes adding one group's sums
+constexpr int TICKETS = 4096;        // most samples of a call (one ticket each)
 
 struct Layout {                      // channels-first (N, C, F, L)
   int N, C, F, L, G;
@@ -202,52 +234,22 @@ group_stats_partial_kernel(const bf16* __restrict__ x, float2* __restrict__ part
   if (threadIdx.x == 0) part[b] = tot;
 }
 
-// K5 second half: block ng = n*G + g adds its group's partials in order i.
-//   channels-first: partial i < P is part[ng*P + i].
-//   channels-last:  partial i = t*ppg + j (tile t, the group's pair j) is
-//                   part[(n*tiles + t)*pairs + g*ppg + j].
-// With a `table` (channels-last only; K7 takes it), the block also writes
-// its group's per-channel (scale, shift) = (inv * gamma, beta - mean * scale)
-// for a = x * scale + shift, with mean and inv from `count` values as K4's
-// apply pass forms them.
+// K5 second half (channels-first): block ng = n*G + g adds its group's P
+// partials part[ng*P + i] in order i.
 __global__ void __launch_bounds__(THREADS)
 group_stats_finalize_kernel(const float2* __restrict__ part, float* __restrict__ s1,
-                            float* __restrict__ s2, int G, int P, int tiles, int pairs,
-                            int channels_last, const bf16* __restrict__ gamma,
-                            const bf16* __restrict__ beta, float2* __restrict__ table,
-                            float count, float eps) {
+                            float* __restrict__ s2, int P) {
   const int ng = blockIdx.x;
+  const float2* p = part + (long long)ng * P;
   float a = 0.0f, b = 0.0f;
-  if (!channels_last) {
-    const float2* p = part + (long long)ng * P;
-    for (int i = threadIdx.x; i < P; i += THREADS) {
-      a += p[i].x;
-      b += p[i].y;
-    }
-  } else {
-    const int n = ng / G, g = ng % G;
-    const int ppg = pairs / G;
-    const float2* p = part + (long long)n * tiles * pairs + g * ppg;
-    for (int i = threadIdx.x; i < tiles * ppg; i += THREADS) {
-      const float2 v = p[(long long)(i / ppg) * pairs + i % ppg];
-      a += v.x;
-      b += v.y;
-    }
+  for (int i = threadIdx.x; i < P; i += THREADS) {
+    a += p[i].x;
+    b += p[i].y;
   }
   const float2 tot = block_sum2(a, b);
   if (threadIdx.x == 0) {
     s1[ng] = tot.x;
     s2[ng] = tot.y;
-  }
-  if (table) {
-    const int cpg = 2 * pairs / G, c0 = (ng % G) * cpg;
-    const float mean = tot.x / count;
-    const float inv = rsqrtf(fmaxf(tot.y / count - mean * mean, 0.0f) + eps);
-    for (int c = c0 + threadIdx.x; c < c0 + cpg; c += THREADS) {
-      const float scale = inv * __bfloat162float(gamma[c]);
-      table[(long long)(ng / G) * 2 * pairs + c] =
-          make_float2(scale, __bfloat162float(beta[c]) - mean * scale);
-    }
   }
 }
 
@@ -273,40 +275,228 @@ group_norm_apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gam
   }
 }
 
-// Channels-last K5 first half. Block (tile, channel block, n), threads
-// (pair lane tx, pixel lane ty): thread sums channel pair cb*32 + tx over
-// pixels tile*ptile + ty, + CL_LANES, ...; the CL_LANES lanes are added in
-// order and each pair's partial is written to part[(n*tiles + tile)*pairs
-// + pair].
-__global__ void __launch_bounds__(THREADS)
-group_stats_cl_partial_kernel(const bf16* __restrict__ x, float2* __restrict__ part, int C,
-                              int P, int ptile) {
-  __shared__ float2 red[CL_LANES][CL_PAIRS];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int pairs = C / 2;
-  const int pair = blockIdx.y * CL_PAIRS + tx;
-  const int n = blockIdx.z;
-  const int p1 = min(P, (blockIdx.x + 1) * ptile);
-  float a = 0.0f, b = 0.0f;
-  if (pair < pairs) {
-    const bf16* xp = x + (long long)n * P * C + 2 * pair;
-    for (int p = blockIdx.x * ptile + ty; p < p1; p += CL_LANES) {
-      const float2 v = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(xp + (long long)p * C));
-      a += v.x + v.y;
-      b += v.x * v.x + v.y * v.y;
+// The channels-last K5 partition of N (P, C) samples, computed on the host:
+// `lanes` pixel lanes of C / 8 threads each; a chunk is `rows` = lanes *
+// CL_UNROLL pixels (one load per thread in flight for each); a block takes
+// `per` consecutive chunks, as few as keep the call at or under CL_BLOCKS
+// blocks (before the padding below). A sample of at least CL_CLUSTER_FROM
+// such blocks has them in `clusters` thread-block clusters of `cluster` =
+// CL_CLUSTER blocks, its last blocks empty where its chunks do not fill
+// them; otherwise cluster = 1. `blocks` = clusters * cluster blocks per
+// sample; `sub` lanes add one group's sums (the most, up to CL_SUB, that
+// keep sub * G within the block's whole warps).
+struct ClPlan {
+  int vpr, lanes, threads, rows, per, cluster, clusters, blocks, sub;
+};
+
+ClPlan cl_plan(int N, int C, int P, int G) {
+  ClPlan q;
+  q.vpr = C / VEC;
+  q.lanes = q.vpr < CL_THREADS ? CL_THREADS / q.vpr : 1;
+  q.threads = q.vpr * q.lanes;
+  q.rows = q.lanes * CL_UNROLL;
+  const int chunks = (P + q.rows - 1) / q.rows;
+  const int cap = CL_BLOCKS / N > 1 ? CL_BLOCKS / N : 1;
+  q.per = (chunks + cap - 1) / cap;
+  const int used = (chunks + q.per - 1) / q.per;
+  q.cluster = used >= CL_CLUSTER_FROM ? CL_CLUSTER : 1;
+  q.clusters = (used + q.cluster - 1) / q.cluster;
+  q.blocks = q.clusters * q.cluster;
+  q.sub = CL_SUB;
+  while (q.sub > 1 && q.sub * G > (q.threads & ~31)) q.sub >>= 1;
+  return q;
+}
+
+// Adds t over the `sub` consecutive lanes of a group (a butterfly: every
+// lane forms the same sum).
+__device__ __forceinline__ float2 lanes_sum(float2 t, int sub) {
+  for (int o = 1; o < sub; o <<= 1) {
+    t.x += __shfl_xor_sync(0xffffffffu, t.x, o);
+    t.y += __shfl_xor_sync(0xffffffffu, t.y, o);
+  }
+  return t;
+}
+
+// K5, channels-last, one launch. Block b of sample n (blockIdx.x = n*blocks
+// + b) takes pixels [b*per*rows, (b+1)*per*rows); thread t owns channels
+// 8 v .. 8 v + 7 (v = t % vpr) at pixel lane l = t / vpr, and sums its
+// lane's pixels b*per*rows + l + i*lanes, i = 0, 1, ..., in order i. It
+// adds its 8 channels in order into two sums: those of group g0 = 8 v / cpg
+// and those of group g0 + 1 (channels past the group's end). Group g's
+// block sum: `sub` lanes, lane j adding, for pixel lanes l = j, j + sub,
+// ... in order, the vectors v = 8 g / cpg ... that touch g in order (each
+// vector's first sum where it starts in g, else its second); a butterfly
+// adds the sub lanes. In a cluster, its first block adds the blocks' sums
+// in block order, reading them from their shared memory (distributed
+// shared memory). With one cluster (or block) a sample, that is the
+// sample's sum. Otherwise the cluster's first block writes
+// part[(n*clusters + c)*G + g] for its cluster c, and the sample's last
+// cluster (ticket) adds the sample's partials: lane j of a group takes
+// clusters j, j + sub, ... in order, and a butterfly adds the lanes. It
+// writes s1, s2 and, with `table`, the (scale, shift) of each channel for
+// a = x * scale + shift (K7's).
+// Launch bounds: 64 registers a thread, so four blocks of 256 threads fit an
+// SM.
+__global__ void __launch_bounds__(CL_MAX_THREADS, 2)
+group_stats_cl_kernel(const bf16* __restrict__ x, unsigned int* __restrict__ tickets,
+                      float2* __restrict__ part, float* __restrict__ s1,
+                      float* __restrict__ s2, const ClPlan q, int C, int P, int G,
+                      const bf16* __restrict__ gamma, const bf16* __restrict__ beta,
+                      float2* __restrict__ table, float eps) {
+  __shared__ float2 red[2 * CL_MAX_THREADS];  // each thread's two group sums, 8 KB
+  __shared__ float2 grp[256];                 // the block's group sums
+  __shared__ int last;
+  const int n = blockIdx.x / q.blocks, b = blockIdx.x - n * q.blocks;
+  const int tid = threadIdx.x, lane = tid / q.vpr, vec = tid - lane * q.vpr;
+  const int cpg = C / G;
+  const int g = tid / q.sub, j = tid % q.sub;  // a group's lane, for the sums
+  const bool adds = tid < ((q.sub * G + 31) & ~31);  // whole warps, for the butterflies
+
+  // Per-channel sums of this thread's pixels.
+  float a[VEC], a2[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) a[i] = a2[i] = 0.0f;
+  const bf16* xs = x + (size_t)n * P * C + vec * VEC;
+  for (int r = 0; r < q.per; ++r) {
+    const int p0 = (b * q.per + r) * q.rows + lane;
+    if (p0 >= P) break;
+    uint4 u[CL_UNROLL];
+#pragma unroll
+    for (int k = 0; k < CL_UNROLL; ++k) {
+      const int p = p0 + k * q.lanes;
+      u[k] = p < P ? __ldg(reinterpret_cast<const uint4*>(xs + (size_t)p * C))
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < CL_UNROLL; ++k) {
+      float v[VEC];
+      unpack8(u[k], v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        a[i] += v[i];
+        a2[i] += v[i] * v[i];
+      }
     }
   }
-  red[ty][tx] = make_float2(a, b);
-  __syncthreads();
-  if (ty == 0 && pair < pairs) {
-    float2 s = red[0][tx];
+  // Into the thread's (at most) two groups, channels in order.
+  const int split = min(VEC, (vec * VEC / cpg + 1) * cpg - vec * VEC);
+  float2 lo = make_float2(0.0f, 0.0f), hi = make_float2(0.0f, 0.0f);
 #pragma unroll
-    for (int i = 1; i < CL_LANES; ++i) {
-      s.x += red[i][tx].x;
-      s.y += red[i][tx].y;
+  for (int i = 0; i < VEC; ++i) {
+    if (i < split) {
+      lo.x += a[i];
+      lo.y += a2[i];
+    } else {
+      hi.x += a[i];
+      hi.y += a2[i];
     }
-    part[((long long)n * gridDim.x + blockIdx.x) * pairs + pair] = s;
+  }
+  red[2 * tid] = lo;
+  red[2 * tid + 1] = hi;
+  __syncthreads();
+  if (adds) {
+    float2 t = make_float2(0.0f, 0.0f);
+    if (g < G) {
+      const int c0 = g * cpg, v0 = c0 / VEC, v1 = (c0 + cpg - 1) / VEC;
+      for (int l = j; l < q.lanes; l += q.sub) {
+        for (int v = v0; v <= v1; ++v) {
+          const float2 r = red[2 * (l * q.vpr + v) + (v * VEC >= c0 ? 0 : 1)];
+          t.x += r.x;
+          t.y += r.y;
+        }
+      }
+    }
+    t = lanes_sum(t, q.sub);
+    if (g < G && j == 0) grp[g] = t;
+  }
+  __syncthreads();
+
+  // The cluster's sums, in its first block (in `red`, free again there);
+  // the other blocks wait until it has read their `grp`, then leave.
+  float2* sums = grp;
+  if (q.cluster > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const bool first = cluster.block_rank() == 0;
+    if (first && tid < G) {
+      float2 t = make_float2(0.0f, 0.0f);
+      for (int k = 0; k < q.cluster; ++k) {
+        const float2 v = cluster.map_shared_rank(grp, k)[tid];
+        t.x += v.x;
+        t.y += v.y;
+      }
+      red[tid] = t;
+    }
+    cluster.sync();
+    if (!first) return;
+    sums = red;
+  }
+
+  // One cluster a sample: its sums are the sample's. Otherwise the last
+  // cluster of sample n to get here adds the cluster partials.
+  if (q.clusters > 1) {
+    if (tid < G) {
+      part[((size_t)n * q.clusters + b / q.cluster) * G + tid] = sums[tid];
+      __threadfence();
+    }
+    __syncthreads();
+    if (tid == 0)
+      last = atomicInc(&tickets[n], (unsigned)(q.clusters - 1)) == (unsigned)(q.clusters - 1);
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+  }
+  // The sample's last cluster (or only one). Thread t takes the table's
+  // channels t, t + threads, ... (at most 8, as threads >= C / 8); their
+  // gamma and beta are read before the partials are added.
+  const bool tab = table != nullptr;
+  float gam[VEC], bet[VEC];
+  if (tab) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const int ch = tid + i * q.threads;
+      gam[i] = ch < C ? __bfloat162float(gamma[ch]) : 0.0f;
+      bet[i] = ch < C ? __bfloat162float(beta[ch]) : 0.0f;
+    }
+  }
+  if (q.clusters > 1) {
+    if (adds) {
+      const float2* mine = part + (size_t)n * q.clusters * G + g;
+      float2 t = make_float2(0.0f, 0.0f);
+      if (g < G) {
+#pragma unroll 8
+        for (int k = j; k < q.clusters; k += q.sub) {
+          const float2 v = __ldcg(mine + (size_t)k * G);
+          t.x += v.x;
+          t.y += v.y;
+        }
+      }
+      t = lanes_sum(t, q.sub);
+      if (g < G && j == 0) grp[g] = t;
+    }
+    sums = grp;
+  }
+  __syncthreads();
+  // Each group's sums, then its mean and 1 / std (in `red`: free again
+  // here) for the table.
+  const float count = (float)P * (float)cpg;
+  if (tid < G) {
+    const float2 t = sums[tid];
+    s1[n * G + tid] = t.x;
+    s2[n * G + tid] = t.y;
+    const float mean = t.x / count;
+    red[tid + 256] = make_float2(mean, rsqrtf(fmaxf(t.y / count - mean * mean, 0.0f) + eps));
+  }
+  if (!tab) return;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int ch = tid + i * q.threads;
+    if (ch < C) {
+      const float2 m = red[ch / cpg + 256];
+      const float scale = m.y * gam[i];
+      table[(size_t)n * C + ch] = make_float2(scale, bet[i] - m.x * scale);
+    }
   }
 }
 
@@ -369,29 +559,47 @@ extern "C" int gcd_group_stats(const void* x, void* part, void* s1, void* s2, in
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   group_stats_finalize_kernel<<<(unsigned)(N * G), THREADS, 0, st>>>(
-      (const float2*)part, (float*)s1, (float*)s2, G, F * chunks, 0, 0, 0, nullptr, nullptr,
-      nullptr, 0.0f, 0.0f);
+      (const float2*)part, (float*)s1, (float*)s2, F * chunks);
   return (int)cudaGetLastError();
 }
 
-// K5, channels-last (N, P, C). `part` is scratch of N*ceil(P/ptile)*(C/2)
-// float2. With a non-null `table` ((N, C) float2), also the GroupNorm's
-// per-(sample, channel) scale and shift for gamma, beta and eps (K7's).
-extern "C" int gcd_group_stats_cl(const void* x, void* part, void* s1, void* s2, int N, int C,
-                                  int P, int G, int ptile, const void* gamma, const void* beta,
+// K5, channels-last (N, P, C), one launch. `work` is scratch: TICKETS
+// unsigned ints that are zero (each call leaves them zero), then
+// N * cl_plan(N, C, P, G).clusters * G float2 of partials. With a non-null
+// `table` ((N, C) float2), also the GroupNorm's per-(sample, channel) scale
+// and shift for gamma, beta and eps (K7's).
+extern "C" int gcd_group_stats_cl(const void* x, void* work, void* s1, void* s2, int N, int C,
+                                  int P, int G, const void* gamma, const void* beta,
                                   void* table, float eps, void* stream) {
-  if (!valid_cl(N, C, P, G, ptile)) return (int)cudaErrorInvalidValue;
-  const int tiles = (P + ptile - 1) / ptile;
-  const dim3 grid(tiles, (C / 2 + CL_PAIRS - 1) / CL_PAIRS, N);
+  if (N <= 0 || N > TICKETS || P <= 0 || C <= 0 || C % VEC || C / VEC > CL_MAX_THREADS ||
+      G <= 0 || G > 256 || C % G || (C / G) % 2 || C / G < 4)
+    return (int)cudaErrorInvalidValue;
+  const ClPlan q = cl_plan(N, C, P, G);
+  if ((long long)N * q.blocks > 0x7fffffffLL || G > (q.threads & ~31))
+    return (int)cudaErrorInvalidValue;
+  unsigned int* tickets = (unsigned int*)work;
+  float2* part = (float2*)(tickets + TICKETS);
   cudaStream_t st = (cudaStream_t)stream;
-  group_stats_cl_partial_kernel<<<grid, dim3(CL_PAIRS, CL_LANES), 0, st>>>(
-      (const bf16*)x, (float2*)part, C, P, ptile);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  group_stats_finalize_kernel<<<(unsigned)(N * G), THREADS, 0, st>>>(
-      (const float2*)part, (float*)s1, (float*)s2, G, 0, tiles, C / 2, 1, (const bf16*)gamma,
-      (const bf16*)beta, (float2*)table, (float)P * (float)(C / G), eps);
-  return (int)cudaGetLastError();
+  if (q.cluster == 1) {
+    group_stats_cl_kernel<<<(unsigned)(N * q.blocks), q.threads, 0, st>>>(
+        (const bf16*)x, tickets, part, (float*)s1, (float*)s2, q, C, P, G, (const bf16*)gamma,
+        (const bf16*)beta, (float2*)table, eps);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(N * q.blocks));
+  cfg.blockDim = dim3((unsigned)q.threads);
+  cfg.stream = st;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = (unsigned)q.cluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, group_stats_cl_kernel, (const bf16*)x, tickets, part,
+                                 (float*)s1, (float*)s2, q, C, P, G, (const bf16*)gamma,
+                                 (const bf16*)beta, (float2*)table, eps);
 }
 
 // K4, channels-first. With s1 == s2 == NULL: one pass, the group (F*S

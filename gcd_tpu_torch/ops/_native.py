@@ -8,7 +8,7 @@ entry point launches on the stream it is given and returns
 cudaGetLastError(); `launch` raises on a non-zero code. Nothing here runs
 at import time, so the CPU tests import every module without nvcc or a card.
 
-The wgmma kernels (K1, K7) take TMA tensor maps, which the C entry points
+The wgmma kernels (K1, K3, K7) take TMA tensor maps, which the C entry points
 encode with the driver's cuTensorMapEncodeTiled, keeping the last few
 hundred by address and shape (the weights stay put, and the activations
 come back to the same addresses). They find it
@@ -46,14 +46,14 @@ _SIGNATURES = {
     "gcd_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "gcd_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "gcd_temporal_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    "gcd_geglu_mlp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "gcd_geglu_mlp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gcd_group_stats": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P),
     "gcd_group_norm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _F, _I, _I,
                        _P),
-    "gcd_group_stats_cl": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _F, _P),
+    "gcd_group_stats_cl": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _F, _P),
     "gcd_group_norm_cl": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     "gcd_gn_silu_conv3x3": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _I, _I, _I, _I, _I, _I, _P),
+                            _I, _F, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -124,14 +124,19 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def current_stream() -> Tuple[int, int]:
+    """(device index, raw stream) of the current CUDA stream:
+    torch.cuda.current_stream().cuda_stream without building a Stream object
+    (about 10 us a call on the H100 machine's host)."""
+    device = torch._C._cuda_getDevice()
+    return device, torch._C._cuda_getCurrentRawStream(device)
+
+
 def launch(name: str, *args) -> None:
     """Call one C entry point on the current CUDA stream; raise if the
     launch was refused."""
     lib = library()
-    # torch.cuda.current_stream().cuda_stream, without building a Stream
-    # object (about 10 us a call on the H100 machine's host).
-    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
-    code = getattr(lib, name)(*args, stream)
+    code = getattr(lib, name)(*args, current_stream()[1])
     if code != 0:
         msg = lib.gcd_error_string(code).decode()
         raise RuntimeError(f"{name} failed to launch: CUDA error {code} ({msg})")
@@ -151,3 +156,24 @@ def check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: data pointer not {align}-byte aligned")
+
+
+_scratch: dict = {}
+_scratch_lock = threading.Lock()
+
+
+def stream_scratch(tag: str, numel: int, dtype: torch.dtype, zeroed: bool = False) -> torch.Tensor:
+    """A buffer of at least `numel` elements, kept per (tag, device, current
+    stream) and reused by every call on that stream. Kernels on one stream
+    run in order, so a call's scratch is free again when the next call's
+    kernels start; another stream gets its own buffer. It grows to the
+    largest size asked for. With `zeroed` it is zero when made, and the
+    kernels that use it must leave it zero (K5's tickets)."""
+    key = (tag, *current_stream())
+    with _scratch_lock:
+        buf = _scratch.get(key)
+        if buf is None or buf.numel() < numel or buf.dtype != dtype:
+            make = torch.zeros if zeroed else torch.empty
+            buf = make(numel, dtype=dtype, device=torch.device("cuda", key[1]))
+            _scratch[key] = buf
+    return buf

@@ -11,7 +11,7 @@ What bounds it on the H100: operations (at the UNet's ResBlock shapes the
 products are 5-7x the time of the bytes at the card's peaks), so the kernel
 is an implicit GEMM on wgmma. K5 (channels-last; launched by K7's C entry
 point, and counted under `gn_stats`) computes the statistics first, as K4's
-split path does, and its finalize pass the per-(sample, channel) scale and
+split path does, and in the same launch the per-(sample, channel) scale and
 shift (under `kernel_flags(gn_stats=False)`, `group_scale_shift_plain`
 does); each block normalises the halo
 tile of its output pixels once per 64-channel chunk, zeroes the positions
@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
 from gcd_tpu_torch.ops.fused_norm import (
-    CL_PIXEL_TILE,
+    cl_stats_work,
     group_norm_plain,
     group_scale_shift_plain,
     group_stats,
@@ -194,22 +194,23 @@ def _forward(x, gn_weight, gn_bias, conv_weight, conv_bias, groups, eps, silu):
     _native.check_cuda_operand("conv_bias", conv_bias, torch.bfloat16, (f,), align=2)
     plan = tile_plan(n, h, w, c, f, _sm_count(x.device.index or 0))
     stats = kernel_enabled("gn_stats")
-    # One fp32 scratch: K5's partial sums, its group sums (s1, s2) and the
-    # scale / shift table, K7's split-K partial sums; each part a multiple
-    # of 16 bytes.
-    sizes = [n * -(-h * w // CL_PIXEL_TILE) * c, n * groups, n * groups, 2 * n * c,
+    # One fp32 scratch: K5's group sums (s1, s2) and the scale / shift table,
+    # K7's split-K partial sums; each part a multiple of 16 bytes. K5's
+    # tickets and block partials are its per-stream scratch.
+    work = cl_stats_work(n, c, h * w, groups, x) if stats else None
+    sizes = [n * groups, n * groups, 2 * n * c,
              plan.splits * n * h * w * f if plan.splits > 1 else 0]
     sizes = [-(-size // 4) * 4 for size in sizes]
     scratch = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    part, s1, s2, table, partial_sums = (
+    s1, s2, table, partial_sums = (
         scratch.data_ptr() + 4 * offset for offset in itertools.accumulate([0] + sizes[:-1]))
     if not stats:
         plain_table = group_scale_shift_plain(x, gn_weight, gn_bias, groups, eps)
-        scratch.narrow(0, sum(sizes[:3]), 2 * n * c).copy_(plain_table.flatten())
+        scratch.narrow(0, sum(sizes[:2]), 2 * n * c).copy_(plain_table.flatten())
     out = torch.empty((n, f, h, w), dtype=x.dtype, device=x.device, memory_format=fmt)
     _native.launch("gcd_gn_silu_conv3x3", x.data_ptr(), conv_weight.data_ptr(),
-                   gn_weight.data_ptr(), gn_bias.data_ptr(), conv_bias.data_ptr(), part, s1, s2,
-                   table, partial_sums, out.data_ptr(), n, h, w, c, f, groups, CL_PIXEL_TILE,
+                   gn_weight.data_ptr(), gn_bias.data_ptr(), conv_bias.data_ptr(), work, s1, s2,
+                   table, partial_sums, out.data_ptr(), n, h, w, c, f, groups,
                    float(eps), int(stats), int(silu), *plan)
     if stats:
         group_stats.launches += 1

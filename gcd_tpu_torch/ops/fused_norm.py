@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -41,10 +41,66 @@ from gcd_tpu_torch.ops.recompute import plain_gradient
 # Largest group normalised in one pass (96 KB of bf16 in one block's shared
 # memory); must equal FUSED_MAX in csrc/fused_norm.cu.
 FUSED_MAX_VALUES = 49152
-# Values per block on the channels-first split path, and pixels per block on
-# the channels-last one (the partitions of K5's partial sums).
+# Values per block of K5's partial sums on the channels-first split path, and
+# pixels per block of K4's channels-last apply pass.
 STATS_CHUNK = 8192
 CL_PIXEL_TILE = 128
+# The channels-last K5 partition (CL_THREADS, CL_MAX_THREADS, CL_UNROLL,
+# CL_BLOCKS, CL_CLUSTER, CL_CLUSTER_FROM and TICKETS in csrc/fused_norm.cu; a
+# test pins them): threads a block aims at, most threads of a block, loads in
+# flight per thread, the most blocks a call aims at, blocks a cluster, blocks
+# a sample from which they form clusters, most samples.
+STATS_THREADS = 256
+STATS_MAX_THREADS = 512
+STATS_UNROLL = 8
+STATS_BLOCKS = 512
+STATS_CLUSTER = 8
+STATS_CLUSTER_FROM = 64
+TICKETS = 4096
+
+
+class ClStatsPlan(NamedTuple):
+    """How channels-last K5 cuts n (P, C) samples: `vpr` threads of 8
+    channels per pixel lane, `lanes` pixel lanes; a chunk of `rows` = lanes *
+    STATS_UNROLL pixels; `per` chunks a block; `clusters` clusters of
+    `cluster` blocks, `blocks` = clusters * cluster blocks per sample."""
+    vpr: int
+    lanes: int
+    threads: int
+    rows: int
+    per: int
+    cluster: int
+    clusters: int
+    blocks: int
+
+
+def cl_stats_plan(n: int, c: int, p: int) -> ClStatsPlan:
+    """csrc/fused_norm.cu's cl_plan."""
+    vpr = c // 8
+    lanes = STATS_THREADS // vpr if vpr < STATS_THREADS else 1
+    rows = lanes * STATS_UNROLL
+    chunks = -(-p // rows)
+    per = -(-chunks // max(STATS_BLOCKS // n, 1))
+    used = -(-chunks // per)
+    cluster = STATS_CLUSTER if used >= STATS_CLUSTER_FROM else 1
+    clusters = -(-used // cluster)
+    return ClStatsPlan(vpr, lanes, vpr * lanes, rows, per, cluster, clusters, clusters * cluster)
+
+
+def cl_stats_work(n: int, c: int, p: int, groups: int, x: torch.Tensor) -> int:
+    """Device pointer to channels-last K5's scratch for an (n, p, c) tensor:
+    TICKETS zero tickets (each call leaves them zero) then the cluster
+    partials, kept per stream. Raises on a shape or tensor the kernel does
+    not take."""
+    cpg = c // groups if c % groups == 0 else 0
+    if (c % 8 or c > 8 * STATS_MAX_THREADS or cpg < 4 or cpg % 2 or n > TICKETS
+            or groups > cl_stats_plan(n, c, p).threads // 32 * 32 or x.data_ptr() % 16):
+        raise ValueError(f"group_stats: channels-last K5 takes C a multiple of 8 up to "
+                         f"{8 * STATS_MAX_THREADS}, an even C / groups of at least 4, at most "
+                         f"{TICKETS} samples and a 16-byte aligned tensor, got N={n}, C={c}, "
+                         f"G={groups}")
+    words = TICKETS + 2 * n * cl_stats_plan(n, c, p).clusters * groups
+    return _native.stream_scratch("gn_stats_work", words, torch.int32, zeroed=True).data_ptr()
 
 
 def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -117,25 +173,24 @@ def _layout(x: torch.Tensor, num_groups: int, who: str) -> Tuple[int, ...]:
 
 def group_stats(x: torch.Tensor, num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(sample, group) sum and sum of squares, fp32 (N, G) each; K5 on
-    CUDA (bf16)."""
+    CUDA (bf16): one launch on a channels-last tensor, two on a
+    channels-first one."""
     if x.device.type == "cpu" or not kernel_enabled("gn_stats"):
         return group_stats_plain(x, num_groups)
     lay = _layout(x, num_groups, "group_stats")
     n, c = lay[:2]
-    s1 = torch.empty((n, num_groups), dtype=torch.float32, device=x.device)
-    s2 = torch.empty_like(s1)
+    # One allocation: the sums, then (channels-first) the block partials.
+    parts = 0 if len(lay) == 3 else lay[2] * -(-(c // num_groups) * lay[3] // STATS_CHUNK)
+    buf = torch.empty(2 * n * num_groups * (1 + parts), dtype=torch.float32, device=x.device)
+    sums = buf[:2 * n * num_groups].view(2, n, num_groups)
+    s1, s2 = sums[0], sums[1]
     if len(lay) == 3:
-        tiles = -(-lay[2] // CL_PIXEL_TILE)
-        part = torch.empty((n * tiles * (c // 2), 2), dtype=torch.float32, device=x.device)
-        _native.launch("gcd_group_stats_cl", x.data_ptr(), part.data_ptr(), s1.data_ptr(),
-                       s2.data_ptr(), *lay, num_groups, CL_PIXEL_TILE, None, None, None, 0.0)
+        work = cl_stats_work(n, c, lay[2], num_groups, x)
+        _native.launch("gcd_group_stats_cl", x.data_ptr(), work, s1.data_ptr(), s2.data_ptr(),
+                       *lay, num_groups, None, None, None, 0.0)
     else:
-        f, l = lay[2:4]
-        chunks = -(-(c // num_groups) * l // STATS_CHUNK)
-        part = torch.empty((n * num_groups * f * chunks, 2), dtype=torch.float32,
-                           device=x.device)
-        _native.launch("gcd_group_stats", x.data_ptr(), part.data_ptr(), s1.data_ptr(),
-                       s2.data_ptr(), *lay, num_groups, STATS_CHUNK)
+        _native.launch("gcd_group_stats", x.data_ptr(), buf[2 * n * num_groups:].data_ptr(),
+                       s1.data_ptr(), s2.data_ptr(), *lay, num_groups, STATS_CHUNK)
     group_stats.launches += 1
     return s1, s2
 
@@ -144,7 +199,7 @@ def group_scale_shift_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.T
                             num_groups: int, eps: float) -> torch.Tensor:
     """(N, C, 2) fp32: per (sample, channel) the GroupNorm's (scale, shift),
     normalised x = x * scale + shift, from `group_stats_plain`'s sums. K5's
-    finalize pass writes this table for K7 (csrc/fused_norm.cu)."""
+    last block per sample writes this table for K7 (csrc/fused_norm.cu)."""
     n, c = x.shape[:2]
     s1, s2 = group_stats_plain(x, num_groups)
     count = x[0].numel() // num_groups

@@ -1,4 +1,5 @@
-"""Host time of the port's K7 and K1 wrappers, two source trees compared.
+"""Host, CUDA-event and device time of the port's K1, K3, K5 and K7 wrappers,
+two source trees compared.
 
     python3 scripts/torch_host_ab.py TREE_A TREE_B
 
@@ -7,11 +8,17 @@ commit unpacked with `git archive` into a git-ignored directory). The trees
 run in the order A, B, B, A, each in a fresh process that builds the tree's
 kernels and imports only that tree. Each prints one JSON line: per shape,
 the host time to enqueue one wrapper call (`host_ms`, the mean of 400 calls
-under torch.no_grad) and the CUDA-event time per call (`event_ms`, which is
-the host's time where the host is slower than the kernel). The shapes are
-K7's 4x6, ds1 and ds2 ResBlock chains and K1's ds1, ds2 and ds4 attentions
-at one clip after CFG (N = 28). The first line is nvidia-smi's name and
-power limit. Needs one CUDA card.
+under torch.no_grad), the CUDA-event time per call (`event_ms`, which is
+the host's time where the host is slower than the kernel) and the device
+time per call (`device_ms`, every kernel the call launches, from
+torch.profiler over 20 calls). The shapes are at one clip after CFG
+(N = 28): K7's 4x6, 8x12, ds1 and ds2 ResBlock chains, K1's ds1, ds2 and
+ds4 attentions, K3's four feed-forwards; K5 at every channels-last
+GroupNorm shape of the clip (K5_SITES), with the sum over a clip's calls of
+each time; and, where
+the tree has the per-stream scratch, the host time of getting K3's h buffer
+at the served ds1 shape from it against a torch.empty of that size. The
+first line is nvidia-smi's name and power limit. Needs one CUDA card.
 """
 
 import json
@@ -21,11 +28,26 @@ import sys
 import time
 
 
+# K5's channels-last shapes on the clip's path, (N, C, *spatial), and its
+# calls a clip at each (chip_smoke.py's phase-4 site counts: K4's split path,
+# 1605 calls; K7's 1100 calls of K5 run inside K7 and are timed with it):
+# the decoder's and the time_stack views' planes, then the UNet's.
+K5_SITES = [((1, 128, 14, 256, 384), 6), ((1, 256, 14, 128, 192), 6), ((1, 512, 14, 32, 48), 10),
+            ((1, 512, 14, 64, 96), 6), ((2, 320, 14, 32, 48), 250), ((2, 640, 14, 16, 24), 250),
+            ((2, 1280, 14, 4, 6), 350), ((2, 1280, 14, 8, 12), 250), ((14, 128, 128, 192), 1),
+            ((14, 128, 256, 384), 10), ((14, 256, 64, 96), 1), ((14, 256, 128, 192), 8),
+            ((14, 256, 256, 384), 1), ((14, 512, 32, 48), 21), ((14, 512, 64, 96), 9),
+            ((14, 512, 128, 192), 1), ((28, 320, 32, 48), 150), ((28, 640, 16, 24), 125),
+            ((28, 1280, 4, 6), 25), ((28, 1280, 8, 12), 125)]
+
+
 def measure(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
 
-    from gcd_tpu_torch.ops import _native, flash_attention, gn_silu_conv3x3
+    from torch.profiler import ProfilerActivity, profile
+
+    from gcd_tpu_torch.ops import _native, flash_attention, geglu_mlp, gn_silu_conv3x3, group_stats
 
     if not _native.__file__.startswith(root):
         raise RuntimeError(f"imported {_native.__file__}, not the tree {root}")
@@ -48,13 +70,28 @@ def measure(root: str) -> dict:
         host = 1e3 * (time.perf_counter() - t0) / calls
         end.record()
         torch.cuda.synchronize()
-        return {"host_ms": host, "event_ms": start.elapsed_time(end) / calls}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        device = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 20
+        return {"host_ms": host, "event_ms": start.elapsed_time(end) / calls,
+                "device_ms": device}
+
+    def host_ms(fn, calls=2000):
+        for _ in range(20):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / calls
 
     result = {"tree": root}
     fmt = torch.channels_last
     with torch.no_grad():
-        for n, c, h, w, f in [(28, 1280, 4, 6, 1280), (28, 320, 32, 48, 320),
-                              (28, 640, 16, 24, 640)]:
+        for n, c, h, w, f in [(28, 1280, 4, 6, 1280), (28, 1280, 8, 12, 1280),
+                              (28, 320, 32, 48, 320), (28, 640, 16, 24, 640)]:
             x = randn(n, c, h, w).contiguous(memory_format=fmt)
             args = (x, randn(c, std=0.1, mean=1.0), randn(c, std=0.1),
                     randn(f, c, 3, 3, std=(9 * c) ** -0.5).contiguous(memory_format=fmt),
@@ -64,6 +101,29 @@ def measure(root: str) -> dict:
             q, k, v = (randn(b, s, heads * 64) for _ in range(3))
             result[f"K1 ({b},{s},{heads}x64)"] = timed(
                 lambda: flash_attention(q, k, v, heads))
+        for m, c in [(43008, 320), (10752, 640), (2688, 1280), (672, 1280)]:
+            args = (randn(m, c), randn(8 * c, c, std=c ** -0.5), randn(8 * c, std=0.1),
+                    randn(c, 4 * c, std=(4 * c) ** -0.5), randn(c, std=0.1))
+            result[f"K3 M={m} C={c}"] = timed(lambda: geglu_mlp(*args), calls=100)
+        k5 = dict.fromkeys(("host_ms", "event_ms", "device_ms"), 0.0)
+        for shape, per_clip in K5_SITES:
+            x = randn(*shape, std=2.0, mean=0.5).contiguous(
+                memory_format=torch.channels_last if len(shape) == 4 else torch.channels_last_3d)
+            result[f"K5 {shape}"] = timed(lambda: group_stats(x, 32), calls=100)
+            for key in k5:
+                k5[key] += per_clip * result[f"K5 {shape}"][key]
+            del x
+        result["K5 per clip, K4's sites"] = k5
+        # K3's h buffer at the served ds1 shape (M = 86016, I = 1280): the
+        # host time of the per-stream cache's lookup against a torch.empty
+        # of the same size from the caching allocator.
+        if hasattr(_native, "stream_scratch"):
+            numel = 86016 * 1280
+            result["K3 h buffer, served ds1"] = {
+                "stream_scratch_host_ms": host_ms(
+                    lambda: _native.stream_scratch("geglu_h", numel, torch.bfloat16)),
+                "empty_host_ms": host_ms(
+                    lambda: torch.empty(numel, dtype=torch.bfloat16, device="cuda"))}
     return result
 
 

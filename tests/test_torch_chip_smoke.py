@@ -80,3 +80,45 @@ def test_blend_witness_refuses_a_zero_that_rounding_cannot_make():
     frames["grad"] = torch.zeros_like(frames["grad"])
     evidence = witness.explain("time_mixer")
     assert not evidence["explained"] and evidence["max_diff_over_slack"] > 1.0
+
+
+@pytest.mark.parametrize("within", [True, False])
+def test_blend_witness_weighs_frames_that_cancel(within):
+    """A factor's zero from frames that read nonzero and cancel in the sum:
+    explained when each frame's reading lies within its rounding slack of the
+    fp32 difference, refused when one does not."""
+    x = torch.randn(B * T, N, C, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    witness, _ = _step(_block(1e-6), x)
+    frames = witness.frames["time_mixer"]
+    grad = frames["grad"].clone().flatten()
+    slack = frames["slack"].flatten()
+    u = 0.5 * float(torch.minimum(slack[0], slack[1])) * (1.0 if within else 40.0)
+    u = float(torch.tensor(u).to(torch.bfloat16))
+    grad[0], grad[1] = u, -u
+    frames["grad"] = grad.reshape(frames["grad"].shape)
+    evidence = witness.explain("time_mixer")
+    assert evidence["zero_frames"] == evidence["frames"] - 2
+    assert evidence["explained"] == within
+
+
+def test_blend_witness_refuses_cancelling_frames_that_rounding_resolves():
+    """Two frames whose fp32 values lie far beyond their rounding slack, read
+    exactly and of opposite sign, so that the factor's gradient sums to zero:
+    a real cancellation of resolvable gradients, not rounding, so refused."""
+    x = torch.randn(B * T, N, C, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    witness, _ = _step(_block(1e-6), x)
+    frames = witness.frames["time_mixer"]
+    grad = frames["grad"].clone().flatten()
+    diff = frames["diff"].clone().flatten()
+    slack = frames["slack"].flatten()
+    u = 40.0 * float(torch.maximum(slack[0], slack[1]))
+    u = float(torch.tensor(u).to(torch.bfloat16))
+    grad[0], grad[1] = u, -u
+    diff[0], diff[1] = u, -u
+    frames["grad"] = grad.reshape(frames["grad"].shape)
+    frames["diff"] = diff.reshape(frames["diff"].shape)
+    evidence = witness.explain("time_mixer")
+    assert evidence["max_reading_err_over_slack"] <= 1.0
+    assert evidence["max_diff_over_slack"] > 1.0
+    assert len(evidence["nonzero_frames"]) == 2
+    assert not evidence["explained"]
