@@ -7,7 +7,9 @@ without the final `ok` line):
   1. device      - require CUDA; print nvidia-smi's name and power limit.
   2. build       - compile gcd_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
                    process per source; the ptxas report (registers, spills,
-                   stack) of the wgmma kernels K1, K3 and K7.
+                   stack, and any note that it serialised a kernel's wgmma
+                   products) of the wgmma kernels K1, K3, K6 and K7 and of
+                   K4's and K5's channels-last kernels.
   3. conditioner - load_engine(configs/infer_kubric.yaml): random bf16
                    weights (std 0.02 on every leaf, seeded), ViT-H/14 tower;
                    one conditioner pass on a random 14-frame 384x256 batch;
@@ -28,9 +30,11 @@ without the final `ok` line):
                    atomics). CUDA-event and
                    host enqueue times beside the bound (achieved TFLOP/s and
                    share of the bound) and the one-call library equivalent
-                   (K5's: torch.var_mean over the grouped view); K1's, K3's,
-                   K5's and K7's cases, and their library calls, also by
-                   torch.profiler device time.
+                   (K5's: torch.var_mean over the grouped view); K1's, K2's,
+                   K3's, K4's, K5's, K6's and K7's cases, and their library
+                   calls, also by torch.profiler device time; each K4 / K5
+                   case names the K4 variant its site takes (one pass or
+                   split: K5, then the apply pass).
   5. ab          - the flagship UNet evaluation, the decode and the
                    conditioner with every kernel on vs off (relative
                    L2 <= 2e-2); the UNet's and the decode's wall times and
@@ -39,7 +43,9 @@ without the final `ok` line):
   6. slice       - two requests through DiffusionEngine.sample_video:
                    random 14-frame 384x256 clips and camera moves, 25
                    Euler-EDM steps with per-frame CFG up to 1.5, one 14-frame
-                   decode; checks the frames and each kernel's launch count;
+                   decode; checks the frames and each kernel's launch count
+                   (K5's from phase 4's GroupNorm sites by uses_split_path:
+                   `split_calls`);
                    then the first request timed with K7 on and off (on, off,
                    off, on), frames within 2e-2.
   served         - the same engine behind SamplerServer(max_batch=2) and the
@@ -116,7 +122,8 @@ FP32_FLOPS = 67e12
 # how many transformer blocks each has per evaluation: ds1/ds2/ds4 have 2 in
 # the input path and 3 in the output path, the middle block 1.
 # Substrings of each port kernel's device function names, for the profile.
-PROFILE_TAGS = {"flash": ("flash_attention_kernel",), "flash_bwd": ("rows_kernel", "dkdv_kernel"),
+PROFILE_TAGS = {"flash": ("flash_attention_kernel",),
+                "flash_bwd": ("flash_bwd_rows_kernel", "flash_bwd_dkdv_kernel"),
                 "tattn": ("temporal_attention_kernel",),
                 "fused_mlp": ("geglu_up_kernel", "geglu_down_kernel"),
                 "fused_gn_and_gn_stats": ("group_norm", "group_stats"),
@@ -140,11 +147,14 @@ SOURCES = {
                       "gcd_tpu/ops/fused_gn_conv.py:42"),
 }
 # Kernels whose phase-4 cases are also timed by device time (torch.profiler).
-DEVICE_TIMED = ("flash", "fused_mlp", "gn_stats", "fused_gn_conv")
-# The wgmma kernels' entry functions (K1, K3, K7), whose ptxas lines the build
-# logs.
-WGMMA_ENTRIES = ("flash_attention_kernel", "geglu_up_kernel", "geglu_down_kernel",
-                 "gn_silu_conv3x3_kernel")
+DEVICE_TIMED = ("flash", "flash_bwd", "tattn", "fused_mlp", "fused_gn", "gn_stats",
+                "fused_gn_conv")
+# Entry functions whose ptxas lines the build logs: the wgmma kernels (K1,
+# K3, K6, K7) and K4's and K5's channels-last kernels.
+PTXAS_ENTRIES = ("flash_attention_kernel", "flash_bwd_rows_kernel", "flash_bwd_dkdv_kernel",
+                 "geglu_up_kernel", "geglu_down_kernel", "gn_silu_conv3x3_kernel",
+                 "group_norm_cl_onepass_kernel", "group_norm_cl_table_kernel",
+                 "group_stats_cl_kernel")
 SERVE_BATCH = 2   # clips per served batch
 SERVE_REQUESTS = 4
 SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
@@ -369,17 +379,39 @@ def memory_layout(x: torch.Tensor) -> str:
     return f"strides {x.stride()}"  # the (B, C, T, H, W) view of a (B, T, C, H, W) video
 
 
-@contextmanager
-def record_groupnorms(engine, counter: Counter, split: Counter):
-    """Count every GroupNorm32 call by (shape, memory layout, eps, silu), and
-    in split["calls"] those that run K5 before K4."""
-    from gcd_tpu_torch.models.layers import GroupNorm32
+def site_tensor(shape, layout: str) -> torch.Tensor:
+    """A meta tensor of a recorded GroupNorm site's shape and memory layout
+    (`memory_layout`'s names; other strides are the (B, C, T, H, W) view of
+    a contiguous (B, T, C, H, W) video)."""
+    if layout == "contiguous":
+        return torch.empty(shape, device="meta")
+    if layout == "channels_last":
+        return torch.empty(shape[0], *shape[2:], shape[1], device="meta").movedim(-1, 1)
+    b, c, t, h, w = shape
+    return torch.empty(b, t, c, h, w, device="meta").transpose(1, 2)
+
+
+def split_calls(sites: Counter) -> int:
+    """K5's launches from K4 over recorded GroupNorm calls, `sites` mapping
+    (shape, memory layout, eps, silu) to calls: the calls whose shape and
+    layout take K4's split path (uses_split_path); the others run K4 in one
+    pass."""
     from gcd_tpu_torch.ops.fused_norm import uses_split_path
 
+    return sum(n for (shape, layout, *_), n in sites.items()
+               if uses_split_path(site_tensor(shape, layout), G))
+
+
+@contextmanager
+def record_groupnorms(engine, counter: Counter):
+    """Count every GroupNorm32 call by (shape, memory layout, eps, silu)."""
+    from gcd_tpu_torch.models.layers import GroupNorm32
+
     def hook(mod, inputs, _):
+        if mod.num_groups != G:
+            raise RuntimeError(f"GroupNorm32 with {mod.num_groups} groups, not {G}")
         x = inputs[0]
         counter[(tuple(x.shape), memory_layout(x), mod.eps, mod.silu)] += 1
-        split["calls"] += int(uses_split_path(x, mod.num_groups))
 
     handles = [m.register_forward_hook(hook) for m in engine.modules()
                if isinstance(m, GroupNorm32)]
@@ -541,9 +573,11 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
                    BF16_FLOPS)
 
 
-def groupnorm_cases(gen: torch.Generator, sites: Counter):
+def groupnorm_cases(gen: torch.Generator, sites: Counter, variants: dict):
     """K4 and K5 cases at every recorded GroupNorm site: `sites` maps
-    (shape, memory layout, eps, silu) to launches per clip."""
+    (shape, memory layout, eps, silu) to launches per clip. `variants` gets
+    each site label's K4 variant ("one-pass", or "split": K5, then the apply
+    pass, both inside K4's call)."""
     from gcd_tpu_torch.ops import group_norm, group_norm_plain, group_stats, group_stats_plain
     from gcd_tpu_torch.ops.fused_norm import uses_split_path
 
@@ -565,12 +599,14 @@ def groupnorm_cases(gen: torch.Generator, sites: Counter):
         bs = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
         n = x.numel()
         label = site_label(site)
+        split = uses_split_path(x, G)
+        variants[label] = "split" if split else "one-pass"
         yield ("fused_gn", label, per_clip,
                lambda x=x, wt=wt, bs=bs, e=eps, s=silu: group_norm(x, wt, bs, G, e, s),
                lambda x=x, wt=wt, bs=bs, e=eps, s=silu: group_norm_plain(x, wt, bs, G, e, s),
                lambda x=x, wt=wt, bs=bs, e=eps: F.group_norm(x, G, wt, bs, e),
                4 * n + 4 * c, n * (12 if silu else 8), FP32_FLOPS)
-        yield ("gn_stats", label, per_clip if uses_split_path(x, G) else 0,
+        yield ("gn_stats", label, per_clip if split else 0,
                lambda x=x: group_stats(x, G), lambda x=x: group_stats_plain(x, G),
                lambda x=x: grouped_var_mean(x),
                2 * n + 16 * shape[0] * G, 2 * n, FP32_FLOPS)
@@ -621,10 +657,9 @@ def serve(smi: str):
     gen = torch.Generator("cuda").manual_seed(SEED + 2)
     batch = random_batch(gen)
     gn_calls = {"cond": Counter(), "unet": Counter(), "decode": Counter()}
-    gn_split = {stage: Counter() for stage in gn_calls}
     gn_conv_calls = Counter()
     with torch.no_grad():
-        with record_groupnorms(engine, gn_calls["cond"], gn_split["cond"]):
+        with record_groupnorms(engine, gn_calls["cond"]):
             c, uc = engine.get_unconditional_conditioning(batch, UC_KEYS)
         _, cond_s = wall_s(lambda: engine.get_unconditional_conditioning(batch, UC_KEYS))
     want = {"crossattn": (T, 1, 1024), "vector": (T, 896), "concat": (T, HL, WL, 4)}
@@ -658,10 +693,10 @@ def serve(smi: str):
         return engine.decode_first_stage(z, T)
 
     with torch.no_grad():
-        with record_groupnorms(engine, gn_calls["unet"], gn_split["unet"]), \
+        with record_groupnorms(engine, gn_calls["unet"]), \
                 record_gn_conv_sites(engine, gn_conv_calls):
             denoise()
-        with record_groupnorms(engine, gn_calls["decode"], gn_split["decode"]):
+        with record_groupnorms(engine, gn_calls["decode"]):
             decode()
     cond_encoders = [m.encoder.encoder for m in engine.conditioner.embedders
                      if isinstance(m, VideoPredictionEmbedderWithEncoder)]
@@ -713,11 +748,14 @@ def serve(smi: str):
     stats = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                     "library_ms": None, "t_bytes": 0.0, "t_ops": 0.0, "per_clip": 0}
              for name in KERNELS}
-    gn_ms = {}  # site label -> (K4 ms, plain ms) per call
+    gn_ms = {}  # site label -> (K4 ms, plain ms, K4 device ms) per call
+    gn_variants = {}  # site label -> K4 variant
+    gn_by_variant = {v: Counter() for v in ("one-pass", "split")}  # per clip
     served_ms = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                         "device_ms": 0.0, "plain_device_ms": 0.0, "library_device_ms": 0.0}
                  for name in served_sites}
-    cases = itertools.chain(attention_mlp_cases(gen, steps), groupnorm_cases(gen, gn_checked),
+    cases = itertools.chain(attention_mlp_cases(gen, steps),
+                            groupnorm_cases(gen, gn_checked, gn_variants),
                             gn_conv_cases(gen, gn_conv_sites))
     for name, label, n_clip, run, plain, library, nbytes, flops, peak in cases:
         out = run()
@@ -728,14 +766,15 @@ def serve(smi: str):
         (ms, host_ms), (plain_ms, plain_host_ms) = cuda_ms(run), cuda_ms(plain)
         lib_ms, lib_host_ms = cuda_ms(library) if library is not None else (None, None)
         b_ms, b_by = bound(nbytes, flops, peak)
-        # K1, K3, K5 and K7 also by device time, theirs, their plain
-        # version's and their library call's: at the small shapes the host's
-        # enqueue can outlast the device.
+        # Also by device time, theirs, their plain version's and their
+        # library call's: at the small shapes the host's enqueue can outlast
+        # the device.
         dev = {}
         if name in DEVICE_TIMED:
             dev = {"device_ms": device_ms(run), "plain_device_ms": device_ms(plain),
                    "library_device_ms": None if library is None else device_ms(library)}
-        log("kernel", kernel=name, shape=label, per_clip=n_clip, rel_l2=err,
+        extra = {"variant": gn_variants[label]} if name in ("fused_gn", "gn_stats") else {}
+        log("kernel", kernel=name, shape=label, **extra, per_clip=n_clip, rel_l2=err,
             max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **dev,
             bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
             achieved_tflops=flops / ms / 1e9, host_ms=host_ms, plain_host_ms=plain_host_ms,
@@ -758,7 +797,11 @@ def serve(smi: str):
             st[key] = None if t is None or st.get(key, 0.0) is None else (
                 st.get(key, 0.0) + n_clip * t)
         if name == "fused_gn" and n_clip:
-            gn_ms[label] = (ms, plain_ms)
+            gn_ms[label] = (ms, plain_ms, dev["device_ms"])
+            gn_by_variant[extra["variant"]].update(
+                {"calls": n_clip, "ms": n_clip * ms, "bound_ms": n_clip * b_ms,
+                 "device_ms": n_clip * (dev["device_ms"] or 0.0),
+                 "library_ms": n_clip * (lib_ms or 0.0)})
         if label in served_sites.get(name, ()):
             for key, t in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                            ("bound_ms", b_ms), *dev.items()):
@@ -766,9 +809,13 @@ def serve(smi: str):
         del out, ref, run, plain, library
     torch.cuda.empty_cache()
     by_stage = {stage: {"k4_ms": sum(n * gn_ms[site_label(k)][0] for k, n in calls.items()),
-                        "plain_ms": sum(n * gn_ms[site_label(k)][1] for k, n in calls.items())}
+                        "plain_ms": sum(n * gn_ms[site_label(k)][1] for k, n in calls.items()),
+                        "k4_device_ms": sum(n * (gn_ms[site_label(k)][2] or 0.0)
+                                            for k, n in calls.items())}
                 for stage, calls in gn_calls.items()}
     log("groupnorm_per_pass", **by_stage, card=smi)
+    # K4 per clip by variant (the split sites' K5 runs inside K4's call).
+    log("groupnorm_per_variant", **{v: dict(c) for v, c in gn_by_variant.items()}, card=smi)
     for name, sites in served_sites.items():
         log("kernel_served", kernel=name, per_batch=served_ms[name],
             launches_per_batch=sum(sites.values()), card=smi)
@@ -825,11 +872,23 @@ def serve(smi: str):
                         for name, tags in PROFILE_TAGS.items()},
             top=[[k[:90], ms] for k, ms in by_name.most_common(10)], card=smi)
 
-    # Phase 6: requests through the engine's entry point. K4 / K5 launch
-    # once per GroupNorm pass (K5 only on the split path) and K5 once per K7.
+    # Phase 6: requests through the engine's entry point. K4 launches once per
+    # GroupNorm call, K5 once per call on K4's split path (split_calls over
+    # the pass's recorded sites) and once per K7. A served batch may double
+    # the conditioner's and the UNet's N; the rule must then split the same
+    # calls, which is checked here.
+    split = {stage: split_calls(calls) for stage, calls in gn_calls.items()}
+    doubled = {stage: split_calls(Counter({((shape[0] * SERVE_BATCH, *shape[1:]), *rest): n
+                                           for (shape, *rest), n in gn_calls[stage].items()}))
+               for stage in ("cond", "unet")}
+    log("groupnorm_variants", split_calls=split, split_calls_served_n=doubled,
+        one_pass_calls={stage: gn_per_pass[stage] - n for stage, n in split.items()})
+    if any(doubled[stage] != split[stage] for stage in doubled):
+        raise RuntimeError(f"K4's split rule changes with the served batch: {doubled} vs {split}")
+
     def gn_launches(passes: dict) -> dict:
         return {"fused_gn": sum(n * gn_modules[stage] for stage, n in passes.items()),
-                "gn_stats": sum(n * gn_split[stage]["calls"] for stage, n in passes.items())
+                "gn_stats": sum(n * split[stage] for stage, n in passes.items())
                 + passes["unet"] * k7_sites}
 
     expected = {"flash": count_modules(unet, BasicTransformerBlock) * steps,
@@ -1039,7 +1098,6 @@ def train(smi: str) -> dict:
     from gcd_tpu_torch.models.video_attention import (SpatialVideoTransformer,
                                                       VideoTransformerBlock)
     from gcd_tpu_torch.ops import KERNELS, kernel_flags
-    from gcd_tpu_torch.ops.fused_norm import uses_split_path
 
     t0 = time.perf_counter()
     trainer = load_trainer(TRAIN_CONFIG)
@@ -1098,20 +1156,13 @@ def train(smi: str) -> dict:
 
     # One step's loss and UNet gradient, all kernels on vs off, forward and
     # backward; the same draws on both sides.
-    gn_calls = Counter()
-
-    def gn_hook(mod, inputs, _):
-        gn_calls["calls"] += 1
-        gn_calls["split"] += int(uses_split_path(inputs[0], mod.num_groups))
-
-    hooks = [m.register_forward_hook(gn_hook) for m in engine.modules()
-             if isinstance(m, GroupNorm32)]
+    gn_sites = Counter()
     reset()
-    loss_on, grads_on = loss_and_unet_grads(SEED + 21)
+    with record_groupnorms(engine, gn_sites):
+        loss_on, grads_on = loss_and_unet_grads(SEED + 21)
     launches_on = counts()
-    for h in hooks:
-        h.remove()
-    expected["gn_stats"] = gn_calls["split"] + 2 * k7_sites
+    gn_total = sum(gn_sites.values())
+    expected["gn_stats"] = split_calls(gn_sites) + 2 * k7_sites
     reset()
     with kernel_flags(**dict.fromkeys(KERNELS, False)):
         loss_off, grads_off = loss_and_unet_grads(SEED + 21)
@@ -1127,14 +1178,14 @@ def train(smi: str) -> dict:
           "unet_grad_rel_l2": (num / den) ** 0.5, "unet_grad_norm_off": den ** 0.5}
     log("train_ab", **ab, loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL,
         launches_on=launches_on, launches_off=launches_off, expected_per_step=expected,
-        groupnorm_calls=gn_calls["calls"], card=smi)
+        groupnorm_calls=gn_total, card=smi)
     del grads_on, grads_off
     if not (ab["loss_rel"] <= TRAIN_LOSS_TOL and ab["unet_grad_rel_l2"] <= TRAIN_GRAD_TOL):
         raise RuntimeError(f"training step, kernels on vs off: {ab}")
     if any(launches_off.values()):
         raise RuntimeError(f"kernels launched with every switch off: {launches_off}")
-    if launches_on != expected or gn_calls["calls"] != expected["fused_gn"]:
-        raise RuntimeError(f"launches {launches_on} (GroupNorm calls {gn_calls['calls']}), "
+    if launches_on != expected or gn_total != expected["fused_gn"]:
+        raise RuntimeError(f"launches {launches_on} (GroupNorm calls {gn_total}), "
                            f"expected {expected}")
 
     # What K7 costs the step: its loss and gradient with K7 on and off
@@ -1238,15 +1289,21 @@ def main() -> int:
     t0 = time.perf_counter()
     _, ptxas = _native.build()
     _native.library()
-    # nvcc -Xptxas -v's registers, shared memory, spills and stack of K1's and
-    # K7's entry functions (mangled names); empty when the build was cached.
+    # nvcc -Xptxas -v's registers, shared memory, spills and stack of the
+    # PTXAS_ENTRIES kernels (mangled names), and its notes that it serialised
+    # a kernel's wgmma products (C751x); empty when the build was cached.
     entry, ptxas_lines = "", {}
     for line in ptxas.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif any(k in entry for k in WGMMA_ENTRIES) and ("Used" in line
+        elif any(k in entry for k in PTXAS_ENTRIES) and ("Used" in line
                                                           or "stack frame" in line):
             ptxas_lines.setdefault(entry, []).append(line.split(": ", 1)[-1].strip())
+        if "Potential Performance Loss" in line and line.count("'") >= 2:
+            where = line.rsplit("'", 2)[-2]
+            if any(k in where for k in PTXAS_ENTRIES):
+                note = line.split(": ", 1)[-1].split(" in the function")[0].strip()
+                ptxas_lines.setdefault(where, []).append(note)
     log("build", seconds=time.perf_counter() - t0, ptxas=ptxas_lines)
 
     stats, launches, served_launches = serve(smi)

@@ -32,41 +32,65 @@
 // port's convolutions produce (its engine takes channels-last frames and
 // latents, and cuDNN keeps that memory format), and the TPU kernel's own.
 // A group's values are strided by C, so every group of a sample is reduced
-// together. K5 here is one launch (group_stats_cl_kernel): a sample's pixels
-// are cut into blocks of `rows` pixels, each block reads its rows as one
-// contiguous span with 16-byte loads (8 channels; every main-path C is a
-// multiple of 8), each thread always the same 8 channels, all of a thread's
-// loads issued before its sums. A thread folds its per-channel sums into
-// the (at most two) groups its 8 channels touch, in registers; `sub` lanes
-// per group add the block's thread sums through 8 KB of shared memory, in
-// a fixed order. Small blocks (256 threads where C <= 2048, at most 64
-// registers) keep four blocks an SM, and a call aims at one wave of them;
-// the partition is computed on the host and passed by value. A block writes
-// its group partials; the last block of a sample to finish -- elected by an
-// atomic ticket (atomicInc wrapping at the block count, so each call leaves
-// the ticket zero), which orders nothing but the election -- adds the
-// sample's partials in a fixed order and writes the sums and, for K7, the
-// (scale, shift) table from each group's mean and 1 / std. A sample of one
-// block skips the partials and the ticket. Where a sample has many blocks
-// (at least CL_CLUSTER_FROM: the time_stack views at N = 2, the decoder's
-// planes at N = 1), its blocks form thread-block clusters of 8, whose first
-// block adds the cluster's sums through distributed shared memory, so that
-// the last block adds an eighth as many partials. K4's apply pass reads x
-// again: 2 reads + 1 write.
+// together. K4 takes one of two variants, by a rule on the shape alone
+// (ops/fused_norm.py::uses_split_path; a test pins the constants):
+//   (a) one pass, cluster-resident, where N >= OP_MIN_N and a sample cut in
+//       OP_CLUSTER spans of ceil(P / OP_CLUSTER) pixels fits OP_BYTES of
+//       shared memory a span: every per-frame site of the UNet (N = 28, or
+//       56 when serving two clips). A sample is one thread-block cluster of
+//       OP_CLUSTER blocks (cudaLaunchKernelEx). Each block loads its span
+//       once with bulk copies, sums it per channel from shared memory, folds
+//       the sums into the (at most two) groups each thread's 8 channels
+//       touch and adds them per group as K5 does; every block then adds the
+//       cluster's block sums through distributed shared memory in rank
+//       order (so all hold the same sums), normalises its span from shared
+//       memory and writes y with 16-byte stores: 1 read + 1 write, one
+//       launch, no scratch. With fewer samples (the time_stack views,
+//       N = 2) the grid would hold fewer than OP_MIN_N * OP_CLUSTER = 128
+//       blocks for the card's 132 SMs, where (b) spreads the plane over all.
+//   (b) otherwise K5 (one launch, below), whose last block of each sample
+//       writes the (N, C) float2 (scale, shift) table (K7's), then K4's
+//       apply pass over that table: 16-byte loads and stores of 8 channels,
+//       K5's partition with 8 loads in flight a thread, and its blocks in
+//       reverse order, so that the second read of x starts where K5's read
+//       ended (the part most likely still in L2): 2 reads + 1 write, two
+//       launches, K5's per-stream scratch.
+// K5 on channels-last input is one launch (group_stats_cl_kernel): a
+// sample's pixels are cut into blocks of `rows` pixels, each block reads its
+// rows as one contiguous span with 16-byte loads (8 channels; every
+// main-path C is a multiple of 8), each thread always the same 8 channels,
+// all of a thread's loads issued before its sums. A thread folds its
+// per-channel sums into the (at most two) groups its 8 channels touch, in
+// registers; `sub` lanes per group add the block's thread sums through 8 KB
+// of shared memory, in a fixed order. Small blocks (256 threads where
+// C <= 2048, at most 64 registers) keep four blocks an SM, and a call aims at
+// one wave of them; the partition is computed on the host and passed by
+// value. A block writes its group partials; the last block of a sample to
+// finish -- elected by an atomic ticket (atomicInc wrapping at the block
+// count, so each call leaves the ticket zero), which orders nothing but the
+// election -- adds the sample's partials in a fixed order and writes the
+// sums and, for K7 and K4's apply pass, the (scale, shift) table from each
+// group's mean and 1 / std. A sample of one block skips the partials and
+// the ticket. Where a sample has many blocks (at least CL_CLUSTER_FROM: the
+// time_stack views at N = 2, the decoder's planes at N = 1), its blocks form
+// thread-block clusters of 8, whose first block adds the cluster's sums
+// through distributed shared memory, so that the last block adds an eighth
+// as many partials.
 //
 // No sum is taken in atomic order: the partition and the order of every sum
 // depend only on the shape, so the statistics are bit-identical from run to
 // run. Requires bf16 x / gamma / beta and C % G == 0; channels-first also
-// L % 8 == 0 and a 16-byte-aligned x (16-byte accesses); K4's channels-last
-// apply pass an even C / G and a 4-byte-aligned x (the wrapper checks);
-// channels-last K5 C % 8 == 0, C <= 4096, an even C / G of at least 4 (8
-// aligned channels then touch at most two groups), G <= 256 and no more than the
-// block's whole warps' threads, and a 16-byte-aligned x.
+// L % 8 == 0 and a 16-byte-aligned x (16-byte accesses); channels-last
+// C % 8 == 0, C <= 4096, an even C / G of at least 4 (8 aligned channels
+// then touch at most two groups), G <= 256 and no more than the block's
+// whole warps' threads, and a 16-byte-aligned x.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 namespace cg = cooperative_groups;
@@ -76,8 +100,6 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int VEC = 8;               // bf16 values per 16-byte access
 constexpr int FUSED_MAX = 49152;     // values of one group on the one-pass path
-constexpr int CL_PAIRS = 32;         // channels-last apply: channel pairs per block
-constexpr int CL_LANES = THREADS / CL_PAIRS;  // channels-last apply: pixel lanes per block
 // Channels-last K5 partition; ops/fused_norm.py mirrors CL_THREADS,
 // CL_MAX_THREADS, CL_UNROLL, CL_BLOCKS and TICKETS (cl_stats_plan,
 // cl_stats_work), and a test pins them.
@@ -89,6 +111,13 @@ constexpr int CL_CLUSTER = 8;        // blocks a cluster
 constexpr int CL_CLUSTER_FROM = 64;  // blocks a sample from which they form clusters
 constexpr int CL_SUB = 8;            // most lanes adding one group's sums
 constexpr int TICKETS = 4096;        // most samples of a call (one ticket each)
+// Channels-last K4 variant (a); ops/fused_norm.py mirrors them (a test pins
+// them).
+constexpr int OP_CLUSTER = 8;        // blocks a sample (one cluster)
+constexpr int OP_MIN_N = 16;         // fewest samples
+constexpr int OP_BYTES = 163840;     // most bytes of x a block holds
+constexpr int OP_THREADS = 512;      // threads a block aims at
+constexpr int OP_CHUNKS = 4;         // bulk copies (one mbarrier each) a block's span
 
 struct Layout {                      // channels-first (N, C, F, L)
   int N, C, F, L, G;
@@ -282,11 +311,12 @@ group_norm_apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gam
 // blocks (before the padding below). A sample of at least CL_CLUSTER_FROM
 // such blocks has them in `clusters` thread-block clusters of `cluster` =
 // CL_CLUSTER blocks, its last blocks empty where its chunks do not fill
-// them; otherwise cluster = 1. `blocks` = clusters * cluster blocks per
-// sample; `sub` lanes add one group's sums (the most, up to CL_SUB, that
-// keep sub * G within the block's whole warps).
+// them; otherwise cluster = 1. `used` blocks a sample hold pixels, `blocks`
+// = clusters * cluster blocks per sample; `sub` lanes add one group's sums
+// (the most, up to CL_SUB, that keep sub * G within the block's whole
+// warps).
 struct ClPlan {
-  int vpr, lanes, threads, rows, per, cluster, clusters, blocks, sub;
+  int vpr, lanes, threads, rows, per, used, cluster, clusters, blocks, sub;
 };
 
 ClPlan cl_plan(int N, int C, int P, int G) {
@@ -298,9 +328,9 @@ ClPlan cl_plan(int N, int C, int P, int G) {
   const int chunks = (P + q.rows - 1) / q.rows;
   const int cap = CL_BLOCKS / N > 1 ? CL_BLOCKS / N : 1;
   q.per = (chunks + cap - 1) / cap;
-  const int used = (chunks + q.per - 1) / q.per;
-  q.cluster = used >= CL_CLUSTER_FROM ? CL_CLUSTER : 1;
-  q.clusters = (used + q.cluster - 1) / q.cluster;
+  q.used = (chunks + q.per - 1) / q.per;
+  q.cluster = q.used >= CL_CLUSTER_FROM ? CL_CLUSTER : 1;
+  q.clusters = (q.used + q.cluster - 1) / q.cluster;
   q.blocks = q.clusters * q.cluster;
   q.sub = CL_SUB;
   while (q.sub > 1 && q.sub * G > (q.threads & ~31)) q.sub >>= 1;
@@ -315,6 +345,45 @@ __device__ __forceinline__ float2 lanes_sum(float2 t, int sub) {
     t.y += __shfl_xor_sync(0xffffffffu, t.y, o);
   }
   return t;
+}
+
+// The (at most two) group sums of a thread's 8 channels starting at channel
+// c0: channels in order, those before the next group boundary into `lo`.
+__device__ __forceinline__ void fold2(const float a[VEC], const float a2[VEC], int c0, int cpg,
+                                      float2* lo, float2* hi) {
+  const int split = min(VEC, (c0 / cpg + 1) * cpg - c0);
+  *lo = make_float2(0.0f, 0.0f);
+  *hi = make_float2(0.0f, 0.0f);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    if (i < split) {
+      lo->x += a[i];
+      lo->y += a2[i];
+    } else {
+      hi->x += a[i];
+      hi->y += a2[i];
+    }
+  }
+}
+
+// A block's sum of group g from its threads' two group sums in `red`
+// (2 * tid: lo, 2 * tid + 1: hi): `sub` lanes, lane j adding, for pixel lanes
+// l = j, j + sub, ... in order, the vectors that touch g in order (each
+// vector's first sum where it starts in g, else its second); a butterfly
+// adds the lanes, so every lane of the group returns the sum.
+__device__ __forceinline__ float2 block_group_sum(const float2* red, int g, int j, int G,
+                                                  int cpg, int lanes, int vpr, int sub) {
+  float2 t = make_float2(0.0f, 0.0f);
+  if (g < G) {
+    const int c0 = g * cpg, v0 = c0 / VEC, v1 = (c0 + cpg - 1) / VEC;
+    for (int l = j; l < lanes; l += sub)
+      for (int v = v0; v <= v1; ++v) {
+        const float2 r = red[2 * (l * vpr + v) + (v * VEC >= c0 ? 0 : 1)];
+        t.x += r.x;
+        t.y += r.y;
+      }
+  }
+  return lanes_sum(t, sub);
 }
 
 // K5, channels-last, one launch. Block b of sample n (blockIdx.x = n*blocks
@@ -378,35 +447,14 @@ group_stats_cl_kernel(const bf16* __restrict__ x, unsigned int* __restrict__ tic
       }
     }
   }
-  // Into the thread's (at most) two groups, channels in order.
-  const int split = min(VEC, (vec * VEC / cpg + 1) * cpg - vec * VEC);
-  float2 lo = make_float2(0.0f, 0.0f), hi = make_float2(0.0f, 0.0f);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    if (i < split) {
-      lo.x += a[i];
-      lo.y += a2[i];
-    } else {
-      hi.x += a[i];
-      hi.y += a2[i];
-    }
-  }
+  // Into the thread's (at most two) groups, channels in order.
+  float2 lo, hi;
+  fold2(a, a2, vec * VEC, cpg, &lo, &hi);
   red[2 * tid] = lo;
   red[2 * tid + 1] = hi;
   __syncthreads();
   if (adds) {
-    float2 t = make_float2(0.0f, 0.0f);
-    if (g < G) {
-      const int c0 = g * cpg, v0 = c0 / VEC, v1 = (c0 + cpg - 1) / VEC;
-      for (int l = j; l < q.lanes; l += q.sub) {
-        for (int v = v0; v <= v1; ++v) {
-          const float2 r = red[2 * (l * q.vpr + v) + (v * VEC >= c0 ? 0 : 1)];
-          t.x += r.x;
-          t.y += r.y;
-        }
-      }
-    }
-    t = lanes_sum(t, q.sub);
+    const float2 t = block_group_sum(red, g, j, G, cpg, q.lanes, q.vpr, q.sub);
     if (g < G && j == 0) grp[g] = t;
   }
   __syncthreads();
@@ -500,28 +548,183 @@ group_stats_cl_kernel(const bf16* __restrict__ x, unsigned int* __restrict__ tic
   }
 }
 
-// Channels-last K4 apply pass, same block decomposition as its partials.
-__global__ void __launch_bounds__(THREADS)
-group_norm_cl_apply_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
-                           const bf16* __restrict__ beta, const float* __restrict__ s1,
-                           const float* __restrict__ s2, bf16* __restrict__ y, int C, int P,
-                           int G, int ptile, float eps, int silu) {
-  const int pair = blockIdx.y * CL_PAIRS + threadIdx.x;
-  if (pair >= C / 2) return;  // no barriers below
-  const int n = blockIdx.z;
-  const int c = 2 * pair;
-  const int ng = n * G + c / (C / G);
-  float mean, inv;
-  moments(s1[ng], s2[ng], (float)P * (float)(C / G), eps, &mean, &inv);
-  const float sc0 = inv * __bfloat162float(gamma[c]), sc1 = inv * __bfloat162float(gamma[c + 1]);
-  const float sh0 = __bfloat162float(beta[c]), sh1 = __bfloat162float(beta[c + 1]);
-  const long long base = (long long)n * P * C + c;
-  const int p1 = min(P, (blockIdx.x + 1) * ptile);
-  for (int p = blockIdx.x * ptile + threadIdx.y; p < p1; p += CL_LANES) {
-    const long long off = base + (long long)p * C;
-    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + off));
-    *reinterpret_cast<__nv_bfloat162*>(y + off) = __floats2bfloat162_rn(
-        norm1(v.x, mean, sc0, sh0, silu), norm1(v.y, mean, sc1, sh1, silu));
+// x * scale + shift (+ SiLU) of 8 values, in fp32, rounded once. The SiLU
+// takes the fast exponential and division (a few ulp of fp32, far below the
+// bf16 rounding): at the one-pass sites the exact ones cost as much issue
+// time as the memory traffic.
+__device__ __forceinline__ uint4 norm8(const uint4& u, const float sc[VEC], const float sh[VEC],
+                                       int silu) {
+  float v[VEC];
+  unpack8(u, v);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float t = fmaf(v[i], sc[i], sh[i]);
+    v[i] = silu ? __fdividef(t, 1.0f + __expf(-t)) : t;
+  }
+  return pack8(v);
+}
+
+// Channels-last K4, variant (a)'s partition: `lanes` pixel lanes of C / 8
+// threads each (as many as keep the block at OP_THREADS, at least one), a
+// span of ceil(P / OP_CLUSTER) pixels a block, `sub` lanes adding one group's
+// sums (as in cl_plan).
+struct OpPlan {
+  int vpr, lanes, threads, span, sub;
+};
+
+OpPlan op_plan(int C, int P, int G) {
+  OpPlan q;
+  q.vpr = C / VEC;
+  q.lanes = q.vpr < OP_THREADS ? OP_THREADS / q.vpr : 1;
+  q.threads = q.vpr * q.lanes;
+  q.span = (P + OP_CLUSTER - 1) / OP_CLUSTER;
+  q.sub = CL_SUB;
+  while (q.sub > 1 && q.sub * G > (q.threads & ~31)) q.sub >>= 1;
+  return q;
+}
+
+// Channels-last K4, variant (a): one cluster of OP_CLUSTER blocks a sample
+// (blockIdx.x = n * OP_CLUSTER + rank). Block `rank` holds pixels
+// [rank * span, min(P, (rank + 1) * span)) in shared memory, loaded in
+// OP_CHUNKS bulk copies. Thread t owns channels 8 v .. 8 v + 7 (v = t % vpr)
+// at pixel lane l = t / vpr and sums its lane's pixels l, l + lanes, ... of
+// the span in order; the block's group sums as K5 forms them; then each
+// block adds the cluster's block sums in rank order and normalises its
+// span: y = x * scale + shift (+ SiLU), scale = rsqrt(var + eps) * gamma,
+// shift = beta - mean * scale.
+__global__ void __launch_bounds__(OP_THREADS, 1)
+group_norm_cl_onepass_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma,
+                             const bf16* __restrict__ beta, bf16* __restrict__ y,
+                             const OpPlan q, int C, int P, int G, float eps, int silu) {
+  extern __shared__ uint4 span[];               // the block's pixels, (np, C) bf16
+  __shared__ float2 red[2 * OP_THREADS];        // each thread's two group sums, 16 KB
+  __shared__ float2 grp[256];                   // the block's group sums
+  __shared__ float2 mom[256];                   // each group's mean and 1 / std
+  __shared__ __align__(8) uint64_t bars[OP_CHUNKS];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = blockIdx.x / OP_CLUSTER, rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid / q.vpr, vec = tid - lane * q.vpr;
+  const int cpg = C / G;
+  const int p0 = rank * q.span, np = max(0, min(P, p0 + q.span) - p0);
+  const int cp = (np + OP_CHUNKS - 1) / OP_CHUNKS;  // pixels a bulk copy
+
+  if (tid == 0) {
+    for (int k = 0; k < OP_CHUNKS; ++k) mbar_init(&bars[k], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const bf16* src = x + ((size_t)n * P + p0) * C;
+    for (int k = 0; k < OP_CHUNKS; ++k) {
+      const int c0 = k * cp, c1 = min(np, c0 + cp);
+      if (c0 >= c1) break;
+      const uint32_t bytes = (uint32_t)(c1 - c0) * C * 2;
+      mbar_arrive_expect_tx(&bars[k], bytes);
+      bulk_load(span + (size_t)c0 * q.vpr, src + (size_t)c0 * C, bytes, &bars[k]);
+    }
+  }
+
+  // Per-channel sums of this thread's pixels, chunk by chunk as they land.
+  float a[VEC], a2[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) a[i] = a2[i] = 0.0f;
+  int p = lane;
+  for (int k = 0; k < OP_CHUNKS && k * cp < np; ++k) {
+    const int c1 = min(np, (k + 1) * cp);
+    if (p >= c1) continue;
+    mbar_wait(&bars[k], 0);
+    for (; p < c1; p += q.lanes) {
+      float v[VEC];
+      unpack8(span[(size_t)p * q.vpr + vec], v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        a[i] += v[i];
+        a2[i] += v[i] * v[i];
+      }
+    }
+  }
+  float2 lo, hi;
+  fold2(a, a2, vec * VEC, cpg, &lo, &hi);
+  red[2 * tid] = lo;
+  red[2 * tid + 1] = hi;
+  __syncthreads();
+  const int g = tid / q.sub, j = tid % q.sub;
+  if (tid < ((q.sub * G + 31) & ~31)) {
+    const float2 t = block_group_sum(red, g, j, G, cpg, q.lanes, q.vpr, q.sub);
+    if (g < G && j == 0) grp[g] = t;
+  }
+  cluster.sync();
+  // The sample's sums: every block adds the cluster's in rank order.
+  const float count = (float)P * (float)cpg;
+  if (tid < G) {
+    float2 t = make_float2(0.0f, 0.0f);
+    for (int r = 0; r < OP_CLUSTER; ++r) {
+      const float2 v = cluster.map_shared_rank(grp, r)[tid];
+      t.x += v.x;
+      t.y += v.y;
+    }
+    const float mean = t.x / count;
+    mom[tid] = make_float2(mean, rsqrtf(fmaxf(t.y / count - mean * mean, 0.0f) + eps));
+  }
+  // Done reading the other blocks' shared memory: they may leave once every
+  // block has arrived (the wait at the end).
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  __syncthreads();
+
+  float sc[VEC], sh[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int ch = vec * VEC + i;
+    const float2 m = mom[ch / cpg];
+    sc[i] = m.y * __bfloat162float(gamma[ch]);
+    sh[i] = __bfloat162float(beta[ch]) - m.x * sc[i];
+  }
+  uint4* dst = reinterpret_cast<uint4*>(y + ((size_t)n * P + p0) * C) + vec;
+  for (int r = lane; r < np; r += q.lanes)
+    dst[(size_t)r * q.vpr] = norm8(span[(size_t)r * q.vpr + vec], sc, sh, silu);
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Channels-last K4, variant (b): the apply pass over K5's (scale, shift)
+// table, with K5's partition (cl_plan) and its blocks in reverse order:
+// block index N * used - 1 - blockIdx.x is block b of sample n, and takes
+// K5's block b's pixels. Thread t owns channels 8 v .. 8 v + 7 at pixel lane
+// l, as in K5.
+__global__ void __launch_bounds__(CL_MAX_THREADS)
+group_norm_cl_table_kernel(const bf16* __restrict__ x, const float2* __restrict__ table,
+                           bf16* __restrict__ y, const ClPlan q, int N, int C, int P,
+                           int silu) {
+  const int idx = N * q.used - 1 - (int)blockIdx.x;
+  const int n = idx / q.used, b = idx - n * q.used;
+  const int tid = threadIdx.x, lane = tid / q.vpr, vec = tid - lane * q.vpr;
+  float sc[VEC], sh[VEC];
+  const float4* tab = reinterpret_cast<const float4*>(table + (size_t)n * C + vec * VEC);
+#pragma unroll
+  for (int i = 0; i < VEC / 2; ++i) {
+    const float4 t = __ldg(tab + i);
+    sc[2 * i] = t.x;
+    sh[2 * i] = t.y;
+    sc[2 * i + 1] = t.z;
+    sh[2 * i + 1] = t.w;
+  }
+  const size_t off = (size_t)n * P * C + vec * VEC;
+  const uint4* xs = reinterpret_cast<const uint4*>(x + off);
+  uint4* ys = reinterpret_cast<uint4*>(y + off);
+  const int vpr = q.vpr;
+  for (int r = 0; r < q.per; ++r) {
+    const int p0 = (b * q.per + r) * q.rows + lane;
+    if (p0 >= P) break;
+    uint4 u[CL_UNROLL];
+#pragma unroll
+    for (int k = 0; k < CL_UNROLL; ++k) {
+      const int p = p0 + k * q.lanes;
+      u[k] = p < P ? __ldg(xs + (size_t)p * vpr) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < CL_UNROLL; ++k) {
+      const int p = p0 + k * q.lanes;
+      if (p < P) ys[(size_t)p * vpr] = norm8(u[k], sc, sh, silu);
+    }
   }
 }
 
@@ -530,9 +733,10 @@ bool valid(const Layout& lo) {
          lo.sN % VEC == 0 && lo.sF % VEC == 0;
 }
 
-bool valid_cl(int N, int C, int P, int G, int ptile) {
-  return N > 0 && N <= 65535 && P > 0 && G > 0 && C % G == 0 && (C / G) % 2 == 0 &&
-         ptile > 0;
+// Channels-last shapes the kernels take (K5's constraints).
+bool valid_cl(int N, int C, int P, int G) {
+  return N > 0 && P > 0 && C > 0 && C % VEC == 0 && C / VEC <= CL_MAX_THREADS && G > 0 &&
+         G <= 256 && C % G == 0 && (C / G) % 2 == 0 && C / G >= 4;
 }
 
 Layout make_layout(int N, int C, int F, int L, long long sN, long long sF, int G) {
@@ -571,9 +775,7 @@ extern "C" int gcd_group_stats(const void* x, void* part, void* s1, void* s2, in
 extern "C" int gcd_group_stats_cl(const void* x, void* work, void* s1, void* s2, int N, int C,
                                   int P, int G, const void* gamma, const void* beta,
                                   void* table, float eps, void* stream) {
-  if (N <= 0 || N > TICKETS || P <= 0 || C <= 0 || C % VEC || C / VEC > CL_MAX_THREADS ||
-      G <= 0 || G > 256 || C % G || (C / G) % 2 || C / G < 4)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_cl(N, C, P, G) || N > TICKETS) return (int)cudaErrorInvalidValue;
   const ClPlan q = cl_plan(N, C, P, G);
   if ((long long)N * q.blocks > 0x7fffffffLL || G > (q.threads & ~31))
     return (int)cudaErrorInvalidValue;
@@ -633,14 +835,53 @@ extern "C" int gcd_group_norm(const void* x, const void* gamma, const void* beta
   return (int)cudaGetLastError();
 }
 
-// K4, channels-last (N, P, C): the apply pass over statistics from K5.
+// K4, channels-last (N, P, C), variant (a): one launch, one cluster a
+// sample. Refuses a shape outside variant (a)'s rule.
+extern "C" int gcd_group_norm_cl_onepass(const void* x, const void* gamma, const void* beta,
+                                         void* y, int N, int C, int P, int G, float eps, int silu,
+                                         void* stream) {
+  if (!valid_cl(N, C, P, G) || N < OP_MIN_N || N > 0x7fffffff / OP_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  const OpPlan q = op_plan(C, P, G);
+  const long long bytes = (long long)q.span * C * 2;
+  if (bytes > OP_BYTES || G > (q.threads & ~31)) return (int)cudaErrorInvalidValue;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = smem_limit_once(group_norm_cl_onepass_kernel, OP_BYTES, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(N * OP_CLUSTER));
+  cfg.blockDim = dim3((unsigned)q.threads);
+  cfg.dynamicSmemBytes = (size_t)bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = OP_CLUSTER;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, group_norm_cl_onepass_kernel, (const bf16*)x,
+                                 (const bf16*)gamma, (const bf16*)beta, (bf16*)y, q, C, P, G,
+                                 eps, silu);
+}
+
+// K4, channels-last (N, P, C), variant (b). `table` is (N, C) float2, 16-byte
+// aligned. With `stats`, K5 writes it first (its scratch `work` as
+// gcd_group_stats_cl takes it, its sums into `sums`, 2 * N * G fp32); else
+// the table is given. Then the apply pass over the table.
 extern "C" int gcd_group_norm_cl(const void* x, const void* gamma, const void* beta, void* y,
-                                 const void* s1, const void* s2, int N, int C, int P, int G,
-                                 float eps, int silu, int ptile, void* stream) {
-  if (!valid_cl(N, C, P, G, ptile)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((P + ptile - 1) / ptile, (C / 2 + CL_PAIRS - 1) / CL_PAIRS, N);
-  group_norm_cl_apply_kernel<<<grid, dim3(CL_PAIRS, CL_LANES), 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)gamma, (const bf16*)beta, (const float*)s1,
-      (const float*)s2, (bf16*)y, C, P, G, ptile, eps, silu);
+                                 void* work, void* sums, void* table, int N, int C, int P, int G,
+                                 float eps, int stats, int silu, void* stream) {
+  if (!valid_cl(N, C, P, G)) return (int)cudaErrorInvalidValue;
+  const ClPlan q = cl_plan(N, C, P, G);
+  if ((long long)N * q.used > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (stats) {
+    float* s1 = (float*)sums;
+    const int e = gcd_group_stats_cl(x, work, s1, s1 + (size_t)N * G, N, C, P, G, gamma, beta,
+                                     table, eps, stream);
+    if (e) return e;
+  }
+  group_norm_cl_table_kernel<<<(unsigned)(N * q.used), q.threads, 0, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float2*)table, (bf16*)y, q, N, C, P, silu);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,7 @@ entry point launches on the stream it is given and returns
 cudaGetLastError(); `launch` raises on a non-zero code. Nothing here runs
 at import time, so the CPU tests import every module without nvcc or a card.
 
-The wgmma kernels (K1, K3, K7) take TMA tensor maps, which the C entry points
+The wgmma kernels (K1, K3, K6, K7) take TMA tensor maps, which the C entry points
 encode with the driver's cuTensorMapEncodeTiled, keeping the last few
 hundred by address and shape (the weights stay put, and the activations
 come back to the same addresses). They find it
@@ -51,7 +51,8 @@ _SIGNATURES = {
     "gcd_group_norm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _F, _I, _I,
                        _P),
     "gcd_group_stats_cl": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _F, _P),
-    "gcd_group_norm_cl": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    "gcd_group_norm_cl_onepass": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "gcd_group_norm_cl": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     "gcd_gn_silu_conv3x3": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _F, _I, _I, _I, _I, _I, _I, _P),
 }

@@ -8,7 +8,7 @@ kernel_enabled), reduced to the kernels the port has:
   tattn      K2, frame-axis temporal attention (ops/temporal_attention.py)
   fused_mlp  K3, fused GEGLU feed-forward (ops/fused_mlp.py)
   fused_gn   K4, GroupNorm(+SiLU) (ops/fused_norm.py group_norm)
-  gn_stats   K5, per-group sums, the first pass of K4 on large groups
+  gn_stats   K5, per-group sums, the first pass of K4's split path
              and of K7 (ops/fused_norm.py group_stats)
   fused_gn_conv
              K7, GroupNorm -> SiLU -> 3x3 conv in one kernel at the 2D

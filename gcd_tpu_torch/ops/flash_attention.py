@@ -35,6 +35,8 @@ from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled, kernel_flags
 
 KERNEL_HEAD_DIMS = (64, 128)
+# Rows of K6's query and key tiles; must equal TR in csrc/flash_attention_bwd.cu.
+BWD_TILE = 64
 
 
 def _heads_first(z: torch.Tensor, heads: int) -> torch.Tensor:
@@ -110,8 +112,9 @@ def _flash_forward(q3, k3, v3, heads: int, scale: Optional[float]) -> torch.Tens
 def flash_attention_bwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                         do3: torch.Tensor, heads: int, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of self-attention on (B, S, H*D); K6 on CUDA (bf16,
-    D in {64, 128}, Sq = Skv)."""
+    """(dq, dk, dv) of self-attention on (B, S, H*D); K6 on CUDA: bf16 q, k,
+    v, do of one shape (Sq = Skv), D in {64, 128}, B and H at most 65535,
+    16-byte aligned."""
     if q3.device.type == "cpu" or not kernel_enabled("flash_bwd"):
         return flash_attention_bwd_plain(q3, k3, v3, do3, heads, scale)
     b, s, hd = q3.shape
@@ -122,8 +125,10 @@ def flash_attention_bwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     for name, z in (("q", q3), ("k", k3), ("v", v3), ("do", do3)):
         _native.check_cuda_operand(name, z, torch.bfloat16, (b, s, hd))
     dq, dk, dv = (torch.empty_like(q3) for _ in range(3))
-    # Per (b, h, row): the row max, the row sum of exp(s - max) and delta.
-    stats = torch.empty((3, b * h * s), dtype=torch.float32, device=q3.device)
+    # Per (b, h, row), rows padded to whole tiles: (lse, delta) fp32, kept per
+    # stream.
+    rows = -(-s // BWD_TILE) * BWD_TILE
+    stats = _native.stream_scratch("flash_bwd_stats", 2 * b * h * rows, torch.float32)
     _native.launch("gcd_flash_attention_bwd", q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
                    do3.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                    stats.data_ptr(), b, s, h, d, _scale(hd, heads, scale))

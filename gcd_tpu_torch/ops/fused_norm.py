@@ -17,8 +17,13 @@ output keeps the input's layout:
 The kernels read each in place.
 
 `group_norm` runs K4 in one pass on a channels-first group of at most
-FUSED_MAX_VALUES values; larger groups and every channels-last tensor take
-K5 (`group_stats`) first and K4's apply pass after it. Each wrapper takes its
+FUSED_MAX_VALUES values, and on a channels-last tensor whose samples each fit
+one thread-block cluster (`cl_one_pass`: at least ONEPASS_MIN_SAMPLES
+samples, a span of ceil(P / ONEPASS_CLUSTER) pixels within ONEPASS_BYTES;
+the UNet's per-frame sites). Everything else takes K5 first and K4's apply
+pass after it; on a channels-last tensor that is one C call, K5 writing the
+(scale, shift) table that the apply pass reads, both kept per stream with
+K5's scratch. `uses_split_path` is the rule. Each wrapper takes its
 plain version for CPU tensors, or under `kernel_flags(fused_gn=False)` /
 `kernel_flags(gn_stats=False)`; on a CUDA tensor it launches its kernel or
 raises. `group_norm`'s gradient is that of `group_norm_plain`, recomputed
@@ -41,10 +46,15 @@ from gcd_tpu_torch.ops.recompute import plain_gradient
 # Largest group normalised in one pass (96 KB of bf16 in one block's shared
 # memory); must equal FUSED_MAX in csrc/fused_norm.cu.
 FUSED_MAX_VALUES = 49152
-# Values per block of K5's partial sums on the channels-first split path, and
-# pixels per block of K4's channels-last apply pass.
+# Values per block of K5's partial sums on the channels-first split path.
 STATS_CHUNK = 8192
-CL_PIXEL_TILE = 128
+# K4's channels-last one pass (OP_CLUSTER, OP_MIN_N, OP_BYTES and OP_THREADS
+# in csrc/fused_norm.cu; a test pins them): blocks a sample (one cluster),
+# fewest samples, most bytes of x a block holds, threads a block aims at.
+ONEPASS_CLUSTER = 8
+ONEPASS_MIN_SAMPLES = 16
+ONEPASS_BYTES = 163840
+ONEPASS_THREADS = 512
 # The channels-last K5 partition (CL_THREADS, CL_MAX_THREADS, CL_UNROLL,
 # CL_BLOCKS, CL_CLUSTER, CL_CLUSTER_FROM and TICKETS in csrc/fused_norm.cu; a
 # test pins them): threads a block aims at, most threads of a block, loads in
@@ -87,20 +97,36 @@ def cl_stats_plan(n: int, c: int, p: int) -> ClStatsPlan:
     return ClStatsPlan(vpr, lanes, vpr * lanes, rows, per, cluster, clusters, clusters * cluster)
 
 
+def _cl_check(who: str, too_many: int, c: int, groups: int, threads: int,
+              x: torch.Tensor) -> None:
+    """Raise unless the channels-last kernels take C channels in `groups`
+    groups with blocks of `threads` threads, and a 16-byte aligned x;
+    `too_many` is a sample count past the kernel's most, or 0."""
+    cpg = c // groups if c % groups == 0 else 0
+    if (too_many or c % 8 or c > 8 * STATS_MAX_THREADS or cpg < 4 or cpg % 2
+            or groups > threads // 32 * 32 or x.data_ptr() % 16):
+        raise ValueError(f"{who} takes C a multiple of 8 up to {8 * STATS_MAX_THREADS}, an "
+                         f"even C / groups of at least 4, at most {TICKETS} samples and a "
+                         f"16-byte aligned tensor, got N={x.shape[0]}, C={c}, G={groups}")
+
+
 def cl_stats_work(n: int, c: int, p: int, groups: int, x: torch.Tensor) -> int:
     """Device pointer to channels-last K5's scratch for an (n, p, c) tensor:
     TICKETS zero tickets (each call leaves them zero) then the cluster
     partials, kept per stream. Raises on a shape or tensor the kernel does
     not take."""
-    cpg = c // groups if c % groups == 0 else 0
-    if (c % 8 or c > 8 * STATS_MAX_THREADS or cpg < 4 or cpg % 2 or n > TICKETS
-            or groups > cl_stats_plan(n, c, p).threads // 32 * 32 or x.data_ptr() % 16):
-        raise ValueError(f"group_stats: channels-last K5 takes C a multiple of 8 up to "
-                         f"{8 * STATS_MAX_THREADS}, an even C / groups of at least 4, at most "
-                         f"{TICKETS} samples and a 16-byte aligned tensor, got N={n}, C={c}, "
-                         f"G={groups}")
+    _cl_check("group_stats: channels-last K5", n if n > TICKETS else 0, c, groups,
+              cl_stats_plan(n, c, p).threads if c % 8 == 0 else 0, x)
     words = TICKETS + 2 * n * cl_stats_plan(n, c, p).clusters * groups
     return _native.stream_scratch("gn_stats_work", words, torch.int32, zeroed=True).data_ptr()
+
+
+def cl_one_pass(n: int, c: int, p: int) -> bool:
+    """Whether K4 normalises a channels-last (n, p, c) bf16 tensor in one
+    pass (csrc/fused_norm.cu, variant (a)): enough samples to fill the card
+    with clusters, and a sample's span a block within shared memory."""
+    return (n >= ONEPASS_MIN_SAMPLES and c % 8 == 0
+            and -(-p // ONEPASS_CLUSTER) * c * 2 <= ONEPASS_BYTES)
 
 
 def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -134,8 +160,11 @@ def _channels_last(x: torch.Tensor) -> bool:
 
 
 def uses_split_path(x: torch.Tensor, num_groups: int) -> bool:
-    """Whether `group_norm` on a CUDA tensor like `x` runs K5 before K4."""
-    return _channels_last(x) or x[0].numel() // num_groups > FUSED_MAX_VALUES
+    """Whether `group_norm` on a CUDA tensor like `x` (any device, meta
+    included: the rule reads the shape and layout only) runs K5 before K4."""
+    if _channels_last(x):
+        return not cl_one_pass(x.shape[0], x.shape[1], math.prod(x.shape[2:]))
+    return x[0].numel() // num_groups > FUSED_MAX_VALUES
 
 
 def _layout(x: torch.Tensor, num_groups: int, who: str) -> Tuple[int, ...]:
@@ -230,9 +259,28 @@ def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     out = torch.empty_like(x)
     ptrs = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr())
     if len(lay) == 3:
-        s1, s2 = group_stats(x, num_groups)
-        _native.launch("gcd_group_norm_cl", *ptrs, s1.data_ptr(), s2.data_ptr(), *lay,
-                       num_groups, float(eps), int(silu), CL_PIXEL_TILE)
+        n, c, p = lay
+        if cl_one_pass(n, c, p):
+            vpr = c // 8
+            _cl_check("group_norm: channels-last K4", 0, c, num_groups,
+                      vpr * max(ONEPASS_THREADS // vpr, 1), x)
+            _native.launch("gcd_group_norm_cl_onepass", *ptrs, n, c, p, num_groups,
+                           float(eps), int(silu))
+        else:
+            # K5 writes the (N, C) (scale, shift) table, then the apply pass
+            # reads it; the table and K5's sums are kept per stream.
+            work = cl_stats_work(n, c, p, num_groups, x)
+            stats = kernel_enabled("gn_stats")
+            if stats:
+                buf = _native.stream_scratch("gn_table", 2 * n * (c + num_groups),
+                                             torch.float32)
+                table, sums = buf.data_ptr(), buf.data_ptr() + 8 * n * c
+            else:
+                plain = group_scale_shift_plain(x, weight, bias, num_groups, eps)
+                table, sums = plain.data_ptr(), None
+            _native.launch("gcd_group_norm_cl", *ptrs, work, sums, table, n, c, p,
+                           num_groups, float(eps), int(stats), int(silu))
+            group_stats.launches += int(stats)
     else:
         s1 = s2 = None
         if uses_split_path(x, num_groups):

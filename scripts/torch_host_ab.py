@@ -1,5 +1,5 @@
-"""Host, CUDA-event and device time of the port's K1, K3, K5 and K7 wrappers,
-two source trees compared.
+"""Host, CUDA-event and device time of the port's K1, K3, K4, K5, K6 and K7
+wrappers, two source trees compared.
 
     python3 scripts/torch_host_ab.py TREE_A TREE_B
 
@@ -13,9 +13,11 @@ the host's time where the host is slower than the kernel) and the device
 time per call (`device_ms`, every kernel the call launches, from
 torch.profiler over 20 calls). The shapes are at one clip after CFG
 (N = 28): K7's 4x6, 8x12, ds1 and ds2 ResBlock chains, K1's ds1, ds2 and
-ds4 attentions, K3's four feed-forwards; K5 at every channels-last
+ds4 attentions, K3's four feed-forwards; K5 and K4 (with SiLU; K4 runs K5
+inside it where its site takes the split path) at every channels-last
 GroupNorm shape of the clip (K5_SITES), with the sum over a clip's calls of
-each time; and, where
+each time; K6 at the training step's four attention shapes (B*T = 28),
+with the sum over a step's calls; and, where
 the tree has the per-stream scratch, the host time of getting K3's h buffer
 at the served ds1 shape from it against a torch.empty of that size. The
 first line is nvidia-smi's name and power limit. Needs one CUDA card.
@@ -47,7 +49,8 @@ def measure(root: str) -> dict:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from gcd_tpu_torch.ops import _native, flash_attention, geglu_mlp, gn_silu_conv3x3, group_stats
+    from gcd_tpu_torch.ops import (_native, flash_attention, flash_attention_bwd, geglu_mlp,
+                                   gn_silu_conv3x3, group_norm, group_stats)
 
     if not _native.__file__.startswith(root):
         raise RuntimeError(f"imported {_native.__file__}, not the tree {root}")
@@ -106,14 +109,31 @@ def measure(root: str) -> dict:
                     randn(c, 4 * c, std=(4 * c) ** -0.5), randn(c, std=0.1))
             result[f"K3 M={m} C={c}"] = timed(lambda: geglu_mlp(*args), calls=100)
         k5 = dict.fromkeys(("host_ms", "event_ms", "device_ms"), 0.0)
+        k4 = dict(k5)
         for shape, per_clip in K5_SITES:
+            c = shape[1]
             x = randn(*shape, std=2.0, mean=0.5).contiguous(
                 memory_format=torch.channels_last if len(shape) == 4 else torch.channels_last_3d)
+            wt, bs = randn(c, std=0.1, mean=1.0), randn(c, std=0.1)
             result[f"K5 {shape}"] = timed(lambda: group_stats(x, 32), calls=100)
+            result[f"K4 {shape}"] = timed(lambda: group_norm(x, wt, bs, 32, 1e-5, True),
+                                          calls=100)
             for key in k5:
                 k5[key] += per_clip * result[f"K5 {shape}"][key]
+                k4[key] += per_clip * result[f"K4 {shape}"][key]
             del x
         result["K5 per clip, K4's sites"] = k5
+        result["K4 per clip"] = k4
+        # K6 at the training step's shapes: (B*T, S, heads), calls a step.
+        k6 = dict.fromkeys(("host_ms", "event_ms", "device_ms"), 0.0)
+        for b, s, heads, per_step in [(28, 1536, 5, 5), (28, 384, 10, 5), (28, 96, 20, 5),
+                                      (28, 24, 20, 1)]:
+            q, k, v, g = (randn(b, s, heads * 64) for _ in range(4))
+            result[f"K6 ({b},{s},{heads}x64)"] = timed(
+                lambda: flash_attention_bwd(q, k, v, g, heads), calls=50)
+            for key in k6:
+                k6[key] += per_step * result[f"K6 ({b},{s},{heads}x64)"][key]
+        result["K6 per step"] = k6
         # K3's h buffer at the served ds1 shape (M = 86016, I = 1280): the
         # host time of the per-stream cache's lookup against a torch.empty
         # of the same size from the caching allocator.

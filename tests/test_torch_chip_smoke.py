@@ -1,12 +1,14 @@
-"""chip_smoke.py's training-phase evidence on the CPU: `BlendWitness`, which
-decides whether a blend factor's exactly-zero gradient at a step was made by
-bf16 rounding (then the step may pass) or not (then it fails).
+"""chip_smoke.py's checks on the CPU: the training phase's `BlendWitness`,
+which decides whether a blend factor's exactly-zero gradient at a step was
+made by bf16 rounding (then the step may pass) or not (then it fails), and
+K5's expected launches from recorded GroupNorm sites (`split_calls`).
 
 A tiny rematerialised block blends x with x + scale * linear(x) in bf16,
 as the UNet's VideoResBlock and SpatialVideoTransformer do.
 """
 
 import sys
+from collections import Counter
 from pathlib import Path
 
 import pytest
@@ -122,3 +124,37 @@ def test_blend_witness_refuses_cancelling_frames_that_rounding_resolves():
     assert evidence["max_diff_over_slack"] > 1.0
     assert len(evidence["nonzero_frames"]) == 2
     assert not evidence["explained"]
+
+
+def _view_layout(shape):
+    """memory_layout's name for the (B, C, T, H, W) view of a (B, T, C, H, W)
+    video."""
+    b, c, t, h, w = shape
+    return chip_smoke.memory_layout(torch.empty(b, t, c, h, w, device="meta").transpose(1, 2))
+
+
+# Recorded GroupNorm sites -> calls: per-frame channels-last sites (K4's one
+# pass), a time_stack view and a decoder plane (channels-last, split), and
+# channels-first copies (contiguous: one pass up to 49152 values a group;
+# the video view's groups are larger: split).
+SITES = [(((28, 320, 32, 48), "channels_last", 1e-6, False), 150, False),
+         (((28, 1280, 4, 6), "channels_last", 1e-6, False), 25, False),
+         (((2, 320, 14, 32, 48), "channels_last", 1e-5, True), 250, True),
+         (((14, 128, 256, 384), "channels_last", 1e-6, True), 10, True),
+         (((28, 320, 32, 48), "contiguous", 1e-6, False), 3, False),
+         (((2, 320, 14, 32, 48), _view_layout((2, 320, 14, 32, 48)), 1e-5, True), 4, True)]
+
+
+@pytest.mark.parametrize("site,calls,split", SITES)
+def test_site_tensor_has_the_recorded_layout(site, calls, split):
+    shape, layout = site[:2]
+    x = chip_smoke.site_tensor(shape, layout)
+    assert tuple(x.shape) == shape and chip_smoke.memory_layout(x) == layout
+    assert chip_smoke.split_calls(Counter({site: calls})) == (calls if split else 0)
+
+
+def test_split_calls_count_the_split_variant_only():
+    """K5 launches from K4 at the split sites alone: the one-pass sites (the
+    UNet's per-frame GroupNorms) launch none."""
+    sites = Counter({site: calls for site, calls, _ in SITES})
+    assert chip_smoke.split_calls(sites) == 250 + 10 + 4
