@@ -8,8 +8,9 @@ without the final `ok` line):
   2. build       - compile gcd_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
                    process per source; the ptxas report (registers, spills,
                    stack, and any note that it serialised a kernel's wgmma
-                   products) of the wgmma kernels K1, K3, K6 and K7 and of
-                   K4's and K5's channels-last kernels.
+                   products) of the wgmma kernels K1, K3, K6 and K7, of K2's
+                   mma.sync kernel and of K4's and K5's channels-last
+                   kernels.
   3. conditioner - load_engine(configs/infer_kubric.yaml): random bf16
                    weights (std 0.02 on every leaf, seeded), ViT-H/14 tower;
                    one conditioner pass on a random 14-frame 384x256 batch;
@@ -23,8 +24,9 @@ without the final `ok` line):
                    backward, K2 temporal attention, K3 fused GEGLU MLP, K4
                    GroupNorm, K5 group statistics, K7 GroupNorm -> SiLU ->
                    3x3 conv (its 14 UNet shapes at N = 28, and at N = 56,
-                   the served batch; K1 and K3 likewise at B = 28 and
-                   B = 56, K1 also at D = 128 at ds2's width); K4 / K5
+                   the served batch; K1, K2 and K3 likewise at B*T = 28
+                   and 56, K1 also at D = 128 and K2 also at D = 16, 80
+                   and 128 at ds2's width); K4 / K5
                    also on channels-first copies of those shapes; every
                    kernel bit-identical on a second call (none uses
                    atomics). CUDA-event and
@@ -150,11 +152,11 @@ SOURCES = {
 DEVICE_TIMED = ("flash", "flash_bwd", "tattn", "fused_mlp", "fused_gn", "gn_stats",
                 "fused_gn_conv")
 # Entry functions whose ptxas lines the build logs: the wgmma kernels (K1,
-# K3, K6, K7) and K4's and K5's channels-last kernels.
+# K3, K6, K7), K2's mma.sync kernel and K4's and K5's channels-last kernels.
 PTXAS_ENTRIES = ("flash_attention_kernel", "flash_bwd_rows_kernel", "flash_bwd_dkdv_kernel",
                  "geglu_up_kernel", "geglu_down_kernel", "gn_silu_conv3x3_kernel",
-                 "group_norm_cl_onepass_kernel", "group_norm_cl_table_kernel",
-                 "group_stats_cl_kernel")
+                 "temporal_attention_kernel", "group_norm_cl_onepass_kernel",
+                 "group_norm_cl_table_kernel", "group_stats_cl_kernel")
 SERVE_BATCH = 2   # clips per served batch
 SERVE_REQUESTS = 4
 SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
@@ -231,12 +233,16 @@ def device_profile(fn, warm: bool = True):
     return (by_name, total) if total > 0 else (None, None)
 
 
-def device_ms(fn, iters: int = 10):
+def device_ms(fn, iters: int = 10, tries: int = 3):
     """Device ms per call of fn (every kernel it launches) under
     torch.profiler: unlike the CUDA-event time, independent of how fast the
-    host enqueues; None if the profiler saw no device time."""
-    _, total = device_profile(lambda: [fn() for _ in range(iters)])
-    return None if total is None else total / iters
+    host enqueues. A pass in which the profiler records no device time at
+    all is taken again, up to `tries` passes; None if none recorded any."""
+    for _ in range(tries):
+        _, total = device_profile(lambda: [fn() for _ in range(iters)])
+        if total is not None:
+            return total / iters
+    return None
 
 
 def bound(nbytes: float, flops: float, peak: float):
@@ -477,6 +483,10 @@ def mlp_label(level: str, m: int, c: int, inner: int) -> str:
     return f"{level} M={m} C={c} I={inner}"
 
 
+def tattn_label(level: str, bt: int, s: int, c: int) -> str:
+    return f"{level} ({bt},{s},{c}) T={T}"
+
+
 def grouped_var_mean(x: torch.Tensor):
     """The library call for K5: torch.var_mean over each (sample, group) of
     x's own memory layout (channels-last, contiguous, or the (B, C, T, H, W)
@@ -552,13 +562,30 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
                    lambda q=q, k=k, v=v, h=h2: flash_attention_plain(q, k, v, h),
                    lambda sh=sh3: F.scaled_dot_product_attention(*sh),
                    qkv_bytes, 4 * BT * s * s * c, BF16_FLOPS)
-        th = [z.reshape(BT // T, T, s, heads, 64).permute(0, 2, 3, 1, 4)
-              .reshape(BT // T * s, heads, T, 64).contiguous() for z in (q, k, v)]
-        yield ("tattn", f"{name} ({BT},{s},{c}) T={T}", blocks * steps,
-               lambda q=q, k=k, v=v, h=heads: temporal_attention(q, k, v, T, h),
-               lambda q=q, k=k, v=v, h=heads: temporal_attention_plain(q, k, v, T, h),
-               lambda th=th: F.scaled_dot_product_attention(*th),
-               qkv_bytes, 4 * BT * s * T * c, BF16_FLOPS)
+        # K2 at one clip's shape and at the served batch's (0 launches per
+        # clip); the library call is SDPA on the frame-major relayout.
+        for bt, (qt, kt, vt), launches in ((BT, (q, k, v), blocks * steps),
+                                            (bs, (q2, k2, v2), 0)):
+            th = [z.reshape(bt // T, T, s, heads, 64).permute(0, 2, 3, 1, 4)
+                  .reshape(bt // T * s, heads, T, 64).contiguous() for z in (qt, kt, vt)]
+            yield ("tattn", tattn_label(name, bt, s, c), launches,
+                   lambda q=qt, k=kt, v=vt, h=heads: temporal_attention(q, k, v, T, h),
+                   lambda q=qt, k=kt, v=vt, h=heads: temporal_attention_plain(q, k, v, T, h),
+                   lambda th=th: F.scaled_dot_product_attention(*th),
+                   qkv_bytes * bt // BT, 4 * bt * s * T * c, BF16_FLOPS)
+        if name == "ds2":
+            # K2 at the other box layouts it takes (not on the UNet's path; 0
+            # launches per clip): D = 16 (several heads a box), 80 (a partial
+            # second box) and 128 (two boxes).
+            for d in (16, 80, 128):
+                hd = c // d
+                th = [z.reshape(BT // T, T, s, hd, d).permute(0, 2, 3, 1, 4)
+                      .reshape(BT // T * s, hd, T, d).contiguous() for z in (q, k, v)]
+                yield ("tattn", f"{tattn_label(name, BT, s, c)} {hd}x{d}", 0,
+                       lambda q=q, k=k, v=v, h=hd: temporal_attention(q, k, v, T, h),
+                       lambda q=q, k=k, v=v, h=hd: temporal_attention_plain(q, k, v, T, h),
+                       lambda th=th: F.scaled_dot_product_attention(*th),
+                       qkv_bytes, 4 * BT * s * T * c, BF16_FLOPS)
         inner = 4 * c
         w1, b1 = randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, std=0.1)
         w2, b2 = randn(c, inner, std=inner ** -0.5), randn(c, std=0.1)
@@ -731,7 +758,12 @@ def serve(smi: str):
     # K3's served shapes: three feed-forwards per transformer block.
     served_k3 = {mlp_label(name, SERVE_BATCH * BT * s, c, 4 * c): 3 * steps * blocks
                  for name, s, c, blocks in LEVELS}
-    served_sites = {"fused_gn_conv": served_k7, "flash": served_k1, "fused_mlp": served_k3}
+    # K2's served shapes: one temporal attention per time_stack block, as
+    # many as the spatial ones.
+    served_k2 = {tattn_label(name, SERVE_BATCH * BT, s, c): steps * blocks
+                 for name, s, c, blocks in LEVELS}
+    served_sites = {"fused_gn_conv": served_k7, "flash": served_k1, "fused_mlp": served_k3,
+                    "tattn": served_k2}
     # The path's tensors are channels-last; K4 / K5 also take channels-first
     # ones (contiguous, and the time_stack view of a contiguous video), which
     # are held against the plain versions at the same shapes, 0 launches per
@@ -794,8 +826,9 @@ def serve(smi: str):
         if lib_ms is not None:
             st["library_ms"] = (st["library_ms"] or 0.0) + n_clip * lib_ms
         for key, t in dev.items():
-            st[key] = None if t is None or st.get(key, 0.0) is None else (
-                st.get(key, 0.0) + n_clip * t)
+            if n_clip:  # a shape off the clip's path adds nothing to its sums
+                st[key] = None if t is None or st.get(key, 0.0) is None else (
+                    st.get(key, 0.0) + n_clip * t)
         if name == "fused_gn" and n_clip:
             gn_ms[label] = (ms, plain_ms, dev["device_ms"])
             gn_by_variant[extra["variant"]].update(

@@ -354,17 +354,6 @@ bool matrix_map(CUtensorMap* map, const void* p, int rows, int cols, int box_row
   return cached_bf16_map(map, p, 2, dims, strides, box);
 }
 
-// The SMs of the current device (cached per device).
-int sm_count() {
-  static std::atomic<int> counts[64];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  int n = counts[dev & 63].load(std::memory_order_relaxed);
-  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
-    counts[dev & 63].store(n, std::memory_order_relaxed);
-  return n;
-}
-
 // Launch `kernel` persistently: one block an SM, no more than the tiles.
 template <typename Kernel, typename... Args>
 cudaError_t launch_persistent(Kernel kernel, int threads, int smem, long long tiles, int sms,

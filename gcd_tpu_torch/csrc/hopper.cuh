@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels (K1 in
-// flash_attention.cu, K3 in fused_mlp.cu, K7 in fused_gn_conv.cu): mbarriers, TMA and bulk
-// copies, wgmma descriptors, fences and the products themselves, as inline
-// PTX, plus the host-side encoding of TMA tensor maps.
+// Hopper (sm_90a) building blocks shared by the port's TMA kernels (K1 in
+// flash_attention.cu, K6 in flash_attention_bwd.cu, K3 in fused_mlp.cu, K7 in
+// fused_gn_conv.cu, K2 in temporal_attention.cu): mbarriers, TMA and bulk
+// copies, ldmatrix, wgmma descriptors, fences and the wgmma and mma.sync
+// products themselves, as inline PTX, plus the host-side encoding of TMA
+// tensor maps and the SM count.
 //
 // Tensor maps come from the driver's cuTensorMapEncodeTiled, looked up at
 // first use with dlopen / dlsym in the libcuda.so.1 that the CUDA runtime
@@ -131,6 +133,27 @@ static __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// ldmatrix x4 with transpose: each 8x8 matrix comes back transposed (lane l
+// holds rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4), the B fragment
+// of an mma.sync product from a row-major (k, n) tile.
+static __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a b, mma.sync m16n8k16, bf16 in, fp32 accumulate: a the 16 x 16 A
+// fragment, (b0, b1) the 16 x 8 B fragment, d rows lane / 4 (d[0..1]) and
+// lane / 4 + 8 (d[2..3]), columns 2 (lane % 4) + {0, 1}.
+static __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                                      uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile (layout type
@@ -426,6 +449,17 @@ static inline bool cached_bf16_map(CUtensorMap* map, const void* base, int rank,
   if (cache.size() >= CACHE) cache.clear();
   cache.emplace(key, *map);
   return true;
+}
+
+// The SMs of the current device (cached per device); 0 if it cannot be read.
+static inline int sm_count() {
+  static std::atomic<int> counts[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int n = counts[dev & 63].load(std::memory_order_relaxed);
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+    counts[dev & 63].store(n, std::memory_order_relaxed);
+  return n;
 }
 
 // Raise `kernel`'s dynamic shared-memory limit to `bytes`, once per device

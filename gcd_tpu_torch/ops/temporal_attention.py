@@ -9,8 +9,11 @@ dtype for PV and division after PV.
 
 `temporal_attention` takes the plain version for CPU tensors, or when
 `kernel_flags(tattn=False)` is set; on a CUDA tensor it launches the kernel
-or raises. Its gradient is that of the plain version, recomputed from the
-saved q, k, v (ops/recompute.py; gcd_tpu's `_temporal_bwd`).
+or raises. The kernel takes T <= 16 frames and a head size D that is a
+multiple of 16 up to 128 (`kernel_head_dim`), and the wrapper raises on a
+CUDA tensor outside that domain. Its gradient is that of the plain
+version, recomputed from the saved q, k, v (ops/recompute.py; gcd_tpu's
+`_temporal_bwd`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ from gcd_tpu_torch.ops.recompute import plain_gradient
 
 MAX_FRAMES = 16
 MAX_HEAD_DIM = 128
+
+
+def kernel_head_dim(d: int) -> bool:
+    """Whether K2 takes head size d: a multiple of 16 up to MAX_HEAD_DIM."""
+    return d % 16 == 0 and 0 < d <= MAX_HEAD_DIM
 
 
 def temporal_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
@@ -53,7 +61,7 @@ def temporal_attention(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        timesteps: int, heads: int,
                        scale: Optional[float] = None) -> torch.Tensor:
     """Frame-axis attention on (B*T, S, H*D) tokens; K2 on CUDA (bf16,
-    T <= 16, even D <= 128)."""
+    T <= 16, D a multiple of 16 up to 128)."""
     args = dict(timesteps=timesteps, heads=heads, scale=scale)
     return plain_gradient(partial(_temporal_forward, **args),
                           partial(temporal_attention_plain, **args), q3, k3, v3)
@@ -69,12 +77,12 @@ def _temporal_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
         raise ValueError(f"temporal_attention: shape {tuple(q3.shape)} with "
                          f"T={t}, heads={heads}")
     d = c // heads
-    if t > MAX_FRAMES or d % 2 or d > MAX_HEAD_DIM:
-        raise ValueError(f"temporal_attention: kernel takes T <= {MAX_FRAMES} and "
-                         f"even D <= {MAX_HEAD_DIM}, got T={t}, D={d}")
+    if t > MAX_FRAMES or not kernel_head_dim(d):
+        raise ValueError(f"temporal_attention: kernel takes T <= {MAX_FRAMES} and D a "
+                         f"multiple of 16 up to {MAX_HEAD_DIM}, got T={t}, D={d}")
     scale = float(d ** -0.5 if scale is None else scale)
     for name, z in (("q", q3), ("k", k3), ("v", v3)):
-        _native.check_cuda_operand(name, z, torch.bfloat16, (bt, s, c), align=4)
+        _native.check_cuda_operand(name, z, torch.bfloat16, (bt, s, c))
     out = torch.empty_like(q3)
     _native.launch("gcd_temporal_attention", q3.data_ptr(), k3.data_ptr(),
                    v3.data_ptr(), out.data_ptr(), bt, t, s, c, heads, scale)

@@ -1,5 +1,5 @@
-"""Host, CUDA-event and device time of the port's K1, K3, K4, K5, K6 and K7
-wrappers, two source trees compared.
+"""Host, CUDA-event and device time of the port's K1-K7 wrappers, two source
+trees compared.
 
     python3 scripts/torch_host_ab.py TREE_A TREE_B
 
@@ -13,7 +13,9 @@ the host's time where the host is slower than the kernel) and the device
 time per call (`device_ms`, every kernel the call launches, from
 torch.profiler over 20 calls). The shapes are at one clip after CFG
 (N = 28): K7's 4x6, 8x12, ds1 and ds2 ResBlock chains, K1's ds1, ds2 and
-ds4 attentions, K3's four feed-forwards; K5 and K4 (with SiLU; K4 runs K5
+ds4 attentions, K2's temporal attentions at its four levels (T = 14) with
+the sum over a clip's 400 calls (125 / 125 / 125 / 25) and at ds1 for the
+served batch (B*T = 56), K3's four feed-forwards; K5 and K4 (with SiLU; K4 runs K5
 inside it where its site takes the split path) at every channels-last
 GroupNorm shape of the clip (K5_SITES), with the sum over a clip's calls of
 each time; K6 at the training step's four attention shapes (B*T = 28),
@@ -50,7 +52,8 @@ def measure(root: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from gcd_tpu_torch.ops import (_native, flash_attention, flash_attention_bwd, geglu_mlp,
-                                   gn_silu_conv3x3, group_norm, group_stats)
+                                   gn_silu_conv3x3, group_norm, group_stats,
+                                   temporal_attention)
 
     if not _native.__file__.startswith(root):
         raise RuntimeError(f"imported {_native.__file__}, not the tree {root}")
@@ -104,6 +107,18 @@ def measure(root: str) -> dict:
             q, k, v = (randn(b, s, heads * 64) for _ in range(3))
             result[f"K1 ({b},{s},{heads}x64)"] = timed(
                 lambda: flash_attention(q, k, v, heads))
+        # K2 at (B*T, S, C), T = 14, heads of 64: its calls a clip at each
+        # level (5 time_stack blocks an evaluation at ds1, ds2, ds4, 1 at mid,
+        # 25 evaluations), then ds1 at the served batch (no calls a clip).
+        k2 = dict.fromkeys(("host_ms", "event_ms", "device_ms"), 0.0)
+        for bt, s, c, per_clip in [(28, 1536, 320, 125), (28, 384, 640, 125),
+                                   (28, 96, 1280, 125), (28, 24, 1280, 25), (56, 1536, 320, 0)]:
+            q, k, v = (randn(bt, s, c) for _ in range(3))
+            key = f"K2 ({bt},{s},{c}) T=14"
+            result[key] = timed(lambda: temporal_attention(q, k, v, 14, c // 64))
+            for name in k2:
+                k2[name] += per_clip * result[key][name]
+        result["K2 per clip"] = k2
         for m, c in [(43008, 320), (10752, 640), (2688, 1280), (672, 1280)]:
             args = (randn(m, c), randn(8 * c, c, std=c ** -0.5), randn(8 * c, std=0.1),
                     randn(c, 4 * c, std=(4 * c) ** -0.5), randn(c, std=0.1))

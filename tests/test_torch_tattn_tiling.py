@@ -1,0 +1,205 @@
+"""K2 (csrc/temporal_attention.cu) on the CPU: a torch model of its tiling
+held against the JAX package's Pallas kernel (`_kernel` through
+`_pallas_fwd`, in interpret mode) and against its XLA formulation
+(`_xla_temporal`), its persistent schedule pinned to the source and
+checked, and its tile constants pinned to the source.
+
+The model computes as the kernel does, in fp32 on bf16 values:
+  - one unit per (video b, position s, head h), in the kernel's order (head
+    fastest, then position, then video); the kernel's tile along the
+    positions is one position, so no tile is ragged along S: any S works,
+    and the tests take S of 5 and 37, which no tile of 8 positions divides;
+  - per tensor, the TMA box (64 channels x 16 frames) at channel h D of
+    the (C, S, T, B) view: frames past T and channels past C read as zero,
+    T padded to 16 rows; a head slab is the box's first D channels (two
+    boxes at D > 64);
+  - S = Q K^T as a 16 x 16 tile, times the scale; key columns >= T set to
+    -inf before the row max; P = exp(s - max) in fp32 and its fp32 row
+    sum; P rounded to bf16 before PV; O = P V divided by the sum after PV;
+  - the stores: frames t < T of each unit written at ((b T + t) S + s) C +
+    h D into an output that starts as NaN, so a unit never stored, or a
+    padded row stored, would show.
+
+Tolerances, and why:
+  - against `_xla_temporal` in fp32 with the model's P left unrounded:
+    the same function, sums in another order, ~1e-7 relative L2; bound
+    1e-5. This checks the boxes, padding, masks and store offsets at every
+    shape.
+  - against `_kernel` on bf16 inputs (interpret mode): the same rounding
+    points; the fp32 sums differ in order, so a P or an output value within
+    an fp32 ulp of a bf16 rounding boundary can round the other way:
+    measured 0 to 1.1e-4 relative L2 over six seeds at the tested shape;
+    bound 5e-4. With the model's P left unrounded the same comparison reads
+    1.9e-3 to 2.1e-3, above 1e-3, so the bound sees where P is rounded.
+"""
+
+import math
+import re
+from functools import partial
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from jax.experimental.pallas import tpu as pltpu
+
+from gcd_tpu.ops.temporal_attention import _pallas_fwd, _xla_temporal
+from gcd_tpu_torch.ops.temporal_attention import MAX_FRAMES, MAX_HEAD_DIM, kernel_head_dim
+from tests.torch_port_helpers import rel_l2
+
+CSRC = (Path(__file__).resolve().parent.parent / "gcd_tpu_torch" / "csrc"
+        / "temporal_attention.cu")
+CONSTS = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", CSRC.read_text())}
+ROWS, WARPS, STAGES = CONSTS["ROWS"], CONSTS["WARPS"], CONSTS["STAGES"]
+BOX_CHANNELS = 64  # a box's inner extent: 128 bytes of bf16, the swizzle span
+XLA_TOL = 1e-5
+KERNEL_TOL = 5e-4
+
+
+def _bf16(z: torch.Tensor) -> torch.Tensor:
+    return z.to(torch.bfloat16).float()
+
+
+def k2_model(q3, k3, v3, t: int, heads: int, scale: float, round_p: bool = True):
+    """fp32 (B*T, S, C) out of fp32 (B*T, S, C) q, k, v, as K2 tiles it;
+    the output before its final rounding to bf16."""
+    bt, s, c = q3.shape
+    b, d = bt // t, c // heads
+    dc = -(-d // BOX_CHANNELS)
+    u = torch.arange(b * s * heads)
+    h, pos, vid = u % heads, (u // heads) % s, u // (heads * s)
+    frames = torch.arange(ROWS)
+
+    def slabs(z):
+        # The (C, S, T, B) map's zero fill: channels past C, frames past T.
+        x = F.pad(z.reshape(b, t, s, c), (0, BOX_CHANNELS * dc, 0, 0, 0, ROWS - t))
+        ch = h[:, None] * d + torch.arange(BOX_CHANNELS * dc)[None]
+        box = x[vid[:, None, None], frames[None, :, None], pos[:, None, None], ch[:, None, :]]
+        return box[..., :d]  # (units, 16, D)
+
+    qs, ks, vs = slabs(q3), slabs(k3), slabs(v3)
+    sc = (qs @ ks.transpose(1, 2)) * scale
+    sc = sc.masked_fill(frames >= t, -math.inf)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    denom = p.sum(-1, keepdim=True)
+    o = ((_bf16(p) if round_p else p) @ vs) / denom
+    out = torch.full((bt * s * c,), math.nan)
+    offset = (((vid[:, None, None] * t + torch.arange(t)[None, :, None]) * s
+               + pos[:, None, None]) * c + h[:, None, None] * d
+              + torch.arange(d)[None, None, :])
+    out[offset.flatten()] = o[:, :t].flatten()
+    return out.reshape(bt, s, c)
+
+
+def _inputs(bt, s, c, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(bt, s, c)).astype(np.float32)).to(
+        torch.bfloat16).float() for _ in range(3)]
+
+
+def test_constants_match_the_kernel():
+    """The model's padding and the wrapper's domain are the source's."""
+    assert ROWS == MAX_FRAMES == 16
+    assert re.search(r"const uint32_t box\[4\] = \{64, 1, ROWS, 1\};", CSRC.read_text())
+    assert re.search(r"switch \(D % 16 \? 0 : D / 16\)", CSRC.read_text())
+    assert [d for d in range(1, 200) if kernel_head_dim(d)] == list(range(16, MAX_HEAD_DIM + 1, 16))
+
+
+# (B, T, S, heads, D): T of 3, 14 (the UNet's) and 16 (no padding), D of 16
+# (a box holds four heads; the last heads' boxes run past C) and 64 (the
+# UNet's), S of 5, 24 (the UNet's mid level) and 37, and D = 80 and 128 (two
+# boxes).
+SHAPES = [(2, 3, 37, 4, 16), (1, 14, 24, 2, 64), (2, 16, 5, 3, 64), (1, 14, 5, 5, 16),
+          (1, 3, 24, 1, 64), (1, 16, 37, 2, 16), (1, 14, 5, 2, 80), (1, 4, 6, 2, 128)]
+
+
+@pytest.mark.parametrize("b,t,s,heads,d", SHAPES)
+def test_k2_model_matches_xla_temporal(b, t, s, heads, d):
+    q, k, v = _inputs(b * t, s, heads * d, 11 * t + s)
+    scale = d ** -0.5
+    xla = jax.jit(partial(_xla_temporal, t=t, heads=heads, scale=scale))
+    want = np.asarray(xla(*(jnp.asarray(z.numpy()) for z in (q, k, v))))
+    got = k2_model(q, k, v, t, heads, scale, round_p=False)
+    assert not torch.isnan(got).any()  # every (frame, position, channel) stored
+    assert rel_l2(got.numpy(), want) <= XLA_TOL
+
+
+def test_k2_model_matches_tpu_kernel_rounding_points():
+    """The UNet's T = 14 and D = 64 at a tiny S, bf16 in and out, against the
+    Pallas kernel in interpret mode (its default head-pair packing)."""
+    b, t, s, heads, d = 1, 14, 8, 2, 64
+    q, k, v = _inputs(b * t, s, heads * d, 3)
+    scale = d ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        want = _pallas_fwd(*(jnp.asarray(z.numpy(), jnp.bfloat16) for z in (q, k, v)),
+                           t, heads, scale)
+    want = np.asarray(want, np.float32)
+    got = _bf16(k2_model(q, k, v, t, heads, scale)).numpy()
+    unrounded_p = _bf16(k2_model(q, k, v, t, heads, scale, round_p=False)).numpy()
+    assert rel_l2(got, want) <= KERNEL_TOL < 1e-3 < rel_l2(unrounded_p, want)
+
+
+# The source's schedule, expression by expression (whitespace aside): the
+# grid, the per-warp unit order, the ring's first loads, the stage and phase a
+# unit is computed from, and the refill one ring behind. The model below runs
+# these expressions; a change to any of them in the kernel fails the pin.
+SCHEDULE = [
+    r"return 233472 / \(smem_bytes<DC>\(\) \+ 1024\);",
+    r"return 1024 \+ WARPS \* STAGES \* \(stage_bytes<DC>\(\) \+ \(int\)sizeof\(uint64_t\)\);",
+    r"return 3 \* DC \* BOX;",
+    r"const long long blocks = \(units \+ WARPS - 1\) / WARPS;",
+    r"const long long resident = \(long long\)sms \* blocks_per_sm<DC>\(\);",
+    r"<<<\(unsigned\)\(blocks < resident \? blocks : resident\), WARPS \* 32,",
+    r"const long long step = \(long long\)gridDim\.x \* WARPS;",
+    r"const long long first = \(long long\)blockIdx\.x \* WARPS \+ warp;",
+    r"for \(int st = 0; st < STAGES; \+\+st\) if \(first \+ st \* step < units\) "
+    r"load\(first \+ st \* step, st\);",
+    r"for \(long long u = first; u < units; u \+= step, \+\+i\) \{ const int st = i % STAGES;",
+    r"mbar_wait\(&full\[st\], \(i / STAGES\) & 1\);",
+    r"if \(lane == 0 && u \+ STAGES \* step < units\) load\(u \+ STAGES \* step, st\);",
+]
+
+
+def blocks_per_sm(d: int) -> int:
+    """`blocks_per_sm` of the source: an SM's 233,472 bytes of shared memory
+    over a block's rings, barriers and alignment slack, plus 1 KB reserved."""
+    stage = 3 * -(-d // BOX_CHANNELS) * ROWS * 128
+    return 233472 // (1024 + WARPS * STAGES * (stage + 8) + 1024)
+
+
+def test_persistent_schedule_is_the_source_s():
+    flat = " ".join(CSRC.read_text().split())
+    missing = [e for e in SCHEDULE if not re.search(e, flat)]
+    assert not missing
+
+
+@pytest.mark.parametrize("units,sms,d", [(960, 132, 64), (15360, 132, 64), (7, 132, 64),
+                                         (1000, 3, 128)])
+def test_persistent_schedule_loads_and_computes_every_unit_once(units, sms, d):
+    """The grid and the per-warp rings as the pinned expressions run them:
+    every unit is loaded once into the stage it is computed from, after
+    that stage's previous unit was computed, with the phase the wait
+    expects, and computed once; no load is left in flight at exit."""
+    blocks = (units + WARPS - 1) // WARPS
+    resident = sms * blocks_per_sm(d)
+    step = (blocks if blocks < resident else resident) * WARPS
+    computed = []
+    for first in range(step):
+        ring = [None] * STAGES  # (unit, loads into the stage so far)
+        loads = [0] * STAGES
+        for st in range(STAGES):
+            if first + st * step < units:
+                ring[st], loads[st] = first + st * step, 1
+        for i, u in enumerate(range(first, units, step)):
+            st = i % STAGES
+            assert ring[st] == u
+            assert (loads[st] - 1) & 1 == (i // STAGES) & 1  # the phase mbar_wait expects
+            computed.append(u)
+            ring[st] = None
+            if u + STAGES * step < units:
+                ring[st], loads[st] = u + STAGES * step, loads[st] + 1
+        assert all(x is None for x in ring)
+    assert sorted(computed) == list(range(units))
