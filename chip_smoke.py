@@ -77,24 +77,46 @@ without the final `ok` line):
                    launches equal to the step's site count (forward, remat
                    recompute, backward); ms per step, frames/s, peak memory
                    and a torch.profiler breakdown of one step.
+  8. entry       - the training entry (gcd_tpu_torch.train) fed by the
+                   Kubric-4D pipeline, after phase 7's trainer is freed: a
+                   synthetic root in a temporary directory (1 scene, 16
+                   frames, 16 views x 576 x 384 points a frame, the
+                   converter's size) on a disk checked to hold two
+                   checkpoints; the host splat's ms a 420x280 render and
+                   the seconds of one example; then train.main on
+                   configs/train_kubric_max90.yaml for 4 steps (checkpoint
+                   and image log at step 4) and a --resume to step 6.
+                   Checks every loss finite, the CSV's steps 1-6, step_4,
+                   the resumed trainer's masters and optimizer state equal
+                   to the saved ones bit for bit, the image log's frames
+                   and PNG, and every step's launches equal to phase 7's;
+                   prints the loader's wait against the step, entry
+                   frames/s beside phase 7's, the checkpoint's size and
+                   save / restore seconds and peak memory.
 Then the kernel JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import csv
 import gc
 import itertools
 import json
 import math
 import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from collections import Counter
 from contextlib import contextmanager
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -157,6 +179,13 @@ PTXAS_ENTRIES = ("flash_attention_kernel", "flash_bwd_rows_kernel", "flash_bwd_d
                  "geglu_up_kernel", "geglu_down_kernel", "gn_silu_conv3x3_kernel",
                  "temporal_attention_kernel", "group_norm_cl_onepass_kernel",
                  "group_norm_cl_table_kernel", "group_stats_cl_kernel")
+# Phase 8, the training entry on a synthetic Kubric-4D root: one scene of the
+# fewest frames model_frames 14 samples from, 16 views of the converter's
+# 576 x 384 points each (3,538,944 points a frame); 4 steps with a checkpoint
+# and an image log at step 4, then a resume to step 6.
+ENTRY_FRAMES, ENTRY_VIEWS, ENTRY_POINTS = 16, 16, 576 * 384
+ENTRY_STEPS, ENTRY_RESUME_STEPS = 4, 6
+ENTRY_DATASET_SIZE = 16
 SERVE_BATCH = 2   # clips per served batch
 SERVE_REQUESTS = 4
 SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
@@ -1304,7 +1333,245 @@ def train(smi: str) -> dict:
             kernels_ms={name: sum(v for k, v in by_name.items() if any(t in k for t in tags))
                         for name, tags in PROFILE_TAGS.items()},
             top=[[k[:90], v] for k, v in by_name.most_common(15)], card=smi)
-    return dict(total)
+    params = sum(p.numel() for p in named.values())
+    trainable_params = sum(named[n].numel() for n in trainable)
+    return dict(total), {"expected": expected, "frames_per_s": bt / (ms / 1e3), "ms": ms,
+                         "checkpoint_bytes": checkpoint_bytes(params, trainable_params)}
+
+
+def checkpoint_bytes(params: int, trainable_params: int) -> int:
+    """A training checkpoint's size: the bf16 module weights, then the fp32
+    masters and Adam's two fp32 moments of the trainable ones."""
+    return 2 * params + 3 * 4 * trainable_params
+
+
+def per_step_launch_misses(per_step, expected: dict) -> list:
+    """[(step index, launches)] for the steps whose kernel launches are not
+    `expected`."""
+    return [(i, launches) for i, launches in enumerate(per_step) if launches != expected]
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A floating tensor's bits as integers (-0.0 is not 0.0, NaN is itself)."""
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def state_mismatches(a, b, path: str = "") -> list:
+    """Where two nested dicts / lists / tensors differ: tensors by bits (b
+    moved to a's device), other values by ==."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if list(a) != list(b):
+            return [f"{path}: keys differ"]
+        return [m for k in a for m in state_mismatches(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path}: lengths differ"]
+        return [m for i, (x, y) in enumerate(zip(a, b))
+                for m in state_mismatches(x, y, f"{path}[{i}]")]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(bits(a), bits(b.to(a.device))))
+        return [] if same else [path]
+    return [] if a == b else [path]
+
+
+def cpu_state(state):
+    """A copy of a nested state on the host."""
+    if isinstance(state, dict):
+        return {k: cpu_state(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(cpu_state(v) for v in state)
+    if isinstance(state, torch.Tensor):
+        return state.detach().to("cpu", copy=True)
+    return state
+
+
+def csv_steps(path: str) -> list:
+    with open(path, newline="") as f:
+        return [int(row["step"]) for row in csv.DictReader(f)]
+
+
+def png_size(path: str):
+    """(height, width) of an 8-bit RGB PNG whose pixel data decompresses to
+    its size; raises otherwise."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError(f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        chunks[tag] = chunks.get(tag, b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, color) != (8, 2) or len(zlib.decompress(chunks[b"IDAT"])) != h * (1 + 3 * w):
+        raise RuntimeError(f"{path}: not the 8-bit RGB image it claims to be")
+    return h, w
+
+
+def check_image_log(prefix: str) -> dict:
+    """The image log's files at `prefix`: its frames finite in [0, 1], its
+    strip a PNG; raises on a miss."""
+    npz, png = f"{prefix}_sample.npz", f"{prefix}_strip.png"
+    for fp in (npz, png):
+        if not os.path.isfile(fp):
+            raise RuntimeError(f"image log {fp} is missing")
+    with np.load(npz) as z:
+        frames = z["frames"]
+    if not (np.isfinite(frames).all() and frames.min() >= 0.0 and frames.max() <= 1.0):
+        raise RuntimeError(f"{npz}: frames not finite in [0, 1]")
+    return {"frames_shape": list(frames.shape), "strip_hw": list(png_size(png))}
+
+
+def entry_phase(smi: str, phase7: dict) -> dict:
+    """Phase 8. Returns the kernel launches over the entry's two runs."""
+    import gcd_tpu_torch.train as train_entry
+    from gcd_tpu_torch.data.fake import make_kubric_root
+    from gcd_tpu_torch.data.kubric import KubricSynthViewModule, load_point_cloud_file
+    from gcd_tpu_torch.data import geometry
+    from gcd_tpu_torch.data.common import load_json
+    from gcd_tpu_torch.ops import KERNELS
+    from gcd_tpu_torch.utils.config import apply_dotlist, load_config
+
+    def counts():
+        return {name: fn.launches for name, fn in KERNELS.items()}
+
+    work = tempfile.mkdtemp(prefix="gcd_entry_")
+    try:
+        root, logs = os.path.join(work, "kubric"), os.path.join(work, "logs")
+        overrides = [f"data.params.dset_root={root}/data", f"data.params.pcl_root={root}/pcl",
+                     "data.params.train_videos=1", "data.params.val_videos=0",
+                     f"data.params.avail_frames={ENTRY_FRAMES}",
+                     f"data.params.mock_dset_size={ENTRY_DATASET_SIZE}",
+                     "model.params.ckpt_path=null",
+                     f"lightning.modelcheckpoint.params.every_n_train_steps={ENTRY_STEPS}",
+                     f"lightning.callbacks.image_logger.params.batch_frequency={ENTRY_STEPS}"]
+        # Two checkpoints (steps 4 and 6) and the root must fit on this disk.
+        root_bytes = ENTRY_FRAMES * ENTRY_VIEWS * ENTRY_POINTS * 3 * 4
+        need = 2 * phase7["checkpoint_bytes"] + root_bytes
+        free = shutil.disk_usage(work).free
+        log("entry_disk", path=work, free_bytes=free, need_bytes=need,
+            checkpoint_bytes_estimate=phase7["checkpoint_bytes"])
+        if free < need:
+            raise RuntimeError(f"{work}: {free} bytes free, the entry phase needs {need}")
+        t0 = time.perf_counter()
+        make_kubric_root(root, n_frames=ENTRY_FRAMES, n_views=ENTRY_VIEWS,
+                         n_points=ENTRY_POINTS, seed=SEED)
+        root_s = time.perf_counter() - t0
+
+        # The host renderer alone: one frame's cloud at the config's 420x280,
+        # then one whole example (28 renders, load, resize).
+        config = apply_dotlist(load_config(TRAIN_CONFIG), overrides)
+        dataset = KubricSynthViewModule(**config["data"]["params"]).train_dataset
+        xyz, rgb, _ = load_point_cloud_file(os.path.join(root, "pcl", "scn00000",
+                                                         "pcl_rgb_segm_00000.pt"))
+        xyz = xyz.reshape(-1, 3).astype(np.float32)
+        rgb = rgb.reshape(-1, 3).astype(np.float32) / 255.0
+        intrinsics = dataset._used_intrinsics(geometry.get_kubric_camera_matrices(load_json(
+            os.path.join(root, "data", "scn00000", "scn00000_p0_v4.json")))[0][0])
+        _, _, extrinsics, _, _ = dataset.sample_trajectories(np.random.default_rng(SEED))
+        render_s = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            img = geometry.render_point_cloud(xyz, rgb, intrinsics, extrinsics[0],
+                                              dataset.render_height, dataset.render_width)
+            render_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        example = dataset[0]
+        example_s = time.perf_counter() - t0
+        log("entry_render", cpu_count=os.cpu_count(), points=int(xyz.shape[0]),
+            render_hw=[dataset.render_height, dataset.render_width],
+            render_ms=1e3 * statistics.median(render_s[1:]), render_ms_all=render_s,
+            example_seconds=example_s, renders_per_example=2 * dataset.model_frames,
+            root_seconds=root_s, root_bytes=root_bytes,
+            image_mean=float(img.mean()), jpg_shape=list(example["jpg"].shape), card=smi)
+        del xyz, rgb, example
+
+        # Run 1: four steps, the checkpoint and the image log at step 4.
+        for fn in KERNELS.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run1 = train_entry.main(["-b", TRAIN_CONFIG, "-l", logs, "--seed", str(SEED),
+                                 "--max_steps", str(ENTRY_STEPS), *overrides])
+        run1_s = time.perf_counter() - t0
+        peak1 = torch.cuda.max_memory_allocated()
+        trainer = run1.pop("trainer")
+        saved = cpu_state(trainer.state_dict())
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Run 2: resume from step 4 to step 6; the restored state first.
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = train_entry.setup(["--resume", run1["logdir"], "--seed", str(SEED),
+                                 "--max_steps", str(ENTRY_RESUME_STEPS)])
+        setup2_s = time.perf_counter() - t0
+        restore_misses = state_mismatches(run.trainer.state_dict(), saved)
+        del saved
+        run2 = train_entry.fit(run)
+        run2_s = time.perf_counter() - t0
+        peak2 = torch.cuda.max_memory_allocated()
+        launches = counts()
+        run2.pop("trainer")
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        expected = phase7["expected"]
+        steps = run1["steps"] + run2["steps"]
+        losses = run1["losses"] + run2["losses"]
+        waits = run1["loader_wait_seconds"] + run2["loader_wait_seconds"]
+        step_s = run1["step_seconds"] + run2["step_seconds"]
+        misses = per_step_launch_misses(run1["launches"] + run2["launches"], expected)
+        ckpts = sorted(os.listdir(os.path.join(run1["logdir"], "checkpoints")))
+        rows = csv_steps(os.path.join(run1["logdir"], "metrics.csv"))
+        images = [check_image_log(im["prefix"]) for im in run1["image_logs"]]
+        # Steady steps: not the first of a run, whose batch the loader makes
+        # in the caller's thread before its workers start.
+        steady = [i for i in range(len(steps)) if i not in (0, len(run1["steps"]))]
+        loop_s = statistics.median(waits[i] + step_s[i] for i in steady)
+        saves = run1["saves"] + run2["saves"]
+        result = {
+            "steps": steps, "losses": losses, "loader_wait_seconds": waits,
+            "step_seconds": step_s, "steady_loader_wait_s": statistics.median(
+                waits[i] for i in steady),
+            "steady_step_s": statistics.median(step_s[i] for i in steady),
+            "entry_frames_per_s": TRAIN_B * T / loop_s,
+            "entry_step_only_frames_per_s": TRAIN_B * T / statistics.median(
+                step_s[i] for i in steady),
+            "phase7_frames_per_s": phase7["frames_per_s"], "phase7_ms_per_step": phase7["ms"],
+            "checkpoints": ckpts, "csv_steps": rows,
+            "saves": saves, "checkpoint_gb": [sv["bytes"] / 1e9 for sv in saves],
+            "restore_seconds": run2["restore_seconds"], "resume_setup_seconds": setup2_s,
+            "start_step_after_resume": run2["start_step"], "final_step": run2["global_step"],
+            "restore_mismatches": restore_misses[:8], "image_logs": run1["image_logs"],
+            "image_files": images, "launch_misses": misses[:2], "launches": launches,
+            "expected_per_step": expected, "run_seconds": [run1_s, run2_s],
+            "peak_mem_bytes": max(peak1, peak2), "cpu_count": os.cpu_count(), "card": smi}
+        log("entry", **result)
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"entry: a loss is not finite: {losses}")
+        if steps != list(range(1, ENTRY_RESUME_STEPS + 1)) or rows != steps:
+            raise RuntimeError(f"entry: steps {steps}, CSV rows {rows}")
+        if f"step_{ENTRY_STEPS}" not in ckpts or run2["start_step"] != ENTRY_STEPS \
+                or run2["global_step"] != ENTRY_RESUME_STEPS:
+            raise RuntimeError(f"entry: checkpoints {ckpts}, resumed at {run2['start_step']} "
+                               f"to {run2['global_step']}")
+        if restore_misses:
+            raise RuntimeError(f"entry: the restored state differs at {restore_misses[:8]}")
+        if len(images) != 1:
+            raise RuntimeError(f"entry: {len(images)} image logs, expected 1")
+        if misses or not all(launches.values()):
+            raise RuntimeError(f"entry: launches {misses[:2]} (all: {launches}), expected "
+                               f"{expected} a step")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -1342,7 +1609,10 @@ def main() -> int:
     stats, launches, served_launches = serve(smi)
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = train(smi)
+    train_launches, phase7 = train(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry_launches = entry_phase(smi, phase7)
 
     # `launches`: the sample_video requests for K1-K5 and K7, the Adam steps
     # for K6 (which only training runs); `served_launches`: the served phase's
@@ -1352,6 +1622,7 @@ def main() -> int:
          "replaces": SOURCES[name][1],
          "launches": train_launches[name] if name == "flash_bwd" else launches[name],
          "served_launches": served_launches[name], "train_launches": train_launches[name],
+         "entry_launches": entry_launches[name],
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]

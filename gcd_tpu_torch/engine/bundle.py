@@ -3,16 +3,18 @@ client builds from frames and a camera move.
 
 Port of scripts/eval_utils.py: `ModelBundle`, `_find_train_config`,
 `shorten_model_name`, `load_model_bundle` (:36-184) and `construct_batch`
-(:187-239), with `construct_trajectory` from gcd_tpu/data/common.py:186-208
-(copied alone: that module needs cv2). numpy on the host; the engine is
-built by engine/build.py on the card unless the CPU is asked for.
+(:187-239). numpy on the host; the engine is built by engine/build.py on
+the card unless the CPU is asked for.
 
     bundle = load_model_bundle("configs/infer_kubric.yaml", "gcd_kubric.ckpt",
                                support_ema=True)
     batch = construct_batch(frames01, 30.0, 10.0, 0.0, 14, 5, 127, 0.02, False, bundle)
 
-Orbax run directories (the JAX trainer's checkpoints) are the JAX package's;
-the port loads `.ckpt` / `.pt` / `.safetensors` (io/checkpoint.py).
+The port loads `.ckpt` / `.pt` / `.safetensors` and its own training
+checkpoints: a run's `checkpoints/step_N` directory, or its `checkpoints`
+directory for the latest step (io/checkpoint.py), with the run's config
+found beside them. Orbax run directories (the JAX trainer's checkpoints) are
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -21,14 +23,17 @@ import dataclasses
 import glob
 import os
 import pathlib
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from gcd_tpu_torch.data.common import construct_trajectory
 from gcd_tpu_torch.engine.build import engine_from_config
 from gcd_tpu_torch.engine.engine import DiffusionEngine
-from gcd_tpu_torch.io.checkpoint import checkpoint_state_dict
+from gcd_tpu_torch.io.checkpoint import (STEP_RE, checkpoint_state_dict,
+                                         is_training_checkpoint, latest_step,
+                                         restore_checkpoint)
 from gcd_tpu_torch.utils.config import get_by_path, load_config, set_by_path
 
 MODEL_NAME_SHORTENER = {
@@ -106,6 +111,21 @@ def camera_metadata(train_config: Optional[Dict], test_config: Dict) -> Dict:
     return meta
 
 
+def training_checkpoint_weights(model_path: str) -> Dict[str, torch.Tensor]:
+    """The module weights of the port's training checkpoint at `model_path`:
+    a `step_N` directory, or a `checkpoints` directory (its latest step)."""
+    ckpt_dir = model_path.rstrip("/")
+    m = STEP_RE.match(os.path.basename(ckpt_dir))
+    if m:
+        ckpt_dir, step = os.path.dirname(ckpt_dir), int(m.group(1))
+    else:
+        step = latest_step(ckpt_dir)
+    if step is None or not is_training_checkpoint(os.path.join(ckpt_dir, f"step_{step}")):
+        raise NotImplementedError(f"{model_path}: orbax run directories are the JAX "
+                                  "package's; the port loads .ckpt / .pt / .safetensors")
+    return restore_checkpoint(ckpt_dir, step)["module"]
+
+
 def load_model_bundle(config_path: str, model_path: Optional[str] = None,
                       support_ema: bool = False, num_steps: int = 25, num_frames: int = 14,
                       max_scale: float = 1.5, min_scale: float = 1.0,
@@ -132,13 +152,13 @@ def load_model_bundle(config_path: str, model_path: Optional[str] = None,
     state_dict = None
     if model_path and os.path.exists(model_path):
         if os.path.isdir(model_path) or "step_" in os.path.basename(model_path):
-            raise NotImplementedError(f"{model_path}: orbax run directories are the JAX "
-                                      "package's; the port loads .ckpt / .pt / .safetensors")
-        state_dict = checkpoint_state_dict(
-            model_path, use_ema=support_ema,
-            ablate_unet_scratch=bool(get_by_path(test_config,
-                                                 "model.params.ablate_unet_scratch", False)),
-            verbose=verbose)
+            state_dict = training_checkpoint_weights(model_path)
+        else:
+            state_dict = checkpoint_state_dict(
+                model_path, use_ema=support_ema,
+                ablate_unet_scratch=bool(get_by_path(test_config,
+                                                     "model.params.ablate_unet_scratch", False)),
+                verbose=verbose)
     elif model_path and verbose:
         print(f"Warning: model path {model_path!r} not found; using random-init weights")
     engine = engine_from_config(test_config["model"], device, dtype, state_dict, strict=False)
@@ -150,24 +170,6 @@ def load_model_bundle(config_path: str, model_path: Optional[str] = None,
     return ModelBundle(engine=engine, train_config=train_config, test_config=test_config,
                        model_name=shorten_model_name(model_path or "random"),
                        **camera_metadata(train_config, test_config))
-
-
-def construct_trajectory(spherical_start: np.ndarray, spherical_end: np.ndarray,
-                         trajectory: str, model_frames: int, move_time: int
-                         ) -> Tuple[np.ndarray, np.ndarray]:
-    """src stays at the start pose; dst interpolates start -> end over
-    `move_time` frames (linear or sine ease), then holds the end pose."""
-    spherical_src = np.tile(spherical_start[None], (model_frames, 1)).astype(np.float32)
-    spherical_dst = np.tile(spherical_end[None], (model_frames, 1)).astype(np.float32)
-    for t in range(min(move_time, model_frames)):
-        if trajectory == "interpol_linear":
-            alpha = t / move_time
-        elif trajectory == "interpol_sine":
-            alpha = (1.0 - np.cos(t / move_time * np.pi)) / 2.0
-        else:
-            raise ValueError(f"Unknown trajectory: {trajectory}")
-        spherical_dst[t] = spherical_start * (1.0 - alpha) + spherical_end * alpha
-    return spherical_src, spherical_dst
 
 
 def construct_batch(input_rgb01: np.ndarray, azimuth_deg: float, elevation_deg: float,

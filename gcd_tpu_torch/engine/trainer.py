@@ -13,14 +13,17 @@ frozen parameters (the first-stage VAE, the embedders not marked
 is_trainable, and the UNet's outside `ft_strategy`) get requires_grad=False
 and no gradient.
 
-Not here yet: EMA, a learning-rate schedule, gradient accumulation, LoRA,
-checkpoint save / restore and data parallelism (no shipped config uses the
-first four).
+`state_dict()` / `load_state_dict()` carry the masters, the optimizer state
+and `global_step` (io/checkpoint.py saves them with the module weights); a
+load writes the masters back into the module weights.
+
+Not here yet: EMA, a learning-rate schedule, gradient accumulation, LoRA
+and data parallelism (no shipped config uses the first four).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Union
+from typing import Any, Dict, Iterable, List, Optional, Union
 
 import torch
 
@@ -63,6 +66,14 @@ def optimizer_from_config(optimizer_config: Optional[Dict], params: Iterable[tor
     raise ValueError(f"unsupported optimizer target {target!r}")
 
 
+def _copy_state(key: str, value: Any, device: torch.device) -> Any:
+    """A copy of one optimizer state entry: Adam's `step` stays where it is
+    (on the CPU), the moments go to the masters' device."""
+    if not isinstance(value, torch.Tensor):
+        return value
+    return value.clone() if key == "step" else value.to(device, copy=True)
+
+
 class Trainer:
     """A DiffusionEngine, fp32 masters of its trainable parameters, and
     their optimizer. `global_step` counts the steps taken."""
@@ -70,10 +81,12 @@ class Trainer:
     def __init__(self, engine: DiffusionEngine, learning_rate: float):
         self.engine = engine
         names = engine.trainable_parameter_names()
+        self.trainable_names: List[str] = []
         self.trainable: List[torch.nn.Parameter] = []
         for name, param in engine.named_parameters():
             param.requires_grad_(name in names)
             if name in names:
+                self.trainable_names.append(name)
                 self.trainable.append(param)
         self.masters = [p.detach().float().clone() for p in self.trainable]
         self.optimizer = optimizer_from_config(engine.optimizer_config, self.masters,
@@ -105,6 +118,34 @@ class Trainer:
                    "global_step": self.global_step}
         self.global_step += 1
         return metrics
+
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{"masters": {name: fp32 master}, "optimizer": the optimizer's
+        state dict, "global_step"}; the tensors are the live ones, not copies."""
+        return {"masters": dict(zip(self.trainable_names, self.masters)),
+                "optimizer": self.optimizer.state_dict(), "global_step": self.global_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copy a state_dict() into this trainer (its tensors may be anywhere,
+        mapped from a file included), then write the masters into the module
+        weights."""
+        masters = state["masters"]
+        if list(masters) != self.trainable_names:
+            raise KeyError("the checkpoint's trainable parameters are not this engine's")
+        for m, saved in zip(self.masters, masters.values()):
+            m.copy_(saved)
+        opt = state["optimizer"]
+        device = self.masters[0].device
+        # Copies, so that the optimizer never updates the caller's tensors.
+        self.optimizer.load_state_dict({
+            "param_groups": opt["param_groups"],
+            "state": {i: {k: _copy_state(k, v, device) for k, v in s.items()}
+                      for i, s in opt["state"].items()}})
+        self.global_step = int(state["global_step"])
+        for p, m in zip(self.trainable, self.masters):
+            p.copy_(m)
 
 
 def load_trainer(config_path: str, device: Optional[Union[str, torch.device]] = None,

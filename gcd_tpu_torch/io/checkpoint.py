@@ -1,5 +1,6 @@
-"""Released checkpoints: read a reference `.ckpt` / `.pt` / `.safetensors`
-into the port's key space, with the EMA overlay.
+"""Checkpoints: read a released reference `.ckpt` / `.pt` / `.safetensors`
+into the port's key space, with the EMA overlay; save and restore the
+trainer's own.
 
 Port of gcd_tpu/io/convert.py `load_torch_state_dict` (:153-171) and
 `extract_ema_state_dict` (:244-266), and of the steps of gcd_tpu's
@@ -14,13 +15,25 @@ as the JAX engine does.
 format (an 8-byte little-endian header length, a JSON header of
 {name: {dtype, shape, data_offsets}}, then the raw little-endian tensors),
 so the `safetensors` package is not needed.
+
+Training checkpoints (port of gcd_tpu/io/checkpoint.py:17-68, the same
+layout and resume rules): `{ckpt_dir}/step_N/checkpoint.pt`, one torch save
+of {"module": the engine's state dict, "masters": the fp32 masters by
+parameter name, "optimizer": the optimizer's state dict, "global_step"}
+(engine/trainer.py `Trainer.state_dict`). A save goes to a temporary
+directory that is renamed into place, so an interrupted save never looks
+like a checkpoint; a restore maps the file (mmap) rather than reading a
+second copy into host memory.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import struct
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -28,6 +41,8 @@ import torch
 EMA_PREFIX = "model_ema."
 EMA_BOOKKEEPING = ("num_updates", "decay")
 UNET_PREFIX = "model.diffusion_model."
+STEP_RE = re.compile(r"^step_(\d+)$")
+CHECKPOINT_FILE = "checkpoint.pt"
 
 _SAFETENSORS_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
@@ -107,3 +122,58 @@ def checkpoint_state_dict(path: str, use_ema: bool = False, ablate_unet_scratch:
             sd = dict(sd)
             sd.update(ema)
     return sd
+
+
+def save_checkpoint(ckpt_dir: str, step: int, state: Dict[str, Any]) -> str:
+    """Write `state` as `{ckpt_dir}/step_{step}`, replacing one of that step;
+    returns its path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
+    tmp = os.path.join(os.path.abspath(ckpt_dir), f".step_{step}.tmp-{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(state, os.path.join(tmp, CHECKPOINT_FILE))
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.replace(tmp, path)
+    return path
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The largest N of the `step_N` directories under `ckpt_dir`, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for m in map(STEP_RE.match, os.listdir(ckpt_dir))
+             if m and os.path.isdir(os.path.join(ckpt_dir, m.group(0)))]
+    return max(steps) if steps else None
+
+
+def is_training_checkpoint(path: str) -> bool:
+    """Whether `path` is a `step_N` directory this module wrote."""
+    return os.path.isfile(os.path.join(path, CHECKPOINT_FILE))
+
+
+def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """The state saved as `{ckpt_dir}/step_{step}` (the latest step when
+    None), its tensors on the CPU, mapped from the file."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
+    if not is_training_checkpoint(path):
+        raise FileNotFoundError(f"{path} holds no {CHECKPOINT_FILE}: not a checkpoint of "
+                                "gcd_tpu_torch's trainer")
+    return torch.load(os.path.join(path, CHECKPOINT_FILE), map_location="cpu", mmap=True,
+                      weights_only=True)
+
+
+def find_resume_logdir(resume: str) -> str:
+    """`--resume` takes a run directory or a path inside its checkpoints."""
+    resume = os.path.abspath(resume)
+    if os.path.isdir(os.path.join(resume, "checkpoints")):
+        return resume
+    parts = resume.rstrip("/").split("/")
+    if "checkpoints" in parts:
+        return "/".join(parts[: parts.index("checkpoints")])
+    return resume

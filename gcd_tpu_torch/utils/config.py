@@ -1,7 +1,8 @@
 """YAML configs with `target:` / `params:` instantiation, for the port.
 
-The include + deep-merge loader and the dotted-path helpers are those of
-gcd_tpu/utils/config.py:92-130,165-180 (which cannot be imported here:
+The include + deep-merge loader, the left-to-right merge with CLI dotlist
+overrides, the dotted-path helpers and the config snapshot are those of
+gcd_tpu/utils/config.py:92-190 (which cannot be imported here:
 gcd_tpu.utils pulls in jax). Target strings
 resolve through a registry of the reference's `sgm.*` names for the classes
 the port has, so configs/*.yaml drive it unchanged; any other target must be
@@ -10,9 +11,10 @@ an importable `gcd_tpu_torch.*` path.
 
 from __future__ import annotations
 
+import copy
 import importlib
 import os
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import yaml
 
@@ -82,6 +84,8 @@ REGISTRY = {
         "gcd_tpu_torch.diffusion.weighting.EpsWeighting",
     "sgm.modules.diffusionmodules.denoiser_weighting.EpsWeighting":
         "gcd_tpu_torch.diffusion.weighting.EpsWeighting",
+    "sgm.data.kubric_arbit.KubricSynthViewModule":
+        "gcd_tpu_torch.data.kubric.KubricSynthViewModule",
 }
 
 
@@ -128,6 +132,54 @@ def deep_merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]
         else:
             out[k] = v
     return out
+
+
+def merge_configs(configs: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Left-to-right deep merge, as OmegaConf.merge (main.py:722-726)."""
+    out: Dict[str, Any] = {}
+    for cfg in configs:
+        out = deep_merge(out, cfg)
+    return out
+
+
+def _parse_value(raw: str) -> Any:
+    val = yaml.safe_load(raw)
+    if isinstance(val, str):
+        # YAML 1.1 misses bare scientific notation like `1e-4`.
+        try:
+            return float(val)
+        except ValueError:
+            return val
+    return val
+
+
+def from_dotlist(dotlist: List[str]) -> Dict[str, Any]:
+    """``["a.b.c=1", "x=[2,3]"]`` as a nested dict (the CLI override syntax)."""
+    out: Dict[str, Any] = {}
+    for item in dotlist:
+        if "=" not in item:
+            raise ValueError(f"dotlist item without '=': {item!r}")
+        key, raw = item.split("=", 1)
+        node = out
+        parts = key.strip().split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = _parse_value(raw)
+    return out
+
+
+def apply_dotlist(cfg: Dict[str, Any], dotlist: List[str]) -> Dict[str, Any]:
+    return merge_configs([cfg, from_dotlist(dotlist)])
+
+
+def config_to_dict(cfg: Any) -> Any:
+    """A deep copy (OmegaConf.to_container's place for plain dicts)."""
+    return copy.deepcopy(cfg)
+
+
+def save_config(cfg: Dict[str, Any], path: str) -> None:
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
 
 
 def set_by_path(cfg: Dict[str, Any], path: str, value: Any) -> None:

@@ -1,7 +1,8 @@
 """chip_smoke.py's checks on the CPU: the training phase's `BlendWitness`,
 which decides whether a blend factor's exactly-zero gradient at a step was
-made by bf16 rounding (then the step may pass) or not (then it fails), and
-K5's expected launches from recorded GroupNorm sites (`split_calls`).
+made by bf16 rounding (then the step may pass) or not (then it fails), K5's
+expected launches from recorded GroupNorm sites (`split_calls`), and the
+training-entry phase's launch, state, image-log and CSV checks.
 
 A tiny rematerialised block blends x with x + scale * linear(x) in bf16,
 as the UNet's VideoResBlock and SpatialVideoTransformer do.
@@ -11,6 +12,7 @@ import sys
 from collections import Counter
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from torch import nn
@@ -158,3 +160,63 @@ def test_split_calls_count_the_split_variant_only():
     UNet's per-frame GroupNorms) launch none."""
     sites = Counter({site: calls for site, calls, _ in SITES})
     assert chip_smoke.split_calls(sites) == 250 + 10 + 4
+
+
+# The training-entry phase's checks.
+STEP = {"flash": 32, "flash_bwd": 16, "tattn": 32, "fused_mlp": 96, "fused_gn": 451,
+        "gn_stats": 506, "fused_gn_conv": 88}
+
+
+def test_per_step_launch_misses_name_the_steps_that_differ():
+    short = dict(STEP, flash_bwd=15)
+    assert chip_smoke.per_step_launch_misses([STEP, STEP], STEP) == []
+    assert chip_smoke.per_step_launch_misses([STEP, short, STEP], STEP) == [(1, short)]
+
+
+def test_checkpoint_bytes_counts_module_masters_and_adam():
+    assert chip_smoke.checkpoint_bytes(10, 4) == 2 * 10 + 4 * 4 * 3
+
+
+def test_state_mismatches_compare_bits():
+    a = {"masters": {"w": torch.tensor([1.0, -0.0])}, "optimizer": {
+        "state": {0: {"step": torch.tensor(3.0), "exp_avg": torch.ones(2)}},
+        "param_groups": [{"lr": 1e-4, "betas": (0.9, 0.999), "params": [0]}]},
+        "global_step": 4}
+    assert chip_smoke.state_mismatches(a, chip_smoke.cpu_state(a)) == []
+    b = chip_smoke.cpu_state(a)
+    b["masters"]["w"] = torch.tensor([1.0, 0.0])  # equal values, other bits
+    b["optimizer"]["state"][0]["exp_avg"] = torch.ones(2, dtype=torch.float64)
+    b["optimizer"]["param_groups"][0]["lr"] = 2e-4
+    b["global_step"] = 5
+    assert chip_smoke.state_mismatches(a, b) == [
+        ".masters.w", ".optimizer.state.0.exp_avg", ".optimizer.param_groups[0].lr",
+        ".global_step"]
+    nan = torch.tensor([float("nan")])
+    assert chip_smoke.state_mismatches({"x": nan}, {"x": nan.clone()}) == []
+    assert chip_smoke.state_mismatches(a, {"masters": {}}) == [": keys differ"]
+
+
+def test_check_image_log_reads_what_the_image_logger_writes(tmp_path):
+    from gcd_tpu_torch.engine.image_logger import write_png
+
+    frames = np.random.default_rng(0).random((3, 12, 8, 3)).astype(np.float32)
+    prefix = str(tmp_path / "gs-0000004")
+    np.savez(f"{prefix}_sample.npz", frames=frames)
+    write_png(f"{prefix}_strip.png", (frames[0] * 255).astype(np.uint8))
+    assert chip_smoke.check_image_log(prefix) == {"frames_shape": [3, 12, 8, 3],
+                                                  "strip_hw": [12, 8]}
+    np.savez(f"{prefix}_sample.npz", frames=frames * 2.0)
+    with pytest.raises(RuntimeError, match="not finite in"):
+        chip_smoke.check_image_log(prefix)
+    np.savez(f"{prefix}_sample.npz", frames=frames)
+    (tmp_path / "gs-0000004_strip.png").write_bytes(b"not a png")
+    with pytest.raises(RuntimeError, match="not a PNG"):
+        chip_smoke.check_image_log(prefix)
+    with pytest.raises(RuntimeError, match="missing"):
+        chip_smoke.check_image_log(str(tmp_path / "gs-0000008"))
+
+
+def test_csv_steps(tmp_path):
+    path = tmp_path / "metrics.csv"
+    path.write_text("step,epoch,loss,grad_norm,lr\n1,0,0.5,0.1,2e-05\n2,0,0.4,0.1,2e-05\n")
+    assert chip_smoke.csv_steps(str(path)) == [1, 2]

@@ -119,8 +119,9 @@ def _chip_smoke_imports():
 
 _NO_JAX = (
     "import sys\n"
-    "bad = sorted(m for m in sys.modules if m in ('jax', 'gcd_tpu')\n"
-    "             or m.startswith(('jax.', 'flax', 'gcd_tpu.')))\n"
+    "bad = sorted(m for m in sys.modules if m in ('jax', 'gcd_tpu', 'cv2', 'imageio')\n"
+    "             or m.startswith(('jax.', 'flax', 'gcd_tpu.', 'orbax', 'cv2.',\n"
+    "                              'imageio.')))\n"
     "assert not bad, bad\n"
 )
 
@@ -134,7 +135,8 @@ def _run_no_jax(code: str) -> None:
 
 def test_port_imports_no_jax():
     """Importing every gcd_tpu_torch module loads neither JAX nor any module
-    of the JAX package."""
+    of the JAX package, nor cv2, imageio or orbax (the card's machine has
+    none of them)."""
     _run_no_jax(
         "import importlib, pkgutil\n"
         "import gcd_tpu_torch\n"
@@ -145,7 +147,11 @@ def test_port_imports_no_jax():
         "assert len(mods) >= 40, mods\n"
         "training = {'gcd_tpu_torch.engine.trainer', 'gcd_tpu_torch.diffusion.loss',\n"
         "            'gcd_tpu_torch.diffusion.sigma_sampling',\n"
-        "            'gcd_tpu_torch.diffusion.weighting', 'gcd_tpu_torch.ops.recompute'}\n"
+        "            'gcd_tpu_torch.diffusion.weighting', 'gcd_tpu_torch.ops.recompute',\n"
+        "            'gcd_tpu_torch.train', 'gcd_tpu_torch.data.common',\n"
+        "            'gcd_tpu_torch.data.geometry', 'gcd_tpu_torch.data.loader',\n"
+        "            'gcd_tpu_torch.data.kubric', 'gcd_tpu_torch.data.fake',\n"
+        "            'gcd_tpu_torch.native', 'gcd_tpu_torch.engine.image_logger'}\n"
         "serving = {'gcd_tpu_torch.ops.fused_gn_conv', 'gcd_tpu_torch.engine.server',\n"
         "           'gcd_tpu_torch.engine.bundle', 'gcd_tpu_torch.serve',\n"
         "           'gcd_tpu_torch.io.checkpoint'}\n"
@@ -158,6 +164,7 @@ def test_chip_smoke_imports_no_jax():
     mods = _chip_smoke_imports()
     assert {"gcd_tpu_torch.engine.build", "gcd_tpu_torch.engine.trainer",
             "gcd_tpu_torch.engine.server", "gcd_tpu_torch.engine.bundle",
-            "gcd_tpu_torch.serve"} <= set(mods)
+            "gcd_tpu_torch.serve", "gcd_tpu_torch.data.fake",
+            "gcd_tpu_torch.data.kubric", "gcd_tpu_torch.train"} <= set(mods)
     _run_no_jax("import importlib, chip_smoke\n"
                 + "".join(f"importlib.import_module({m!r})\n" for m in mods))
