@@ -93,6 +93,30 @@ without the final `ok` line):
                    prints the loader's wait against the step, entry
                    frames/s beside phase 7's, the checkpoint's size and
                    save / restore seconds and peak memory.
+  9. pardom      - the ParallelDomain configs, after phase 8's run is freed:
+                   a synthetic root in a temporary directory (1 scene of
+                   the dataset's 50 frames, 19 views x 640 x 480 points a
+                   frame, the converter's size; 640 x 480 ego PNGs whose
+                   rows use all five filters; the loss's person and vehicle
+                   colours in the ontology) on a disk checked to hold it and
+                   a checkpoint; the host work alone (a frame file's load,
+                   the f16 -> f32 casts, the class colours, a 420x280
+                   render, the resize, a PNG decode, one example) and the
+                   share of the first target's pixels in class colours
+                   (must be > 0); load_trainer on the training config
+                   (the same parameters and rate as the entry's); train.main on
+                   configs/train_pardom_semantic.yaml for 3 steps and its
+                   end-of-run checkpoint: every loss finite, the CSV's
+                   steps 1-3, every step's launches equal to phase 7's, the
+                   loader's wait against the step and entry frames/s beside
+                   phase 7's; then load_engine(configs/infer_pardom.yaml)
+                   (the base conditioner: a 768-wide vector, no camera
+                   embedder) and one 25-step clip with CFG up to 1.5 from
+                   the first example's ego frames: frames finite in [0, 1]
+                   of shape (14, 256, 384, 3), each kernel's launches equal
+                   to phase 6's per clip; load_model_bundle on
+                   pretrained/pardom_gradual_semantic.yaml builds the same
+                   weights.
 Then the kernel JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -107,12 +131,10 @@ import math
 import os
 import shutil
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from collections import Counter
 from contextlib import contextmanager
 
@@ -186,6 +208,19 @@ PTXAS_ENTRIES = ("flash_attention_kernel", "flash_bwd_rows_kernel", "flash_bwd_d
 ENTRY_FRAMES, ENTRY_VIEWS, ENTRY_POINTS = 16, 16, 576 * 384
 ENTRY_STEPS, ENTRY_RESUME_STEPS = 4, 6
 ENTRY_DATASET_SIZE = 16
+# Phase 9, the ParallelDomain configs: one scene of the dataset's 50 frames,
+# 19 views of the converter's 640 x 480 points each (5,836,800 points a
+# frame), 640 x 480 ego PNGs filtered with all five row filters, ids 1-14 in
+# the loss's class colours, class ids by 3 m cell; 3 steps of
+# train_pardom_semantic.yaml (one loader epoch), then one clip of
+# infer_pardom.yaml.
+PD_TRAIN_CONFIG = os.path.join(REPO, "configs", "train_pardom_semantic.yaml")
+PD_INFER_CONFIG = os.path.join(REPO, "configs", "infer_pardom.yaml")
+PD_BUNDLE_CONFIG = os.path.join(REPO, "pretrained", "pardom_gradual_semantic.yaml")
+PD_FRAMES, PD_VIEWS, PD_POINTS, PD_FRAME_HW = 50, 19, 640 * 480, (480, 640)
+PD_STEPS = 3
+PD_DATASET_SIZE = PD_STEPS * TRAIN_B
+PD_SEGM_CELL = 3.0
 SERVE_BATCH = 2   # clips per served batch
 SERVE_REQUESTS = 4
 SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
@@ -1393,28 +1428,11 @@ def csv_steps(path: str) -> list:
         return [int(row["step"]) for row in csv.DictReader(f)]
 
 
-def png_size(path: str):
-    """(height, width) of an 8-bit RGB PNG whose pixel data decompresses to
-    its size; raises otherwise."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise RuntimeError(f"{path}: not a PNG")
-    pos, chunks = 8, {}
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        tag = data[pos + 4:pos + 8]
-        chunks[tag] = chunks.get(tag, b"") + data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
-    if (depth, color) != (8, 2) or len(zlib.decompress(chunks[b"IDAT"])) != h * (1 + 3 * w):
-        raise RuntimeError(f"{path}: not the 8-bit RGB image it claims to be")
-    return h, w
-
-
 def check_image_log(prefix: str) -> dict:
     """The image log's files at `prefix`: its frames finite in [0, 1], its
-    strip a PNG; raises on a miss."""
+    strip an 8-bit RGB PNG that decodes; raises on a miss."""
+    from gcd_tpu_torch.data.png import read_png
+
     npz, png = f"{prefix}_sample.npz", f"{prefix}_strip.png"
     for fp in (npz, png):
         if not os.path.isfile(fp):
@@ -1423,7 +1441,13 @@ def check_image_log(prefix: str) -> dict:
         frames = z["frames"]
     if not (np.isfinite(frames).all() and frames.min() >= 0.0 and frames.max() <= 1.0):
         raise RuntimeError(f"{npz}: frames not finite in [0, 1]")
-    return {"frames_shape": list(frames.shape), "strip_hw": list(png_size(png))}
+    try:
+        strip = read_png(png)
+    except ValueError as e:
+        raise RuntimeError(f"{png}: {e}") from e
+    if strip.shape[-1] != 3:
+        raise RuntimeError(f"{png}: {strip.shape[-1]} channels, not RGB")
+    return {"frames_shape": list(frames.shape), "strip_hw": list(strip.shape[:2])}
 
 
 def entry_phase(smi: str, phase7: dict) -> dict:
@@ -1574,6 +1598,232 @@ def entry_phase(smi: str, phase7: dict) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def class_pixel_share(jpg: np.ndarray) -> float:
+    """The share of (..., 3) target pixels in [-1, 1] within the loss's 0.02
+    (mean absolute) of a person or vehicle colour: the pixels its class
+    term weighs."""
+    from gcd_tpu_torch.diffusion.loss import PERSON_RGB, VEHICLE_RGB
+
+    ref = np.asarray(PERSON_RGB + VEHICLE_RGB, np.float32) / 127.5 - 1.0
+    near = np.zeros(jpg.shape[:-1], dtype=bool)
+    for colour in ref:  # one class at a time: a full-size clip is 4 M pixels
+        near |= np.abs(jpg - colour).mean(axis=-1) < 0.02
+    return float(near.mean())
+
+
+def pardom_phase(smi: str, phase6: dict, phase7: dict) -> dict:
+    """Phase 9. Returns the kernel launches over its training run and its
+    clip."""
+    import gcd_tpu_torch.train as train_entry
+    from gcd_tpu_torch.data import geometry
+    from gcd_tpu_torch.data.common import load_json, process_image
+    from gcd_tpu_torch.data.fake import class_ontology_items, make_pardom_root
+    from gcd_tpu_torch.data.loader import batch_to_device, collate_fn
+    from gcd_tpu_torch.data.pardom import ParallelDomainSynthViewModule, load_pd_point_cloud_file
+    from gcd_tpu_torch.data.png import read_png
+    from gcd_tpu_torch.engine.build import load_engine
+    from gcd_tpu_torch.engine.bundle import load_model_bundle
+    from gcd_tpu_torch.engine.trainer import load_trainer
+    from gcd_tpu_torch.ops import KERNELS
+    from gcd_tpu_torch.utils.config import apply_dotlist, load_config
+
+    def reset():
+        for fn in KERNELS.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in KERNELS.items()}
+
+    work = tempfile.mkdtemp(prefix="gcd_pardom_")
+    try:
+        root, logs = os.path.join(work, "pardom"), os.path.join(work, "logs")
+        overrides = [f"data.params.dset_root={root}/data", f"data.params.pcl_root={root}/pcl",
+                     f"data.params.split_json={root}/data/pardom_datasplit.json",
+                     f"data.params.mock_dset_size={PD_DATASET_SIZE}",
+                     "model.params.ckpt_path=null"]
+        # The root and the end-of-run checkpoint must fit on this disk.
+        root_bytes = PD_FRAMES * PD_VIEWS * PD_POINTS * (3 * 2 + 3 + 1 + 1)
+        need = phase7["checkpoint_bytes"] + root_bytes + PD_FRAMES * 3 * PD_POINTS
+        free = shutil.disk_usage(work).free
+        log("pardom_disk", path=work, free_bytes=free, need_bytes=need)
+        if free < need:
+            raise RuntimeError(f"{work}: {free} bytes free, the ParallelDomain phase needs {need}")
+        t0 = time.perf_counter()
+        make_pardom_root(root, n_frames=PD_FRAMES, n_points=PD_POINTS, seed=SEED,
+                         frame_hw=PD_FRAME_HW, ontology_items=class_ontology_items(),
+                         segm_cell=PD_SEGM_CELL)
+        root_s = time.perf_counter() - t0
+
+        # The host work alone: a frame file's load, the casts, the class
+        # colours, the render at 420x280 and the resize; a PNG decode; one
+        # whole example (14 PNGs, 14 clouds, 14 renders).
+        config = apply_dotlist(load_config(PD_TRAIN_CONFIG), overrides)
+        dataset = ParallelDomainSynthViewModule(**config["data"]["params"]).train_dataset
+        scene = os.path.join(root, "data", "scene_000000")
+        _, intr, extr = geometry.get_pardom_camera_matrices(load_json(os.path.join(
+            scene, "calibration", "calib.json")))
+        _, extr_dst, _, intr_dst, *_ = dataset.sample_trajectories(
+            np.random.default_rng(SEED), extr, intr)
+        split = {k: [] for k in ("load", "cast", "colour", "render", "resize", "png_decode")}
+        png_fp = os.path.join(scene, "rgb", "yaw-0", f"{5:018d}.png")
+        for _ in range(6):
+            t0 = time.perf_counter()
+            xyz, rgb, segm, _ = load_pd_point_cloud_file(os.path.join(
+                root, "pcl", "scene_000000", "pcl_rgb_segm_000005.pt"))
+            t1 = time.perf_counter()
+            xyz = xyz.reshape(-1, 3).astype(np.float32)
+            xyz = np.where(np.isfinite(xyz).all(axis=-1)[:, None], xyz, 0.0)
+            t2 = time.perf_counter()
+            colours = dataset._point_colors(1, rgb, segm).reshape(-1, 3)
+            t3 = time.perf_counter()
+            img = geometry.render_point_cloud(xyz, colours, dataset._used_intrinsics(intr_dst[0]),
+                                              extr_dst[0], dataset.render_height,
+                                              dataset.render_width, mode="pardom",
+                                              blur_kernel=21)
+            t4 = time.perf_counter()
+            process_image(img, False, dataset.frame_width, dataset.frame_height)
+            t5 = time.perf_counter()
+            frame = read_png(png_fp)
+            t6 = time.perf_counter()
+            for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t6 - t5)):
+                split[key].append(1e3 * dt)
+        del xyz, rgb, segm, colours
+        t0 = time.perf_counter()
+        example = dataset[0]
+        example_s = time.perf_counter() - t0
+        share = class_pixel_share(example["jpg"])
+        host = {"render_ms": statistics.median(split["render"][1:]),
+                "png_decode_ms": statistics.median(split["png_decode"][1:]),
+                "example_seconds": example_s, "class_pixel_share": share,
+                "split_ms": {k: statistics.median(v[1:]) for k, v in split.items()},
+                "first_call_ms": {k: v[0] for k, v in split.items()},
+                "points": PD_POINTS * PD_VIEWS, "png_hw": list(frame.shape),
+                "render_hw": [dataset.render_height, dataset.render_width],
+                "renders_per_example": dataset.model_frames, "root_seconds": root_s,
+                "root_bytes": root_bytes, "jpg_shape": list(example["jpg"].shape),
+                "cpu_count": os.cpu_count(), "card": smi}
+        log("pardom_host", **host)
+        if tuple(frame.shape) != PD_FRAME_HW + (3,) or example["jpg"].shape != (T, H, W, 3):
+            raise RuntimeError(f"pardom: PNG {frame.shape}, example {example['jpg'].shape}")
+        if not share > 0.0:
+            raise RuntimeError("pardom: no target pixel in a person or vehicle colour")
+
+        # load_trainer builds the training config on the card; the entry,
+        # which builds its own, must train the same parameters.
+        t0 = time.perf_counter()
+        trainer = load_trainer(PD_TRAIN_CONFIG)
+        built = {"seconds": time.perf_counter() - t0, "lr": trainer.optimizer.defaults["lr"],
+                 "trainable": len(trainer.trainable_names),
+                 "trainable_params": sum(m.numel() for m in trainer.masters)}
+        trainable_names = list(trainer.trainable_names)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # train_pardom_semantic.yaml through the entry, to its end-of-run
+        # checkpoint.
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = train_entry.main(["-b", PD_TRAIN_CONFIG, "-l", logs, "--seed", str(SEED),
+                                "--max_steps", str(PD_STEPS), *overrides])
+        run_s = time.perf_counter() - t0
+        train_launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        entry_trainer = run.pop("trainer")
+        same_trainable = (entry_trainer.trainable_names == trainable_names
+                          and entry_trainer.optimizer.defaults["lr"] == built["lr"])
+        del entry_trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        expected = phase7["expected"]
+        misses = per_step_launch_misses(run["launches"], expected)
+        rows = csv_steps(os.path.join(run["logdir"], "metrics.csv"))
+        ckpts = sorted(os.listdir(os.path.join(run["logdir"], "checkpoints")))
+        steady = range(1, len(run["steps"]))  # not the first, made in the caller's thread
+        wait = statistics.median(run["loader_wait_seconds"][i] for i in steady)
+        step = statistics.median(run["step_seconds"][i] for i in steady)
+        result = {
+            "steps": run["steps"], "losses": run["losses"],
+            "loader_wait_seconds": run["loader_wait_seconds"],
+            "step_seconds": run["step_seconds"], "steady_loader_wait_s": wait,
+            "steady_step_s": step, "entry_frames_per_s": TRAIN_B * T / (wait + step),
+            "phase7_frames_per_s": phase7["frames_per_s"], "phase7_ms_per_step": phase7["ms"],
+            "csv_steps": rows, "checkpoints": ckpts, "saves": run["saves"],
+            "launch_misses": misses[:2], "launches": train_launches,
+            "expected_per_step": expected, "run_seconds": run_s, "peak_mem_bytes": peak,
+            "load_trainer": built, "entry_trains_the_same_parameters": same_trainable,
+            "card": smi}
+        log("pardom_train", **result)
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise RuntimeError(f"pardom: a loss is not finite: {run['losses']}")
+        if run["steps"] != list(range(1, PD_STEPS + 1)) or rows != run["steps"]:
+            raise RuntimeError(f"pardom: steps {run['steps']}, CSV rows {rows}")
+        if ckpts != [f"step_{PD_STEPS}"] or [sv["step"] for sv in run["saves"]] != [PD_STEPS]:
+            raise RuntimeError(f"pardom: checkpoints {ckpts}, saves {run['saves']}")
+        if misses:
+            raise RuntimeError(f"pardom: launches {misses[:2]}, expected {expected} a step")
+        if not same_trainable:
+            raise RuntimeError(f"pardom: load_trainer {built} does not train what the "
+                               "entry's trainer trains")
+        del run
+
+        # One clip of infer_pardom.yaml from the first example's ego frames;
+        # the released-config bundle builds the same network.
+        t0 = time.perf_counter()
+        engine = load_engine(PD_INFER_CONFIG)
+        build_s = time.perf_counter() - t0
+        bundle = load_model_bundle(PD_BUNDLE_CONFIG)
+        same = all(torch.equal(a, b) for a, b in zip(engine.parameters(),
+                                                       bundle.engine.parameters()))
+        bundle_meta = {"camera_control": bundle.camera_control, "move_time": bundle.move_time,
+                       "model_name": bundle.model_name, "same_weights": same}
+        del bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+        keys = ("cond_frames", "cond_frames_without_noise", "cond_aug", "fps_id",
+                "motion_bucket_id", "image_only_indicator", "jpg")
+        batch = batch_to_device(collate_fn([{k: example[k] for k in keys}]), "cuda")
+        with torch.no_grad():
+            c, _ = engine.get_unconditional_conditioning(batch, UC_KEYS)
+        vector = tuple(c["vector"].shape)
+        gen = torch.Generator("cuda").manual_seed(SEED + 30)
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = engine.sample_video(batch, generator=gen, decoding_t=T)["sampled_video"]
+        torch.cuda.synchronize()
+        clip_s = time.perf_counter() - t0
+        clip_launches = counts()
+        per_clip = {name: n // CLIPS for name, n in phase6.items()}
+        clip = {"clip_seconds": clip_s, "engine_seconds": build_s, "vector_shape": vector,
+                "frames_shape": list(frames.shape), "frames_std": float(frames.std()),
+                "steps": engine.sampler.num_steps,
+                "max_scale": float(engine.sampler.guider.scale.max()), "launches": clip_launches,
+                "expected": per_clip, "bundle": bundle_meta, "card": smi}
+        log("pardom_clip", **clip)
+        if tuple(frames.shape) != (T, H, W, 3):
+            raise RuntimeError(f"pardom clip: frames shape {tuple(frames.shape)}")
+        if not (torch.isfinite(frames).all() and frames.min() >= 0 and frames.max() <= 1):
+            raise RuntimeError("pardom clip: frames not finite in [0, 1]")
+        if vector != (T, 768) or clip["steps"] != 25 or clip["max_scale"] != 1.5:
+            raise RuntimeError(f"pardom clip: vector {vector}, {clip['steps']} steps, CFG up "
+                               f"to {clip['max_scale']}")
+        if clip_launches != per_clip:
+            raise RuntimeError(f"pardom clip: launches {clip_launches}, expected {per_clip}")
+        if not same or bundle_meta["camera_control"] != "none" or bundle_meta["move_time"] != 13:
+            raise RuntimeError(f"pardom bundle: {bundle_meta}")
+        del engine, frames, c, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = {name: train_launches[name] + clip_launches[name] for name in KERNELS}
+        if not all(launches.values()):
+            raise RuntimeError(f"pardom: a kernel never launched: {launches}")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1613,6 +1863,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     entry_launches = entry_phase(smi, phase7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pardom_launches = pardom_phase(smi, launches, phase7)
 
     # `launches`: the sample_video requests for K1-K5 and K7, the Adam steps
     # for K6 (which only training runs); `served_launches`: the served phase's
@@ -1622,7 +1875,7 @@ def main() -> int:
          "replaces": SOURCES[name][1],
          "launches": train_launches[name] if name == "flash_bwd" else launches[name],
          "served_launches": served_launches[name], "train_launches": train_launches[name],
-         "entry_launches": entry_launches[name],
+         "entry_launches": entry_launches[name], "pardom_launches": pardom_launches[name],
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]

@@ -2,7 +2,8 @@
 gcd_tpu/data/geometry.py).
 
 The camera and trajectory math is a numpy copy of gcd_tpu/data/geometry.py:
-60-200 (what the Kubric path uses). `render_point_cloud` renders with the host C++ /
+60-200 (Kubric's and ParallelDomain's cameras, the spherical conversions and
+the spherical interpolation). `render_point_cloud` renders with the host C++ /
 OpenMP splat (gcd_tpu_torch.native) and raises when that cannot be built.
 `splat_points_to_image` and `blur_into_black` are plain PyTorch versions of
 the same functions, float32 on any device, for the tests and callers that ask
@@ -54,6 +55,45 @@ def get_kubric_camera_matrices(metadata) -> Tuple[np.ndarray, np.ndarray]:
     return all_intrinsics, all_extrinsics
 
 
+def get_pardom_intrinsics_matrix(d) -> np.ndarray:
+    """A PD calibration entry's pixel-space K."""
+    return np.array([[d["fx"], 0.0, d["cx"]], [0.0, d["fy"], d["cy"]], [0.0, 0.0, 1.0]],
+                    dtype=np.float32)
+
+
+def get_pardom_extrinsics_matrix(d) -> np.ndarray:
+    """A PD calibration entry's (4, 4) camera-to-world matrix; the rotation
+    as {qw, qx, qy, qz} or {w, x, y, z}, under `rotation` or `orientation`."""
+    rot_q = d.get("rotation", d.get("orientation"))
+    rot_t = d.get("translation", d.get("position"))
+    if "qw" in rot_q:
+        q = (rot_q["qw"], rot_q["qx"], rot_q["qy"], rot_q["qz"])
+    else:
+        q = (rot_q["w"], rot_q["x"], rot_q["y"], rot_q["z"])
+    ext = np.eye(4, dtype=np.float32)
+    ext[0:3, 0:3] = quaternion_to_rotation_matrix(q)
+    ext[0:3, 3] = [rot_t["x"], rot_t["y"], rot_t["z"]]
+    return ext
+
+
+def get_pardom_camera_matrices(calibration):
+    """(view names sorted, (V, 3, 3) pixel-space K, (V, 4, 4) extrinsics) of
+    a PD scene's calibration, the velodyne views dropped."""
+    view_names = []
+    intr, extr = {}, {}
+    for view_name, i_d, e_d in zip(calibration["names"], calibration["intrinsics"],
+                                   calibration["extrinsics"]):
+        if "velodyne" in view_name.lower():
+            continue
+        intr[view_name] = get_pardom_intrinsics_matrix(i_d)
+        extr[view_name] = get_pardom_extrinsics_matrix(e_d)
+        view_names.append(view_name)
+    view_names = sorted(view_names)
+    all_intrinsics = np.stack([intr[v] for v in view_names])
+    all_extrinsics = np.stack([extr[v] for v in view_names])
+    return view_names, all_intrinsics, all_extrinsics
+
+
 def cartesian_from_spherical(spherical, deg2rad: bool = False) -> np.ndarray:
     azimuth, elevation, radius = spherical[..., 0], spherical[..., 1], spherical[..., 2]
     if deg2rad:
@@ -63,6 +103,33 @@ def cartesian_from_spherical(spherical, deg2rad: bool = False) -> np.ndarray:
     y = radius * np.cos(elevation) * np.sin(azimuth)
     z = radius * np.sin(elevation)
     return np.stack([x, y, z], axis=-1)
+
+
+def spherical_from_cartesian(cartesian, rad2deg: bool = False) -> np.ndarray:
+    """(..., 3) x, y, z -> azimuth, elevation (radians unless `rad2deg`),
+    radius."""
+    radius = np.linalg.norm(cartesian, ord=2, axis=-1)
+    azimuth = np.arctan2(cartesian[..., 1], cartesian[..., 0])
+    elevation = np.arctan2(cartesian[..., 2],
+                           np.linalg.norm(cartesian[..., 0:2], ord=2, axis=-1))
+    if rad2deg:
+        azimuth = np.rad2deg(azimuth)
+        elevation = np.rad2deg(elevation)
+    return np.stack([azimuth, elevation, radius], axis=-1)
+
+
+def interpolate_spherical(cart_start, cart_end, alpha: float) -> np.ndarray:
+    """A point `alpha` of the way from cart_start to cart_end in spherical
+    coordinates (float64), azimuth and elevation taking the short way round."""
+    spher_start = spherical_from_cartesian(np.asarray(cart_start, dtype=np.float64))
+    spher_end = spherical_from_cartesian(np.asarray(cart_end, dtype=np.float64))
+    for i in (0, 1):
+        if spher_end[i] - spher_start[i] > np.pi:
+            spher_end[i] -= 2 * np.pi
+        if spher_end[i] - spher_start[i] < -np.pi:
+            spher_end[i] += 2 * np.pi
+    spher_interp = spher_start * (1 - alpha) + spher_end * alpha
+    return cartesian_from_spherical(spher_interp)
 
 
 def extrinsics_from_look_at(camera_position, camera_look_at) -> np.ndarray:

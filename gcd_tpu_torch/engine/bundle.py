@@ -139,7 +139,7 @@ def load_model_bundle(config_path: str, model_path: Optional[str] = None,
     reported) or, without `model_path`, seeded random weights. On CUDA
     unless `device="cpu"` is asked for."""
     if guidance_interval is not None:
-        raise NotImplementedError("guidance_interval is not ported (ROADMAP Queue 1 item 14)")
+        raise NotImplementedError("guidance_interval is not ported yet")
     test_config = load_config(config_path)
     set_by_path(test_config, "model.params.ckpt_path", model_path)
     set_by_path(test_config, "model.params.use_ema", bool(support_ema))

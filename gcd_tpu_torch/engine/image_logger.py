@@ -8,41 +8,25 @@ conditioning, sampled and target frames stacked vertically per frame as
 `{name}_sample.npz` (key "frames", (T, 3H, W, 3) float32 in [0, 1]) and a
 strip of up to 8 of them as `{name}_strip.png`. The machines the port trains
 on need carry no video or image library, so the frames go to .npz instead of
-.mp4 and the PNG is written by the few lines of zlib and struct below.
+.mp4 and the PNG is written by the port's own writer (data/png.py).
 """
 
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from gcd_tpu_torch.data.loader import batch_to_device
+from gcd_tpu_torch.data.png import write_png
 
 
 def _frame_strip(video01: np.ndarray, max_frames: int = 8) -> np.ndarray:
     t = video01.shape[0]
     sel = np.linspace(0, t - 1, min(t, max_frames)).astype(int)
     return np.concatenate([video01[i] for i in sel], axis=1)
-
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """(H, W, 3) uint8 as an 8-bit RGB PNG, unfiltered rows."""
-    h, w, _ = rgb.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
 class ImageLogger:

@@ -1,11 +1,12 @@
-"""The host point-splat renderer (splat.cpp, C++ / OpenMP), bound with ctypes.
+"""The host renderer and PNG unfilter of the data pipeline (splat.cpp,
+C++ / OpenMP; png.cpp, C++), bound with ctypes.
 
-Built with g++ at first use into gcd_tpu_torch/_build/ (listed in
-.gitignore), keyed by a hash of the source and the flags; nothing is built
-at import. If the library cannot be built or loaded, every call raises:
-there is no slower route in its place. The plain PyTorch versions of the
-same functions (data/geometry.py) serve the tests and callers that ask for
-them by name.
+Each source is built with g++ at first use into gcd_tpu_torch/_build/
+(listed in .gitignore), keyed by a hash of the source and the flags; nothing
+is built at import. If a library cannot be built or loaded, every call
+raises: there is no slower route in its place. The plain versions of the
+same functions (data/geometry.py's splat and blur, data/png.py's
+unfilter_plain) serve the tests and callers that ask for them by name.
 """
 
 from __future__ import annotations
@@ -21,32 +22,35 @@ from typing import Optional
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "splat.cpp"
+PNG_SOURCE = Path(__file__).resolve().parent / "png.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17")
 
 _FP = ctypes.POINTER(ctypes.c_float)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_png_lib: Optional[ctypes.CDLL] = None
 
 
-def build() -> Path:
-    """Compile splat.cpp unless an up-to-date library is already built;
+def build(source: Path = SOURCE, stem: str = "libgcdsplat") -> Path:
+    """Compile `source` unless an up-to-date library is already built;
     returns its path. Raises RuntimeError with the compiler's output if the
     build fails."""
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes()).hexdigest()
-    out = BUILD_DIR / f"libgcdsplat-{digest[:16]}.so"
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + source.read_bytes()).hexdigest()
+    out = BUILD_DIR / f"{stem}-{digest[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
-        proc = subprocess.run([CXX, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
+        proc = subprocess.run([CXX, *CXX_FLAGS, str(source), "-o", str(tmp)],
                               capture_output=True, text=True)
     except OSError as e:
-        raise RuntimeError(f"cannot build the native splat with {CXX!r}: {e}") from e
+        raise RuntimeError(f"cannot build the native {source.stem} with {CXX!r}: {e}") from e
     if proc.returncode != 0:
-        raise RuntimeError(f"{CXX} failed on {SOURCE.name} ({proc.returncode}):\n"
+        raise RuntimeError(f"{CXX} failed on {source.name} ({proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
     os.replace(tmp, out)
     return out
@@ -70,6 +74,38 @@ def library() -> ctypes.CDLL:
                                                 ctypes.c_float]
             _lib = lib
         return _lib
+
+
+def png_library() -> ctypes.CDLL:
+    """The loaded PNG unfilter, built on first use."""
+    global _png_lib
+    with _lock:
+        if _png_lib is None:
+            lib = ctypes.CDLL(str(build(PNG_SOURCE, "libgcdpng")))
+            lib.gcd_png_unfilter.restype = ctypes.c_int
+            lib.gcd_png_unfilter.argtypes = [_U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                                             _U8P]
+            _png_lib = lib
+        return _png_lib
+
+
+def png_unfilter(data: np.ndarray, height: int, row_bytes: int, bpp: int) -> np.ndarray:
+    """Reconstruct a PNG's decompressed image data (`height` rows of a
+    filter-type byte and `row_bytes` bytes) with `bpp` bytes a pixel:
+    (height, row_bytes) uint8. Raises ValueError on a filter type outside
+    0-4."""
+    lib = png_library()
+    src = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+    if src.size != height * (row_bytes + 1) or bpp < 1:
+        raise ValueError(f"{src.size} bytes of image data for {height} rows of {row_bytes} "
+                         f"bytes and {bpp} bytes a pixel")
+    out = np.empty((height, row_bytes), dtype=np.uint8)
+    rc = lib.gcd_png_unfilter(src.ctypes.data_as(_U8P), height, row_bytes, bpp,
+                              out.ctypes.data_as(_U8P))
+    if rc != 0:
+        raise ValueError(f"row {rc - 1}: filter type {int(src[(rc - 1) * (row_bytes + 1)])} "
+                         "is not one of PNG's five (0-4)")
+    return out
 
 
 def _fptr(a: np.ndarray):

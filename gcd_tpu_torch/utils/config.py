@@ -86,6 +86,8 @@ REGISTRY = {
         "gcd_tpu_torch.diffusion.weighting.EpsWeighting",
     "sgm.data.kubric_arbit.KubricSynthViewModule":
         "gcd_tpu_torch.data.kubric.KubricSynthViewModule",
+    "sgm.data.pardom_arbit.ParallelDomainSynthViewModule":
+        "gcd_tpu_torch.data.pardom.ParallelDomainSynthViewModule",
 }
 
 

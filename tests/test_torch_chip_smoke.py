@@ -220,3 +220,13 @@ def test_csv_steps(tmp_path):
     path = tmp_path / "metrics.csv"
     path.write_text("step,epoch,loss,grad_norm,lr\n1,0,0.5,0.1,2e-05\n2,0,0.4,0.1,2e-05\n")
     assert chip_smoke.csv_steps(str(path)) == [1, 2]
+
+
+def test_class_pixel_share_counts_the_pixels_the_loss_weighs():
+    from gcd_tpu_torch.diffusion.loss import PERSON_RGB, VEHICLE_RGB
+
+    jpg = np.full((2, 4, 5, 3), 0.9, np.float32)  # near no class colour
+    jpg[0, 0, :2] = np.asarray(PERSON_RGB[1], np.float32) / 127.5 - 1.0
+    jpg[1, 3, 4] = np.asarray(VEHICLE_RGB[-1], np.float32) / 127.5 - 1.0 + 0.015
+    jpg[1, 2, 2] = np.asarray(VEHICLE_RGB[0], np.float32) / 127.5 - 1.0 + 0.025  # too far
+    assert chip_smoke.class_pixel_share(jpg) == 3 / 40

@@ -81,6 +81,33 @@ def test_flagship_state_dict_matches_reference_keys():
     assert {k: got[k] for k in want if got[k] != want[k]} == {}
 
 
+@pytest.fixture(scope="module")
+def pardom_clip_keys():
+    """The CLIP embedder's keys; the PD configs' CLIP is the flagship's."""
+    return _clip_keys_from_jax(load_config(os.path.join(REPO, "configs", "infer_pardom.yaml")))
+
+
+@pytest.mark.parametrize("config", ["configs/infer_pardom.yaml",
+                                    "pretrained/pardom_gradual_semantic.yaml",
+                                    "configs/train_pardom_semantic.yaml"])
+def test_pardom_configs_state_dict_matches_reference_keys(config, pardom_clip_keys):
+    """The ParallelDomain configs build the base conditioner (no camera
+    embedder) and a UNet with a 768-wide label embedding and no
+    aux_label_emb: the reference key space less those two, so a released
+    PD checkpoint loads with strict=True."""
+    cfg = load_config(os.path.join(REPO, config))
+    with torch.device("meta"):
+        engine = instantiate_from_config(cfg["model"])
+    got = {k: tuple(v.shape) for k, v in engine.state_dict().items()}
+    want = {k: v for k, v in _manifest().items()
+            if not k.startswith(("conditioner.embedders.5.", "model.diffusion_model.aux_label_emb."))}
+    want.update(pardom_clip_keys)
+    assert len(engine.conditioner.embedders) == 5
+    assert sorted(set(want) - set(got)) == [] and sorted(set(got) - set(want)) == []
+    assert {k: got[k] for k in want if got[k] != want[k]} == {}
+    assert got["model.diffusion_model.label_emb.0.0.weight"] == (1280, 768)
+
+
 def test_load_engine_puts_the_model_on_the_card_or_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -119,9 +146,10 @@ def _chip_smoke_imports():
 
 _NO_JAX = (
     "import sys\n"
-    "bad = sorted(m for m in sys.modules if m in ('jax', 'gcd_tpu', 'cv2', 'imageio')\n"
+    "bad = sorted(m for m in sys.modules if m in ('jax', 'gcd_tpu', 'cv2', 'imageio',\n"
+    "                                              'matplotlib', 'PIL')\n"
     "             or m.startswith(('jax.', 'flax', 'gcd_tpu.', 'orbax', 'cv2.',\n"
-    "                              'imageio.')))\n"
+    "                              'imageio.', 'matplotlib.', 'PIL.')))\n"
     "assert not bad, bad\n"
 )
 
@@ -135,8 +163,8 @@ def _run_no_jax(code: str) -> None:
 
 def test_port_imports_no_jax():
     """Importing every gcd_tpu_torch module loads neither JAX nor any module
-    of the JAX package, nor cv2, imageio or orbax (the card's machine has
-    none of them)."""
+    of the JAX package, nor cv2, imageio, matplotlib, PIL or orbax (the
+    card's machine has none of them)."""
     _run_no_jax(
         "import importlib, pkgutil\n"
         "import gcd_tpu_torch\n"
@@ -151,7 +179,8 @@ def test_port_imports_no_jax():
         "            'gcd_tpu_torch.train', 'gcd_tpu_torch.data.common',\n"
         "            'gcd_tpu_torch.data.geometry', 'gcd_tpu_torch.data.loader',\n"
         "            'gcd_tpu_torch.data.kubric', 'gcd_tpu_torch.data.fake',\n"
-        "            'gcd_tpu_torch.native', 'gcd_tpu_torch.engine.image_logger'}\n"
+        "            'gcd_tpu_torch.native', 'gcd_tpu_torch.engine.image_logger',\n"
+        "            'gcd_tpu_torch.data.pardom', 'gcd_tpu_torch.data.png'}\n"
         "serving = {'gcd_tpu_torch.ops.fused_gn_conv', 'gcd_tpu_torch.engine.server',\n"
         "           'gcd_tpu_torch.engine.bundle', 'gcd_tpu_torch.serve',\n"
         "           'gcd_tpu_torch.io.checkpoint'}\n"
@@ -165,6 +194,7 @@ def test_chip_smoke_imports_no_jax():
     assert {"gcd_tpu_torch.engine.build", "gcd_tpu_torch.engine.trainer",
             "gcd_tpu_torch.engine.server", "gcd_tpu_torch.engine.bundle",
             "gcd_tpu_torch.serve", "gcd_tpu_torch.data.fake",
-            "gcd_tpu_torch.data.kubric", "gcd_tpu_torch.train"} <= set(mods)
+            "gcd_tpu_torch.data.kubric", "gcd_tpu_torch.train",
+            "gcd_tpu_torch.data.pardom", "gcd_tpu_torch.data.png"} <= set(mods)
     _run_no_jax("import importlib, chip_smoke\n"
                 + "".join(f"importlib.import_module({m!r})\n" for m in mods))
