@@ -27,7 +27,11 @@ without the final `ok` line):
                    the served batch; K1, K2 and K3 likewise at B*T = 28
                    and 56, K1 also at D = 128 and K2 also at D = 16, 80
                    and 128 at ds2's width); K4 / K5
-                   also on channels-first copies of those shapes; every
+                   also on channels-first copies of those shapes; K1, K2,
+                   K3, K7 and K4 / K5 also at the shapes and GroupNorm
+                   sites of a B*T = 14 UNet evaluation (a plain step of
+                   guidance_interval: every channels-last K4 site there
+                   must take the split route); every
                    kernel bit-identical on a second call (none uses
                    atomics). CUDA-event and
                    host enqueue times beside the bound (achieved TFLOP/s and
@@ -93,6 +97,28 @@ without the final `ok` line):
                    prints the loader's wait against the step, entry
                    frames/s beside phase 7's, the checkpoint's size and
                    save / restore seconds and peak memory.
+  eval           - the inference and evaluation entries, on phase 8's run
+                   directory before it is removed (its trainer freed):
+                   gcd_tpu_torch.test.main on configs/infer_kubric.yaml
+                   with phase 8's checkpoints/step_4 (whose run config
+                   names the synthetic root), scene 0, 2 generated
+                   controls, 2 samples each, 14 frames at 384x256, 25
+                   steps: both controls in the summary, PSNR, SSIM and
+                   their visible / occluded variants finite, the first
+                   example's reprojection covering a share of pixels
+                   strictly between 0 and 1, per-frame arrays (2, 14), the
+                   frames finite in [0, 1], each kernel's launches per
+                   clip phase 6's; the split of an example (data render,
+                   seconds a sample, metrics). Then
+                   gcd_tpu_torch.infer.main on an .npz of 14 seeded random
+                   frames and a PNG, 2 samples each, camera move (30, 15,
+                   0): every output file, the frames, diversity_std > 0,
+                   the launches. Then one random request of the flagship
+                   with guidance_interval (0.3, 100): its launches from
+                   phase 4's per-evaluation counts at B*T = 28 (guided
+                   steps) and 14 (plain steps), its frames within 2e-2 of
+                   the same request with every kernel off, and its time
+                   against full CFG (wall time in turns, and device time).
   9. pardom      - the ParallelDomain configs, after phase 8's run is freed:
                    a synthetic root in a temporary directory (1 scene of
                    the dataset's 50 frames, 19 views x 640 x 480 points a
@@ -221,6 +247,13 @@ PD_FRAMES, PD_VIEWS, PD_POINTS, PD_FRAME_HW = 50, 19, 640 * 480, (480, 640)
 PD_STEPS = 3
 PD_DATASET_SIZE = PD_STEPS * TRAIN_B
 PD_SEGM_CELL = 3.0
+# The eval phase: the test entry on 2 generated controls of scene 0, 2
+# samples each; the infer entry on an .npz clip and a PNG, 2 samples each,
+# with a camera move of (azimuth, elevation, radius); a guidance_interval
+# request, CFG only at sigma in [0.3, 100].
+EVAL_CONTROLS, EVAL_SAMPLES = 2, 2
+EVAL_MOVE = (30.0, 15.0, 0.0)
+EVAL_INTERVAL = (0.3, 100.0)
 SERVE_BATCH = 2   # clips per served batch
 SERVE_REQUESTS = 4
 SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
@@ -608,6 +641,15 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
                lambda q=q2, k=k2, v=v2, h=heads: flash_attention_plain(q, k, v, h),
                lambda sh=sh2: F.scaled_dot_product_attention(*sh),
                2 * qkv_bytes, 4 * bs * s * s * c, BF16_FLOPS)
+        # The plain steps' shape (guidance_interval: the conditional half
+        # alone, B*T = 14): 0 launches per clip.
+        q1, k1, v1 = q[T:], k[T:], v[T:]
+        sh1 = [z[T:] for z in sh]
+        yield ("flash", flash_label(name, T, s, heads), 0,
+               lambda q=q1, k=k1, v=v1, h=heads: flash_attention(q, k, v, h),
+               lambda q=q1, k=k1, v=v1, h=heads: flash_attention_plain(q, k, v, h),
+               lambda sh=sh1: F.scaled_dot_product_attention(*sh),
+               qkv_bytes // 2, 4 * T * s * s * c, BF16_FLOPS)
         # The training shapes: B*T = 28 (2 clips of 14 frames), one K6 per
         # spatial transformer block per step. Five S x S x D products per
         # head; q, k, v, dO read and dQ, dK, dV written once.
@@ -626,10 +668,11 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
                    lambda q=q, k=k, v=v, h=h2: flash_attention_plain(q, k, v, h),
                    lambda sh=sh3: F.scaled_dot_product_attention(*sh),
                    qkv_bytes, 4 * BT * s * s * c, BF16_FLOPS)
-        # K2 at one clip's shape and at the served batch's (0 launches per
-        # clip); the library call is SDPA on the frame-major relayout.
+        # K2 at one clip's shape, and at the plain steps' and the served
+        # batch's (0 launches per clip); the library call is SDPA on the
+        # frame-major relayout.
         for bt, (qt, kt, vt), launches in ((BT, (q, k, v), blocks * steps),
-                                            (bs, (q2, k2, v2), 0)):
+                                            (T, (q1, k1, v1), 0), (bs, (q2, k2, v2), 0)):
             th = [z.reshape(bt // T, T, s, heads, 64).permute(0, 2, 3, 1, 4)
                   .reshape(bt // T * s, heads, T, 64).contiguous() for z in (qt, kt, vt)]
             yield ("tattn", tattn_label(name, bt, s, c), launches,
@@ -653,9 +696,10 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
         inner = 4 * c
         w1, b1 = randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, std=0.1)
         w2, b2 = randn(c, inner, std=inner ** -0.5), randn(c, std=0.1)
-        # One clip's shape, and the served batch's (two clips): 0 launches per
-        # clip.
-        for m, launches in ((BT * s, 3 * blocks * steps), (SERVE_BATCH * BT * s, 0)):
+        # One clip's shape, and the plain steps' and the served batch's (two
+        # clips): 0 launches per clip.
+        for m, launches in ((BT * s, 3 * blocks * steps), (T * s, 0),
+                            (SERVE_BATCH * BT * s, 0)):
             x = randn(m, c)
             yield ("fused_mlp", mlp_label(name, m, c, inner), launches,
                    lambda a=(x, w1, b1, w2, b2): geglu_mlp(*a),
@@ -729,8 +773,10 @@ def gn_conv_cases(gen: torch.Generator, sites: Counter):
 
 
 def serve(smi: str):
-    """Phases 3-6. Returns (per-kernel statistics of phase 4, launches over
-    phase 6's requests, the engine)."""
+    """Phases 3-6 and the served phase. Returns (per-kernel statistics of
+    phase 4, launches over phase 6's requests, the served phase's launches,
+    the launch model: each kernel's launches per clip and per UNet
+    evaluation at B*T = 28 and 14)."""
     from gcd_tpu_torch.engine.build import load_engine
     from gcd_tpu_torch.models.attention import BasicTransformerBlock
     from gcd_tpu_torch.models.embedders import VideoPredictionEmbedderWithEncoder
@@ -780,6 +826,13 @@ def serve(smi: str):
     def denoise():
         return engine.denoiser(network, x, sigma, cond)
 
+    # A plain step of guidance_interval: the conditional half alone (B*T = 14).
+    cond14 = {k: v[T:] for k, v in cond.items()}
+
+    def denoise14():
+        return engine.denoiser(lambda xin, c_noise, cc: engine.network_fn(
+            xin, c_noise, cc, T, ioi[1:]), x[T:], sigma[T:], cond14)
+
     def decode():
         return engine.decode_first_stage(z, T)
 
@@ -789,6 +842,10 @@ def serve(smi: str):
             denoise()
         with record_groupnorms(engine, gn_calls["decode"]):
             decode()
+        gn_unet14, gn_conv_calls14 = Counter(), Counter()
+        with record_groupnorms(engine, gn_unet14), \
+                record_gn_conv_sites(engine, gn_conv_calls14):
+            denoise14()
     cond_encoders = [m.encoder.encoder for m in engine.conditioner.embedders
                      if isinstance(m, VideoPredictionEmbedderWithEncoder)]
     # K7 takes the GroupNorm of 44 chains of the UNet: those GroupNorm32
@@ -798,9 +855,13 @@ def serve(smi: str):
                   "unet": count_modules(unet, GroupNorm32) - k7_sites,
                   "decode": count_modules(engine.first_stage_model.decoder, GroupNorm32)}
     gn_per_pass = {stage: sum(calls.values()) for stage, calls in gn_calls.items()}
-    if gn_per_pass != gn_modules or sum(gn_conv_calls.values()) != k7_sites:
+    if (gn_per_pass != gn_modules or sum(gn_conv_calls.values()) != k7_sites
+            or sum(gn_unet14.values()) != gn_modules["unet"]
+            or sum(gn_conv_calls14.values()) != k7_sites):
         raise RuntimeError(f"GroupNorm calls per pass {gn_per_pass} != modules {gn_modules}, "
-                           f"or K7 calls {sum(gn_conv_calls.values())} != sites {k7_sites}")
+                           f"or K7 calls {sum(gn_conv_calls.values())} != sites {k7_sites} "
+                           f"(B*T = 14: {sum(gn_unet14.values())}, "
+                           f"{sum(gn_conv_calls14.values())})")
     per_clip = {"cond": 1, "unet": steps, "decode": 1}
     gn_sites = Counter()
     for stage, calls in gn_calls.items():
@@ -809,6 +870,8 @@ def serve(smi: str):
     log("groupnorm_sites", per_pass=gn_per_pass, distinct_shapes=len(gn_sites),
         gn_conv_per_pass=k7_sites, gn_conv_shapes=len(gn_conv_calls))
     gn_conv_sites = Counter({site: steps * n for site, n in gn_conv_calls.items()})
+    for site in gn_conv_calls14:  # the plain steps' shapes: 0 launches per clip
+        gn_conv_sites[site] += 0
     # The served batch's shapes (B*T = 56 in the UNet): 0 launches per clip,
     # `served_k7` launches per served batch.
     served_k7 = {}
@@ -839,6 +902,8 @@ def serve(smi: str):
             b, c5, t, h, w = shape
             view = torch.empty(b, t, c5, h, w, device="meta").transpose(1, 2)
             gn_checked[(shape, memory_layout(view), eps, silu)] += 0
+    for site in gn_unet14:  # the plain steps' sites: 0 launches per clip
+        gn_checked[site] += 0
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     stats = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -913,6 +978,14 @@ def serve(smi: str):
     log("groupnorm_per_pass", **by_stage, card=smi)
     # K4 per clip by variant (the split sites' K5 runs inside K4's call).
     log("groupnorm_per_variant", **{v: dict(c) for v, c in gn_by_variant.items()}, card=smi)
+    # At B*T = 14 no sample count reaches K4's one-pass minimum: every
+    # channels-last site takes the split route.
+    variants14 = {site_label(k): gn_variants[site_label(k)] for k in gn_unet14}
+    log("groupnorm_variants_bt14", sites=variants14, card=smi)
+    one_pass14 = [site_label(k) for k in gn_unet14
+                  if k[1] == "channels_last" and gn_variants[site_label(k)] != "split"]
+    if one_pass14:
+        raise RuntimeError(f"K4 at B*T = 14 takes one pass at {one_pass14}")
     for name, sites in served_sites.items():
         log("kernel_served", kernel=name, per_batch=served_ms[name],
             launches_per_batch=sum(sites.values()), card=smi)
@@ -997,6 +1070,17 @@ def serve(smi: str):
     # A served batch: one conditioner pass and one UNet pass for its clips,
     # and one decode per clip (decoding_t = T).
     per_batch = dict(expected, **gn_launches(dict(per_clip, decode=SERVE_BATCH)))
+    # One UNet evaluation, guided (B*T = 28) or plain (14): K5 follows K4's
+    # split rule at each N, the others launch once per site at either.
+    per_eval = {n: {"flash": count_modules(unet, BasicTransformerBlock), "flash_bwd": 0,
+                    "tattn": count_modules(unet, VideoTransformerBlock),
+                    "fused_mlp": count_modules(unet, FeedForward),
+                    "fused_gn": gn_modules["unet"], "gn_stats": calls + k7_sites,
+                    "fused_gn_conv": k7_sites}
+                for n, calls in ((BT, split["unet"]), (T, split_calls(gn_unet14)))}
+    # The conditioner's and the decode's launches, once a clip.
+    outside = {name: n - steps * per_eval[BT][name] for name, n in expected.items()}
+    launch_model = {"per_clip": expected, "per_eval": per_eval, "outside_unet": outside}
     clip_s = []
     torch.cuda.reset_peak_memory_stats()
     for fn in KERNELS.values():
@@ -1041,7 +1125,8 @@ def serve(smi: str):
         frames_rel_l2=k7_rel, tol=AB_TOL, card=smi)
     if not k7_rel <= AB_TOL:
         raise RuntimeError(f"clip frames, K7 on vs off: relative L2 {k7_rel} > {AB_TOL}")
-    return stats, launches, served(engine, smi, per_batch)
+    log("launch_model", **launch_model)
+    return stats, launches, served(engine, smi, per_batch), launch_model
 
 
 def post_npz(url: str, arrays: dict, timeout: float = 600.0) -> dict:
@@ -1450,8 +1535,9 @@ def check_image_log(prefix: str) -> dict:
     return {"frames_shape": list(frames.shape), "strip_hw": list(strip.shape[:2])}
 
 
-def entry_phase(smi: str, phase7: dict) -> dict:
-    """Phase 8. Returns the kernel launches over the entry's two runs."""
+def entry_phase(smi: str, phase7: dict, work: str):
+    """Phase 8, in the directory `work`. Returns the kernel launches over the
+    entry's two runs and the run directory, which stays for the eval phase."""
     import gcd_tpu_torch.train as train_entry
     from gcd_tpu_torch.data.fake import make_kubric_root
     from gcd_tpu_torch.data.kubric import KubricSynthViewModule, load_point_cloud_file
@@ -1463,139 +1549,354 @@ def entry_phase(smi: str, phase7: dict) -> dict:
     def counts():
         return {name: fn.launches for name, fn in KERNELS.items()}
 
-    work = tempfile.mkdtemp(prefix="gcd_entry_")
+    root, logs = os.path.join(work, "kubric"), os.path.join(work, "logs")
+    overrides = [f"data.params.dset_root={root}/data", f"data.params.pcl_root={root}/pcl",
+                 "data.params.train_videos=1", "data.params.val_videos=0",
+                 f"data.params.avail_frames={ENTRY_FRAMES}",
+                 f"data.params.mock_dset_size={ENTRY_DATASET_SIZE}",
+                 "model.params.ckpt_path=null",
+                 f"lightning.modelcheckpoint.params.every_n_train_steps={ENTRY_STEPS}",
+                 f"lightning.callbacks.image_logger.params.batch_frequency={ENTRY_STEPS}"]
+    # Two checkpoints (steps 4 and 6) and the root must fit on this disk.
+    root_bytes = ENTRY_FRAMES * ENTRY_VIEWS * ENTRY_POINTS * 3 * 4
+    need = 2 * phase7["checkpoint_bytes"] + root_bytes
+    free = shutil.disk_usage(work).free
+    log("entry_disk", path=work, free_bytes=free, need_bytes=need,
+        checkpoint_bytes_estimate=phase7["checkpoint_bytes"])
+    if free < need:
+        raise RuntimeError(f"{work}: {free} bytes free, the entry phase needs {need}")
+    t0 = time.perf_counter()
+    make_kubric_root(root, n_frames=ENTRY_FRAMES, n_views=ENTRY_VIEWS,
+                     n_points=ENTRY_POINTS, seed=SEED)
+    root_s = time.perf_counter() - t0
+
+    # The host renderer alone: one frame's cloud at the config's 420x280,
+    # then one whole example (28 renders, load, resize).
+    config = apply_dotlist(load_config(TRAIN_CONFIG), overrides)
+    dataset = KubricSynthViewModule(**config["data"]["params"]).train_dataset
+    xyz, rgb, _ = load_point_cloud_file(os.path.join(root, "pcl", "scn00000",
+                                                     "pcl_rgb_segm_00000.pt"))
+    xyz = xyz.reshape(-1, 3).astype(np.float32)
+    rgb = rgb.reshape(-1, 3).astype(np.float32) / 255.0
+    intrinsics = dataset._used_intrinsics(geometry.get_kubric_camera_matrices(load_json(
+        os.path.join(root, "data", "scn00000", "scn00000_p0_v4.json")))[0][0])
+    _, _, extrinsics, _, _ = dataset.sample_trajectories(np.random.default_rng(SEED))
+    render_s = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        img = geometry.render_point_cloud(xyz, rgb, intrinsics, extrinsics[0],
+                                          dataset.render_height, dataset.render_width)
+        render_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    example = dataset[0]
+    example_s = time.perf_counter() - t0
+    log("entry_render", cpu_count=os.cpu_count(), points=int(xyz.shape[0]),
+        render_hw=[dataset.render_height, dataset.render_width],
+        render_ms=1e3 * statistics.median(render_s[1:]), render_ms_all=render_s,
+        example_seconds=example_s, renders_per_example=2 * dataset.model_frames,
+        root_seconds=root_s, root_bytes=root_bytes,
+        image_mean=float(img.mean()), jpg_shape=list(example["jpg"].shape), card=smi)
+    del xyz, rgb, example
+
+    # Run 1: four steps, the checkpoint and the image log at step 4.
+    for fn in KERNELS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run1 = train_entry.main(["-b", TRAIN_CONFIG, "-l", logs, "--seed", str(SEED),
+                             "--max_steps", str(ENTRY_STEPS), *overrides])
+    run1_s = time.perf_counter() - t0
+    peak1 = torch.cuda.max_memory_allocated()
+    trainer = run1.pop("trainer")
+    saved = cpu_state(trainer.state_dict())
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Run 2: resume from step 4 to step 6; the restored state first.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_entry.setup(["--resume", run1["logdir"], "--seed", str(SEED),
+                             "--max_steps", str(ENTRY_RESUME_STEPS)])
+    setup2_s = time.perf_counter() - t0
+    restore_misses = state_mismatches(run.trainer.state_dict(), saved)
+    del saved
+    run2 = train_entry.fit(run)
+    run2_s = time.perf_counter() - t0
+    peak2 = torch.cuda.max_memory_allocated()
+    launches = counts()
+    run2.pop("trainer")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    expected = phase7["expected"]
+    steps = run1["steps"] + run2["steps"]
+    losses = run1["losses"] + run2["losses"]
+    waits = run1["loader_wait_seconds"] + run2["loader_wait_seconds"]
+    step_s = run1["step_seconds"] + run2["step_seconds"]
+    misses = per_step_launch_misses(run1["launches"] + run2["launches"], expected)
+    ckpts = sorted(os.listdir(os.path.join(run1["logdir"], "checkpoints")))
+    rows = csv_steps(os.path.join(run1["logdir"], "metrics.csv"))
+    images = [check_image_log(im["prefix"]) for im in run1["image_logs"]]
+    # Steady steps: not the first of a run, whose batch the loader makes
+    # in the caller's thread before its workers start.
+    steady = [i for i in range(len(steps)) if i not in (0, len(run1["steps"]))]
+    loop_s = statistics.median(waits[i] + step_s[i] for i in steady)
+    saves = run1["saves"] + run2["saves"]
+    result = {
+        "steps": steps, "losses": losses, "loader_wait_seconds": waits,
+        "step_seconds": step_s, "steady_loader_wait_s": statistics.median(
+            waits[i] for i in steady),
+        "steady_step_s": statistics.median(step_s[i] for i in steady),
+        "entry_frames_per_s": TRAIN_B * T / loop_s,
+        "entry_step_only_frames_per_s": TRAIN_B * T / statistics.median(
+            step_s[i] for i in steady),
+        "phase7_frames_per_s": phase7["frames_per_s"], "phase7_ms_per_step": phase7["ms"],
+        "checkpoints": ckpts, "csv_steps": rows,
+        "saves": saves, "checkpoint_gb": [sv["bytes"] / 1e9 for sv in saves],
+        "restore_seconds": run2["restore_seconds"], "resume_setup_seconds": setup2_s,
+        "start_step_after_resume": run2["start_step"], "final_step": run2["global_step"],
+        "restore_mismatches": restore_misses[:8], "image_logs": run1["image_logs"],
+        "image_files": images, "launch_misses": misses[:2], "launches": launches,
+        "expected_per_step": expected, "run_seconds": [run1_s, run2_s],
+        "peak_mem_bytes": max(peak1, peak2), "cpu_count": os.cpu_count(), "card": smi}
+    log("entry", **result)
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"entry: a loss is not finite: {losses}")
+    if steps != list(range(1, ENTRY_RESUME_STEPS + 1)) or rows != steps:
+        raise RuntimeError(f"entry: steps {steps}, CSV rows {rows}")
+    if f"step_{ENTRY_STEPS}" not in ckpts or run2["start_step"] != ENTRY_STEPS \
+            or run2["global_step"] != ENTRY_RESUME_STEPS:
+        raise RuntimeError(f"entry: checkpoints {ckpts}, resumed at {run2['start_step']} "
+                           f"to {run2['global_step']}")
+    if restore_misses:
+        raise RuntimeError(f"entry: the restored state differs at {restore_misses[:8]}")
+    if len(images) != 1:
+        raise RuntimeError(f"entry: {len(images)} image logs, expected 1")
+    if misses or not all(launches.values()):
+        raise RuntimeError(f"entry: launches {misses[:2]} (all: {launches}), expected "
+                           f"{expected} a step")
+    return launches, run1["logdir"]
+
+
+@contextmanager
+def recorded_samples(eval_utils):
+    """The sampled frames (host float32) of every sample the entries draw
+    while inside: eval_utils.make_sampler wrapped to record them."""
+    frames, make = [], eval_utils.make_sampler
+
+    def recording(*args, **kwargs):
+        sample = make(*args, **kwargs)
+
+        def wrapped(batch, seed):
+            out = sample(batch, seed)
+            frames.append(out["sampled_video"])
+            return out
+
+        return wrapped
+
+    eval_utils.make_sampler = recording
     try:
-        root, logs = os.path.join(work, "kubric"), os.path.join(work, "logs")
-        overrides = [f"data.params.dset_root={root}/data", f"data.params.pcl_root={root}/pcl",
-                     "data.params.train_videos=1", "data.params.val_videos=0",
-                     f"data.params.avail_frames={ENTRY_FRAMES}",
-                     f"data.params.mock_dset_size={ENTRY_DATASET_SIZE}",
-                     "model.params.ckpt_path=null",
-                     f"lightning.modelcheckpoint.params.every_n_train_steps={ENTRY_STEPS}",
-                     f"lightning.callbacks.image_logger.params.batch_frequency={ENTRY_STEPS}"]
-        # Two checkpoints (steps 4 and 6) and the root must fit on this disk.
-        root_bytes = ENTRY_FRAMES * ENTRY_VIEWS * ENTRY_POINTS * 3 * 4
-        need = 2 * phase7["checkpoint_bytes"] + root_bytes
-        free = shutil.disk_usage(work).free
-        log("entry_disk", path=work, free_bytes=free, need_bytes=need,
-            checkpoint_bytes_estimate=phase7["checkpoint_bytes"])
-        if free < need:
-            raise RuntimeError(f"{work}: {free} bytes free, the entry phase needs {need}")
-        t0 = time.perf_counter()
-        make_kubric_root(root, n_frames=ENTRY_FRAMES, n_views=ENTRY_VIEWS,
-                         n_points=ENTRY_POINTS, seed=SEED)
-        root_s = time.perf_counter() - t0
+        yield frames
+    finally:
+        eval_utils.make_sampler = make
 
-        # The host renderer alone: one frame's cloud at the config's 420x280,
-        # then one whole example (28 renders, load, resize).
-        config = apply_dotlist(load_config(TRAIN_CONFIG), overrides)
-        dataset = KubricSynthViewModule(**config["data"]["params"]).train_dataset
-        xyz, rgb, _ = load_point_cloud_file(os.path.join(root, "pcl", "scn00000",
-                                                         "pcl_rgb_segm_00000.pt"))
-        xyz = xyz.reshape(-1, 3).astype(np.float32)
-        rgb = rgb.reshape(-1, 3).astype(np.float32) / 255.0
-        intrinsics = dataset._used_intrinsics(geometry.get_kubric_camera_matrices(load_json(
-            os.path.join(root, "data", "scn00000", "scn00000_p0_v4.json")))[0][0])
-        _, _, extrinsics, _, _ = dataset.sample_trajectories(np.random.default_rng(SEED))
-        render_s = []
-        for _ in range(6):
-            t0 = time.perf_counter()
-            img = geometry.render_point_cloud(xyz, rgb, intrinsics, extrinsics[0],
-                                              dataset.render_height, dataset.render_width)
-            render_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        example = dataset[0]
-        example_s = time.perf_counter() - t0
-        log("entry_render", cpu_count=os.cpu_count(), points=int(xyz.shape[0]),
-            render_hw=[dataset.render_height, dataset.render_width],
-            render_ms=1e3 * statistics.median(render_s[1:]), render_ms_all=render_s,
-            example_seconds=example_s, renders_per_example=2 * dataset.model_frames,
-            root_seconds=root_s, root_bytes=root_bytes,
-            image_mean=float(img.mean()), jpg_shape=list(example["jpg"].shape), card=smi)
-        del xyz, rgb, example
 
-        # Run 1: four steps, the checkpoint and the image log at step 4.
+def check_frames(what: str, frames, shape) -> None:
+    if tuple(frames.shape) != shape or not (np.isfinite(frames).all() and frames.min() >= 0.0
+                                            and frames.max() <= 1.0):
+        raise RuntimeError(f"{what}: frames {tuple(frames.shape)} not finite in [0, 1] of "
+                           f"shape {shape}")
+
+
+def eval_phase(smi: str, launch_model: dict, logdir: str, work: str) -> dict:
+    """The eval phase, on phase 8's run directory: the test entry on its
+    step_4 checkpoint, the infer entry on an .npz clip and a PNG, and a
+    guidance_interval request against the kernels-off one. Returns the
+    kernel launches over the three."""
+    import gcd_tpu_torch.infer as infer_entry
+    import gcd_tpu_torch.test as test_entry
+    import gcd_tpu_torch.eval_utils as eval_utils
+    from gcd_tpu_torch.data.png import write_png
+    from gcd_tpu_torch.engine.bundle import load_model_bundle
+    from gcd_tpu_torch.ops import KERNELS, kernel_flags
+
+    def reset():
         for fn in KERNELS.values():
             fn.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        run1 = train_entry.main(["-b", TRAIN_CONFIG, "-l", logs, "--seed", str(SEED),
-                                 "--max_steps", str(ENTRY_STEPS), *overrides])
-        run1_s = time.perf_counter() - t0
-        peak1 = torch.cuda.max_memory_allocated()
-        trainer = run1.pop("trainer")
-        saved = cpu_state(trainer.state_dict())
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
 
-        # Run 2: resume from step 4 to step 6; the restored state first.
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        run = train_entry.setup(["--resume", run1["logdir"], "--seed", str(SEED),
-                                 "--max_steps", str(ENTRY_RESUME_STEPS)])
-        setup2_s = time.perf_counter() - t0
-        restore_misses = state_mismatches(run.trainer.state_dict(), saved)
-        del saved
-        run2 = train_entry.fit(run)
-        run2_s = time.perf_counter() - t0
-        peak2 = torch.cuda.max_memory_allocated()
-        launches = counts()
-        run2.pop("trainer")
-        del run
-        gc.collect()
-        torch.cuda.empty_cache()
+    def counts():
+        return {name: fn.launches for name, fn in KERNELS.items()}
 
-        expected = phase7["expected"]
-        steps = run1["steps"] + run2["steps"]
-        losses = run1["losses"] + run2["losses"]
-        waits = run1["loader_wait_seconds"] + run2["loader_wait_seconds"]
-        step_s = run1["step_seconds"] + run2["step_seconds"]
-        misses = per_step_launch_misses(run1["launches"] + run2["launches"], expected)
-        ckpts = sorted(os.listdir(os.path.join(run1["logdir"], "checkpoints")))
-        rows = csv_steps(os.path.join(run1["logdir"], "metrics.csv"))
-        images = [check_image_log(im["prefix"]) for im in run1["image_logs"]]
-        # Steady steps: not the first of a run, whose batch the loader makes
-        # in the caller's thread before its workers start.
-        steady = [i for i in range(len(steps)) if i not in (0, len(run1["steps"]))]
-        loop_s = statistics.median(waits[i] + step_s[i] for i in steady)
-        saves = run1["saves"] + run2["saves"]
-        result = {
-            "steps": steps, "losses": losses, "loader_wait_seconds": waits,
-            "step_seconds": step_s, "steady_loader_wait_s": statistics.median(
-                waits[i] for i in steady),
-            "steady_step_s": statistics.median(step_s[i] for i in steady),
-            "entry_frames_per_s": TRAIN_B * T / loop_s,
-            "entry_step_only_frames_per_s": TRAIN_B * T / statistics.median(
-                step_s[i] for i in steady),
-            "phase7_frames_per_s": phase7["frames_per_s"], "phase7_ms_per_step": phase7["ms"],
-            "checkpoints": ckpts, "csv_steps": rows,
-            "saves": saves, "checkpoint_gb": [sv["bytes"] / 1e9 for sv in saves],
-            "restore_seconds": run2["restore_seconds"], "resume_setup_seconds": setup2_s,
-            "start_step_after_resume": run2["start_step"], "final_step": run2["global_step"],
-            "restore_mismatches": restore_misses[:8], "image_logs": run1["image_logs"],
-            "image_files": images, "launch_misses": misses[:2], "launches": launches,
-            "expected_per_step": expected, "run_seconds": [run1_s, run2_s],
-            "peak_mem_bytes": max(peak1, peak2), "cpu_count": os.cpu_count(), "card": smi}
-        log("entry", **result)
-        if not all(math.isfinite(x) for x in losses):
-            raise RuntimeError(f"entry: a loss is not finite: {losses}")
-        if steps != list(range(1, ENTRY_RESUME_STEPS + 1)) or rows != steps:
-            raise RuntimeError(f"entry: steps {steps}, CSV rows {rows}")
-        if f"step_{ENTRY_STEPS}" not in ckpts or run2["start_step"] != ENTRY_STEPS \
-                or run2["global_step"] != ENTRY_RESUME_STEPS:
-            raise RuntimeError(f"entry: checkpoints {ckpts}, resumed at {run2['start_step']} "
-                               f"to {run2['global_step']}")
-        if restore_misses:
-            raise RuntimeError(f"entry: the restored state differs at {restore_misses[:8]}")
-        if len(images) != 1:
-            raise RuntimeError(f"entry: {len(images)} image logs, expected 1")
-        if misses or not all(launches.values()):
-            raise RuntimeError(f"entry: launches {misses[:2]} (all: {launches}), expected "
-                               f"{expected} a step")
-        return launches
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    per_clip = launch_model["per_clip"]
+    total = Counter()
+
+    # 1. The test entry: full width, 2 generated controls of scene 0, 2
+    # samples each, on the run's step_4 (its config names the root).
+    out = os.path.join(work, "eval_test")
+    reset()
+    t0 = time.perf_counter()
+    with recorded_samples(eval_utils) as frames:
+        [res] = test_entry.main([
+            "--config_path", CONFIG, "--model_path",
+            os.path.join(logdir, "checkpoints", f"step_{ENTRY_STEPS}"), "--input", "0",
+            "--generate_controls", "--samples_per_scene", str(EVAL_CONTROLS),
+            "--num_samples", str(EVAL_SAMPLES), "--num_frames", str(T), "--frame_width", str(W),
+            "--frame_height", str(H), "--output", out, "--seed", str(SEED)])
+    test_s = time.perf_counter() - t0
+    launches = counts()
+    total.update(launches)
+    clips = EVAL_CONTROLS * EVAL_SAMPLES
+    examples = res["examples"]
+    tags = [f"0_sample_{i:02d}" for i in range(EVAL_CONTROLS)]
+    shapes = {}
+    for tag in tags:
+        with open(os.path.join(res["output"], f"{tag}_metrics.json")) as f:
+            table = json.load(f)
+        shapes[tag] = {k: list(np.shape(v)) for k, v in table.items() if k.startswith("frame_")
+                       and not k.startswith("frame_diversity")}
+    keys = ("psnr", "ssim", "psnr_visible", "psnr_occluded", "ssim_visible", "ssim_occluded")
+    log("eval_test", seconds=test_s, summary=res["summary"], failed=res["failed"],
+        examples=[{k: ex.get(k) for k in (*keys, "diversity_std", "visible_share", "control",
+                                          "seconds")} for ex in examples],
+        per_frame_shapes=shapes, launches=launches, expected_per_clip=per_clip, clips=clips,
+        card=smi)
+    if res["failed"] or len(examples) != EVAL_CONTROLS or len(
+            {json.dumps(ex["control"], sort_keys=True) for ex in examples}) != EVAL_CONTROLS:
+        raise RuntimeError(f"eval test: {len(examples)} examples, failed {res['failed']}; "
+                           f"expected {EVAL_CONTROLS} distinct controls")
+    for where in (res["summary"], *examples):
+        if not all(isinstance(where.get(k), float) and math.isfinite(where[k]) for k in keys):
+            raise RuntimeError(f"eval test: metrics {[where.get(k) for k in keys]} of {keys}")
+    if not 0.0 < examples[0]["visible_share"] < 1.0:
+        raise RuntimeError(f"eval test: the reprojection covers {examples[0]['visible_share']}")
+    if any(shape != [EVAL_SAMPLES, T] for sh in shapes.values() for shape in sh.values()) \
+            or not all(len(sh) == 6 for sh in shapes.values()):
+        raise RuntimeError(f"eval test: per-frame arrays {shapes}, expected ({EVAL_SAMPLES}, {T})")
+    if len(frames) != clips:
+        raise RuntimeError(f"eval test: {len(frames)} clips sampled, expected {clips}")
+    for f in frames:
+        check_frames("eval test", f, (T, H, W, 3))
+    if launches != {k: clips * n for k, n in per_clip.items()}:
+        raise RuntimeError(f"eval test: launches {launches}, expected {clips} x {per_clip}")
+    del frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. The infer entry: an .npz clip of 14 seeded random frames and a PNG.
+    inputs, out = os.path.join(work, "eval_inputs"), os.path.join(work, "eval_infer")
+    os.makedirs(inputs)
+    rng = np.random.default_rng(SEED + 50)
+    np.savez(os.path.join(inputs, "clip.npz"),
+             frames=rng.integers(0, 256, (T, H, W, 3), dtype=np.uint8))
+    write_png(os.path.join(inputs, "still.png"), rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+    az, el, radius = EVAL_MOVE
+    reset()
+    t0 = time.perf_counter()
+    with recorded_samples(eval_utils) as frames:
+        result = infer_entry.main([
+            "--config_path", CONFIG, "--input", inputs, "--num_samples", str(EVAL_SAMPLES),
+            "--azimuth", str(az), "--elevation", str(el), "--radius", str(radius),
+            "--num_frames", str(T), "--input_frames", str(T), "--frame_width", str(W),
+            "--frame_height", str(H), "--output", out, "--seed", str(SEED)])
+    infer_s = time.perf_counter() - t0
+    launches = counts()
+    total.update(launches)
+    clips = 2 * EVAL_SAMPLES
+    want = sorted([f"{base}_{kind}.{ext}" for base in ("clip", "still")
+                   for kind in ("in", "ioside", *(f"out{s}" for s in range(EVAL_SAMPLES)))
+                   for ext in ("npz", "png")]
+                  + ["clip_metrics.json", "still_metrics.json", "summary.json"])
+    written = sorted(os.listdir(out))
+    diversity = [ex["diversity_std"] for ex in result["examples"]]
+    log("eval_infer", seconds=infer_s, summary=result["summary"], diversity_std=diversity,
+        sample_seconds=[ex["sample_seconds"] for ex in result["examples"]], files=len(written),
+        launches=launches, card=smi)
+    if written != want:
+        raise RuntimeError(f"eval infer: wrote {written}, expected {want}")
+    if len(frames) != clips:
+        raise RuntimeError(f"eval infer: {len(frames)} clips sampled, expected {clips}")
+    for f in frames:
+        check_frames("eval infer", f, (T, H, W, 3))
+    for base in ("clip", "still"):
+        with np.load(os.path.join(out, f"{base}_ioside.npz")) as z:
+            if z["frames"].shape != (T, H, 2 * W, 3):
+                raise RuntimeError(f"eval infer: {base}_ioside {z['frames'].shape}")
+    if not all(d > 0.0 for d in diversity):
+        raise RuntimeError(f"eval infer: diversity_std {diversity}, two seeds must differ")
+    if launches != {k: clips * n for k, n in per_clip.items()}:
+        raise RuntimeError(f"eval infer: launches {launches}, expected {clips} x {per_clip}")
+    del frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. guidance_interval on the flagship: one random request, its launches
+    # from phase 4's per-evaluation counts at B*T = 28 and 14, its frames
+    # against the same request with every kernel off, and its wall and
+    # device time against full CFG.
+    bundle = load_model_bundle(CONFIG, num_frames=T, guidance_interval=EVAL_INTERVAL)
+    engine, sampler = bundle.engine, bundle.engine.sampler
+    guided = sampler.guided_steps()
+    n_guided, n_plain = sum(guided), len(guided) - sum(guided)
+    per_eval, outside = launch_model["per_eval"], launch_model["outside_unet"]
+    expected = {k: outside[k] + n_guided * per_eval[BT][k] + n_plain * per_eval[T][k]
+                for k in per_clip}
+    gen = torch.Generator("cuda").manual_seed(SEED + 60)
+    batch = random_batch(gen)
+    noise = torch.randn(T, HL, WL, 4, generator=gen, device="cuda")
+
+    def request():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = engine.sample_video(batch, noise=noise, decoding_t=T)["sampled_video"]
+        torch.cuda.synchronize()
+        return frames, time.perf_counter() - t0
+
+    reset()
+    frames_on, first_s = request()
+    launches = counts()
+    total.update(launches)
+    with kernel_flags(**dict.fromkeys(KERNELS, False)):
+        reset()
+        frames_off, off_s = request()
+        off_launches = counts()
+    interval_rel = rel_l2(frames_on, frames_off)
+    # Wall time in turns, then each request's device time (torch.profiler):
+    # the wall time of an evaluation is the host's where it outlasts the
+    # device's.
+    seconds, device = {"interval": [], "full_cfg": []}, {}
+    for which in ("interval", "full_cfg", "full_cfg", "interval") * 2:
+        sampler.guidance_interval = EVAL_INTERVAL if which == "interval" else None
+        seconds[which].append(request()[1])
+    for which in seconds:
+        sampler.guidance_interval = EVAL_INTERVAL if which == "interval" else None
+        device[which] = device_profile(lambda: request()[0], warm=False)[1]
+    sampler.guidance_interval = EVAL_INTERVAL
+    ratio = statistics.median(seconds["interval"]) / statistics.median(seconds["full_cfg"])
+    device_ratio = (device["interval"] / device["full_cfg"]
+                    if None not in device.values() else "not measured")
+    sigmas = sampler.sigmas()[:-1]
+    log("eval_guidance_interval", interval=EVAL_INTERVAL, guided_steps=n_guided,
+        plain_steps=n_plain, guided_sigma_range=[float(max(sigmas[guided])),
+                                                 float(min(sigmas[guided]))],
+        launches=launches, expected=expected, off_launches=off_launches,
+        frames_rel_l2=interval_rel, tol=AB_TOL, first_seconds=first_s, off_seconds=off_s,
+        clip_seconds=seconds, interval_over_full=ratio, device_ms=device,
+        device_interval_over_full=device_ratio, card=smi)
+    check_frames("guidance interval", frames_on.float().cpu().numpy(), (T, H, W, 3))
+    if n_guided == 0 or n_plain == 0:
+        raise RuntimeError(f"guidance interval {EVAL_INTERVAL}: {n_guided} guided and "
+                           f"{n_plain} plain steps; both must run")
+    if launches != expected or any(off_launches.values()):
+        raise RuntimeError(f"guidance interval: launches {launches}, expected {expected}; "
+                           f"kernels off {off_launches}")
+    if not interval_rel <= AB_TOL:
+        raise RuntimeError(f"guidance interval, kernels on vs off: {interval_rel} > {AB_TOL}")
+    del bundle, engine, sampler, batch, noise, frames_on, frames_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(total)
 
 
 def class_pixel_share(jpg: np.ndarray) -> float:
@@ -1856,13 +2157,20 @@ def main() -> int:
                 ptxas_lines.setdefault(where, []).append(note)
     log("build", seconds=time.perf_counter() - t0, ptxas=ptxas_lines)
 
-    stats, launches, served_launches = serve(smi)
+    stats, launches, served_launches, launch_model = serve(smi)
     gc.collect()
     torch.cuda.empty_cache()
     train_launches, phase7 = train(smi)
     gc.collect()
     torch.cuda.empty_cache()
-    entry_launches = entry_phase(smi, phase7)
+    work = tempfile.mkdtemp(prefix="gcd_entry_")
+    try:
+        entry_launches, logdir = entry_phase(smi, phase7, work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        eval_launches = eval_phase(smi, launch_model, logdir, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     pardom_launches = pardom_phase(smi, launches, phase7)
@@ -1875,7 +2183,8 @@ def main() -> int:
          "replaces": SOURCES[name][1],
          "launches": train_launches[name] if name == "flash_bwd" else launches[name],
          "served_launches": served_launches[name], "train_launches": train_launches[name],
-         "entry_launches": entry_launches[name], "pardom_launches": pardom_launches[name],
+         "entry_launches": entry_launches[name], "eval_launches": eval_launches.get(name, 0),
+         "pardom_launches": pardom_launches[name],
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]

@@ -9,6 +9,12 @@ destination one (moving to the end pose over `move_time` frames) on the host
 (data/loader.py) merges (B, T) into B*T. The same streams, trajectories,
 retries and dict as the JAX package's dataset.
 
+For evaluation, `set_next_example` fixes an item's scene, frames and camera
+move, and `reproject_rgbd = True` adds "reproject": the RGBD-reprojection
+baseline, stored view 4's points alone (view 0 in a root of 4 views or
+fewer) rendered along the destination trajectory with a 3-pixel hole fill,
+whose black pixels are what that one view cannot see.
+
 On-disk layout (the reference converter's): {dset_root}/scnNNNNN/
 scnNNNNN_p0_v4.json (Kubric metadata) and {pcl_root}/scnNNNNN/
 pcl_rgb_segm_TTTTT.pt (a torch list [xyz f16, rgb u8, segm u8], each
@@ -26,6 +32,11 @@ import torch
 
 from gcd_tpu_torch.data import common, geometry
 from gcd_tpu_torch.data.loader import PrefetchLoader
+
+# The reprojection baseline: the stored view whose points it renders (the
+# first "dense low down" viewpoint of the converter's 16) and its hole fill.
+REPROJECT_VIEW = 4
+REPROJECT_BLUR = 3
 
 
 def load_point_cloud_file(fp: str):
@@ -96,6 +107,7 @@ class KubricSynthViewDataset:
         self.avail_fps = 24
         self.next_example = None
         self.max_retries = 100
+        self.reproject_rgbd = False
 
     def set_next_example(self, *args):
         """Deterministic override: [scene_idx, frame_skip, frame_start,
@@ -150,9 +162,12 @@ class KubricSynthViewDataset:
                                      min(radius_start + dr[1], self.radius_range[1]))
         return azimuth_end, elevation_end, radius_end
 
-    def sample_trajectories(self, rng):
+    def sample_trajectories(self, rng, spherical_start=None, spherical_end=None):
         """Spherical and extrinsics trajectories of both cameras, and the
-        move's size normalised by the largest allowed one."""
+        move's size normalised by the largest allowed one. The start and end
+        poses (azimuth, elevation, radius) are the `set_next_example`
+        override's, else `spherical_start` / `spherical_end` where given,
+        else drawn from rng."""
         tcm = self.model_frames
         assert self.input_mode == "arbitrary" and self.output_mode == "arbitrary"
 
@@ -161,9 +176,15 @@ class KubricSynthViewDataset:
             (azimuth_start, azimuth_end, elevation_start, elevation_end,
              radius_start, radius_end) = [float(v) for v in self.next_example[4:10]]
         else:
-            azimuth_start, elevation_start, radius_start = self._sample_start(rng)
-            azimuth_end, elevation_end, radius_end = self._sample_end(
-                rng, azimuth_start, elevation_start, radius_start)
+            if spherical_start is None:
+                azimuth_start, elevation_start, radius_start = self._sample_start(rng)
+            else:
+                azimuth_start, elevation_start, radius_start = spherical_start
+            if spherical_end is None:
+                azimuth_end, elevation_end, radius_end = self._sample_end(
+                    rng, azimuth_start, elevation_start, radius_start)
+            else:
+                azimuth_end, elevation_end, radius_end = spherical_end
 
         spherical_start = np.array([azimuth_start, elevation_start, radius_start],
                                    dtype=np.float32)
@@ -213,10 +234,12 @@ class KubricSynthViewDataset:
                                     frame_height=self.frame_height)
 
     def synth_src_dst_rgb(self, pcl_frames, extrinsics_src, extrinsics_dst, avail_intrinsics):
-        """Both trajectories rendered from the merged clouds; pcl_frames is a
-        list of (xyz (V, N, 3) f16, rgb (V, N, 3) u8, ...) per frame."""
+        """Both trajectories rendered from the merged clouds, and with
+        `reproject_rgbd` the reprojection baseline (else None); pcl_frames
+        is a list of (xyz (V, N, 3) f16, rgb (V, N, 3) u8, ...) per frame."""
         used_k = self._used_intrinsics(avail_intrinsics[0])
         rgb_src, rgb_dst = [], []
+        reproject = [] if self.reproject_rgbd else None
         for t in range(self.model_frames):
             xyz, rgb = pcl_frames[t][0], pcl_frames[t][1]
             xyz_flat = xyz.reshape(-1, 3).astype(np.float32)
@@ -225,13 +248,20 @@ class KubricSynthViewDataset:
                                                    extrinsics_src[t]))
             rgb_dst.append(self._render_traj_frame(xyz_flat, rgb_flat, used_k,
                                                    extrinsics_dst[t]))
-        return np.stack(rgb_src), np.stack(rgb_dst)
+            if reproject is not None:
+                v = REPROJECT_VIEW if xyz.shape[0] > REPROJECT_VIEW else 0
+                reproject.append(self._render_traj_frame(
+                    xyz[v].astype(np.float32), rgb[v].astype(np.float32) / 255.0, used_k,
+                    extrinsics_dst[t], blur_radius=REPROJECT_BLUR))
+        return (np.stack(rgb_src), np.stack(rgb_dst),
+                np.stack(reproject) if reproject is not None else None)
 
     # -- batch dict --------------------------------------------------------
 
-    def construct_dict(self, rng, rgb_src, rgb_dst, fps, spherical_src, spherical_dst,
-                       extrinsics_src, extrinsics_dst, motion_amount) -> Dict:
-        """The item's arrays, each (model_frames, ...) but the indicator."""
+    def construct_dict(self, rng, rgb_src, rgb_dst, reproject, fps, spherical_src,
+                       spherical_dst, extrinsics_src, extrinsics_dst, motion_amount) -> Dict:
+        """The item's arrays, each (model_frames, ...) but the indicator;
+        "reproject" where a baseline is given."""
         tcm = self.model_frames
         tci, tco = self.input_frames, self.output_frames
 
@@ -274,6 +304,8 @@ class KubricSynthViewDataset:
         data["jpg"] = target_frames.astype(np.float32)
         data["cond_frames"] = cond_frames
         data["cond_frames_without_noise"] = cond_no_noise.astype(np.float32)
+        if reproject is not None:
+            data["reproject"] = reproject.astype(np.float32)
         return data
 
     # -- main --------------------------------------------------------------
@@ -320,9 +352,9 @@ class KubricSynthViewDataset:
                               for t in clip_frames]
                 (spherical_src, spherical_dst, extrinsics_src, extrinsics_dst,
                  motion_amount) = self.sample_trajectories(rng)
-                rgb_src, rgb_dst = self.synth_src_dst_rgb(pcl_frames, extrinsics_src,
-                                                          extrinsics_dst, first_intrinsics)
-                data = self.construct_dict(rng, rgb_src, rgb_dst, fps, spherical_src,
+                rgb_src, rgb_dst, reproject = self.synth_src_dst_rgb(
+                    pcl_frames, extrinsics_src, extrinsics_dst, first_intrinsics)
+                data = self.construct_dict(rng, rgb_src, rgb_dst, reproject, fps, spherical_src,
                                            spherical_dst, extrinsics_src, extrinsics_dst,
                                            motion_amount)
                 break
@@ -342,8 +374,10 @@ class KubricSynthViewDataset:
 
 
 class KubricSynthViewModule:
-    """The training split (the first `train_videos` scenes) and its loader.
-    The validation and test splits come with the port's evaluation entry."""
+    """The training split (scenes [0, train_videos)), the validation split
+    (scenes [train_videos, train_videos + val_videos)) and their loaders.
+    The evaluation entry (gcd_tpu_torch/test.py) renders its examples
+    through the validation split."""
 
     def __init__(self, dset_root, train_videos, val_videos, test_videos, batch_size,
                  num_workers, shuffle=True, **kwargs):
@@ -351,7 +385,13 @@ class KubricSynthViewModule:
         self.num_workers = int(num_workers)
         self.shuffle = shuffle
         self.train_dataset = KubricSynthViewDataset(dset_root, 0, train_videos, **kwargs)
+        self.val_dataset = KubricSynthViewDataset(dset_root, train_videos,
+                                                  train_videos + val_videos, **kwargs)
 
     def train_dataloader(self):
         return PrefetchLoader(self.train_dataset, self.batch_size, shuffle=self.shuffle,
+                              num_workers=self.num_workers)
+
+    def val_dataloader(self):
+        return PrefetchLoader(self.val_dataset, self.batch_size, shuffle=self.shuffle,
                               num_workers=self.num_workers)

@@ -133,13 +133,12 @@ def load_model_bundle(config_path: str, model_path: Optional[str] = None,
                       dtype: torch.dtype = torch.bfloat16, guidance_interval=None,
                       verbose: bool = False) -> ModelBundle:
     """The engine of an inference config after the reference's config
-    surgery (sampler steps, the guider's frame count and scales, EMA use),
-    with a released checkpoint's weights (the EMA shadows with
+    surgery (sampler steps, the guider's frame count and scales, EMA use,
+    and the sampler's `guidance_interval` (lo, hi) when given), with a
+    released checkpoint's weights (the EMA shadows with
     `support_ema`; keys it lacks keep seeded random weights and are
     reported) or, without `model_path`, seeded random weights. On CUDA
     unless `device="cpu"` is asked for."""
-    if guidance_interval is not None:
-        raise NotImplementedError("guidance_interval is not ported yet")
     test_config = load_config(config_path)
     set_by_path(test_config, "model.params.ckpt_path", model_path)
     set_by_path(test_config, "model.params.use_ema", bool(support_ema))
@@ -148,6 +147,9 @@ def load_model_bundle(config_path: str, model_path: Optional[str] = None,
     set_by_path(test_config, GUIDER + ".num_frames", int(num_frames))
     set_by_path(test_config, GUIDER + ".max_scale", float(max_scale))
     set_by_path(test_config, GUIDER + ".min_scale", float(min_scale))
+    if guidance_interval is not None:
+        set_by_path(test_config, "model.params.sampler_config.params.guidance_interval",
+                    [float(v) for v in guidance_interval])
 
     state_dict = None
     if model_path and os.path.exists(model_path):

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Set, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -218,8 +219,10 @@ class DiffusionEngine(nn.Module):
         ioi2 = torch.cat([image_only_indicator, image_only_indicator])  # uc | c
 
         def denoiser_fn(xx, sigma, cond):
+            # The indicator of the incoming batch: both halves on a guided
+            # step, the conditional half on a plain one (guidance_interval).
             def network(xin, c_noise, cc):
-                return self.network_fn(xin, c_noise, cc, t, ioi2[:xin.shape[0] // t])
+                return self.network_fn(xin, c_noise, cc, t, ioi2[-(xin.shape[0] // t):])
 
             return self.denoiser(network, xx, sigma, cond)
 
@@ -263,3 +266,18 @@ class DiffusionEngine(nn.Module):
         if "jpg" in batch:
             out["gt_video"] = _unit_interval(batch["jpg"])
         return out
+
+    def validation_metrics(self, batch: Dict, generator: Optional[torch.Generator] = None,
+                           noise: Optional[torch.Tensor] = None,
+                           decoding_t: Optional[int] = None) -> Dict[str, float]:
+        """sample_video on a batch with targets ("jpg"), then the frames'
+        mean PSNR and SSIM against them on the host (utils/metrics.py):
+        {"val/psnr", "val/ssim"}. LPIPS, which needs its network's weights,
+        is not computed."""
+        from gcd_tpu_torch.utils.metrics import psnr, ssim
+
+        out = self.sample_video(batch, generator, noise, decoding_t=decoding_t)
+        pred = out["sampled_video"].float().cpu().numpy()
+        gt = out["gt_video"].float().cpu().numpy()
+        return {"val/psnr": float(np.mean([psnr(p, g) for p, g in zip(pred, gt)])),
+                "val/ssim": float(np.mean([ssim(p, g) for p, g in zip(pred, gt)]))}

@@ -23,7 +23,7 @@ from gcd_tpu_torch.data.loader import batch_to_device
 from gcd_tpu_torch.data.png import write_png
 
 
-def _frame_strip(video01: np.ndarray, max_frames: int = 8) -> np.ndarray:
+def frame_strip(video01: np.ndarray, max_frames: int = 8) -> np.ndarray:
     t = video01.shape[0]
     sel = np.linspace(0, t - 1, min(t, max_frames)).astype(int)
     return np.concatenate([video01[i] for i in sel], axis=1)
@@ -80,5 +80,5 @@ class ImageLogger:
         prefix = os.path.join(self.media_dir, self._meta_name(global_step, small))
         np.savez(f"{prefix}_sample.npz", frames=stack)
         write_png(f"{prefix}_strip.png",
-                  (np.clip(_frame_strip(stack), 0.0, 1.0) * 255.0).astype(np.uint8))
+                  (np.clip(frame_strip(stack), 0.0, 1.0) * 255.0).astype(np.uint8))
         return prefix

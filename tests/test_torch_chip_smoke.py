@@ -1,8 +1,9 @@
 """chip_smoke.py's checks on the CPU: the training phase's `BlendWitness`,
 which decides whether a blend factor's exactly-zero gradient at a step was
 made by bf16 rounding (then the step may pass) or not (then it fails), K5's
-expected launches from recorded GroupNorm sites (`split_calls`), and the
-training-entry phase's launch, state, image-log and CSV checks.
+expected launches from recorded GroupNorm sites (`split_calls`), the
+training-entry phase's launch, state, image-log and CSV checks, and the
+eval phase's frame check, sample recorder and guidance-interval split.
 
 A tiny rematerialised block blends x with x + scale * linear(x) in bf16,
 as the UNet's VideoResBlock and SpatialVideoTransformer do.
@@ -162,6 +163,13 @@ def test_split_calls_count_the_split_variant_only():
     assert chip_smoke.split_calls(sites) == 250 + 10 + 4
 
 
+def test_every_channels_last_site_splits_at_the_plain_steps_batch():
+    """A plain step of guidance_interval runs the UNet at B*T = 14, below
+    K4's one-pass minimum of 16 samples: its per-frame sites split too."""
+    for shape in ((14, 320, 32, 48), (14, 1280, 4, 6), (1, 320, 14, 32, 48)):
+        assert chip_smoke.split_calls(Counter({(shape, "channels_last", 1e-6, False): 5})) == 5
+
+
 # The training-entry phase's checks.
 STEP = {"flash": 32, "flash_bwd": 16, "tattn": 32, "fused_mlp": 96, "fused_gn": 451,
         "gn_stats": 506, "fused_gn_conv": 88}
@@ -230,3 +238,44 @@ def test_class_pixel_share_counts_the_pixels_the_loss_weighs():
     jpg[1, 3, 4] = np.asarray(VEHICLE_RGB[-1], np.float32) / 127.5 - 1.0 + 0.015
     jpg[1, 2, 2] = np.asarray(VEHICLE_RGB[0], np.float32) / 127.5 - 1.0 + 0.025  # too far
     assert chip_smoke.class_pixel_share(jpg) == 3 / 40
+
+
+# The eval phase's checks.
+def test_check_frames_refuses_what_is_not_a_clip():
+    frames = np.random.default_rng(1).random((3, 4, 5, 3)).astype(np.float32)
+    chip_smoke.check_frames("x", frames, (3, 4, 5, 3))
+    for bad, shape in ((frames, (3, 4, 6, 3)), (frames * 2.0, (3, 4, 5, 3)),
+                       (np.where(frames > 0.5, np.nan, frames), (3, 4, 5, 3))):
+        with pytest.raises(RuntimeError, match="not finite in"):
+            chip_smoke.check_frames("x", bad, shape)
+
+
+def test_recorded_samples_records_and_restores_the_sampler_factory():
+    import types
+
+    def make_sampler(bundle, decoding_t=14):
+        return lambda batch, seed: {"sampled_video": np.full((2,), float(seed)),
+                                    "cond_video": np.zeros(2)}
+
+    module = types.SimpleNamespace(make_sampler=make_sampler)
+    with chip_smoke.recorded_samples(module) as frames:
+        sample = module.make_sampler(None, decoding_t=3)
+        assert sample({}, 4)["sampled_video"].tolist() == [4.0, 4.0]
+        sample({}, 5)
+    assert module.make_sampler is make_sampler
+    assert [f.tolist() for f in frames] == [[4.0, 4.0], [5.0, 5.0]]
+
+
+def test_eval_interval_guides_13_of_the_flagship_steps():
+    """guidance_interval (0.3, 100) on the 25-step ladder of sigma_max 700:
+    13 guided steps, sigma 98.3 down to 0.339, and 12 plain ones."""
+    from gcd_tpu_torch.utils.config import instantiate_from_config, load_config
+
+    cfg = load_config(chip_smoke.CONFIG)["model"]["params"]["sampler_config"]
+    cfg["params"]["guidance_interval"] = list(chip_smoke.EVAL_INTERVAL)
+    sampler = instantiate_from_config(cfg)
+    guided = sampler.guided_steps()
+    sigmas = sampler.sigmas()[:-1][guided]
+    assert len(guided) == 25 and sum(guided) == 13
+    assert guided == [False] * 7 + [True] * 13 + [False] * 5
+    assert round(float(sigmas[0]), 1) == 98.3 and round(float(sigmas[-1]), 3) == 0.339

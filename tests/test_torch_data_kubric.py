@@ -1,6 +1,8 @@
 """The port's Kubric-4D data pipeline on the CPU against the JAX package:
 the synthetic root, the native splat, the plain splat and blur, the resize,
-the dataset's items and the loader's order and batches.
+the dataset's items (with the RGBD-reprojection baseline, the spherical
+start and end overrides, the validation split) and the loader's order and
+batches.
 
 The root is the tiny one of configs/smoke_kubric_tiny.yaml (4 views of 3,000
 points a frame, 52x36 renders resized to 48x32). Both datasets render with
@@ -27,7 +29,7 @@ from gcd_tpu_torch import native
 from gcd_tpu_torch.data import geometry
 from gcd_tpu_torch.data.common import process_image
 from gcd_tpu_torch.data.fake import make_kubric_root
-from gcd_tpu_torch.data.kubric import KubricSynthViewDataset
+from gcd_tpu_torch.data.kubric import KubricSynthViewDataset, KubricSynthViewModule
 from gcd_tpu_torch.data.loader import PrefetchLoader, batch_to_device, collate_fn
 from gcd_tpu_torch.utils.config import load_config
 from scripts import make_fake_data
@@ -172,6 +174,77 @@ def test_dataset_next_example_override_matches_jax(root):
     got, want = port[2], ref[2]
     _assert_same_items(got, want)
     assert list(got["clip_frames"]) == [5, 3, 1]
+
+
+@pytest.mark.parametrize("idx", [0, 4])
+def test_reproject_rgbd_items_match_jax(root, idx):
+    """With reproject_rgbd, the baseline (view 0 of this 4-view root, a
+    3-pixel hole fill) matches JAX's, has holes where one view sees
+    nothing, and changes nothing else of the item: the train item bit for
+    bit."""
+    kwargs = _dataset_kwargs(root)
+    port, ref = KubricSynthViewDataset(**kwargs), jkubric.KubricSynthViewDataset(**kwargs)
+    port.reproject_rgbd = ref.reproject_rgbd = True
+    got = port[idx]
+    _assert_same_items(got, ref[idx])
+    assert got["reproject"].shape == (3, 32, 48, 3) and got["reproject"].dtype == np.float32
+    visible = ((got["reproject"] + 1.0) / 2.0).sum(-1) > 0.05
+    assert 0.0 < visible.mean() < 1.0
+    plain = KubricSynthViewDataset(**kwargs)[idx]
+    assert sorted(got) == sorted([*plain, "reproject"])
+    for k, v in plain.items():
+        assert np.array_equal(got[k], v), k
+
+
+def test_sample_trajectories_spherical_start_end_match_jax(root):
+    """sample_trajectories with a given start and / or end pose draws the
+    rest from rng as JAX's does. JAX's also returns the two poses: the port
+    returns the trajectories, extrinsics and motion amount."""
+    kwargs = _dataset_kwargs(root)
+    port, ref = KubricSynthViewDataset(**kwargs), jkubric.KubricSynthViewDataset(**kwargs)
+    start, end = [30.0, 10.0, 14.0], [75.0, 20.0, 16.0]
+    for s, e in ((None, None), (start, None), (None, end), (start, end)):
+        got = port.sample_trajectories(np.random.default_rng(3), s, e)
+        want = ref.sample_trajectories(np.random.default_rng(3), s, e)
+        assert len(got) == len(want) - 2
+        for g, w in zip(got, want[2:]):
+            assert np.array_equal(np.asarray(g), np.asarray(w))
+        if s is not None:
+            assert np.array_equal(got[0][0], np.float32(start))
+        if e is not None:
+            assert np.array_equal(got[1][-1], np.float32(end))
+
+
+@pytest.fixture(scope="module")
+def root2(tmp_path_factory):
+    """Two scenes: scene 1 is the validation split of train_videos = 1,
+    val_videos = 1."""
+    path = str(tmp_path_factory.mktemp("kubric_port_val"))
+    make_kubric_root(path, n_scenes=2)
+    return path
+
+
+def test_val_split_items_match_jax(root2):
+    """The module's validation split (scenes [1, 2)): its items, and an
+    eval example in set_next_example mode with the baseline, as the
+    evaluation entry renders it."""
+    params = dict(load_config(TINY_CONFIG)["data"]["params"],
+                  dset_root=os.path.join(root2, "data"), pcl_root=os.path.join(root2, "pcl"),
+                  val_videos=1)
+    port, ref = KubricSynthViewModule(**params), jkubric.KubricSynthViewModule(**params)
+    assert (port.val_dataset.start_idx, port.val_dataset.end_idx) == (1, 2)
+    for idx in (0, 3):
+        got = port.val_dataset[idx]
+        _assert_same_items(got, ref.val_dataset[idx])
+        assert int(got["scene_idx"][0]) == 1
+    for d in (port.val_dataset, ref.val_dataset):
+        d.reproject_rgbd = True
+        d.set_next_example(1, 2, 1, False, 30.0, 75.0, 10.0, 20.0, 14.0, 16.0)
+    got = port.val_dataset[0]
+    _assert_same_items(got, ref.val_dataset[0])
+    assert "reproject" in got and list(got["clip_frames"]) == [1, 3, 5]
+    batches = list(port.val_dataloader())
+    assert len(batches) == len(port.val_dataset) // port.batch_size
 
 
 def test_loader_order_and_batches_match_jax(root):

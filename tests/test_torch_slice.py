@@ -152,14 +152,14 @@ def test_tiny_slice_matches_jax(decoding_t):
     assert rel_l2(out.numpy(), ref) <= 1e-3
 
 
-def test_tiny_sample_video_matches_jax():
-    """configs/smoke_kubric_tiny.yaml whole (CLIP width 32, VAE ch 32): 3
-    frames of 32x48, 3 steps, decode in the config's chunks of 2. The port
-    gets JAX's latent noise, normal(split(key)[0]), through `noise`."""
+def _tiny_sample_video_case(guidance_interval):
+    """sample_video of the tiny config on both sides, the sampler's
+    guidance_interval set on each engine's sampler."""
     cfg = load_config(TINY_CONFIG)["model"]
     batch = tiny_batch(T, 32, 48, 8)
     jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
     jeng = j_instantiate(copy.deepcopy(cfg))
+    jeng.sampler.guidance_interval = guidance_interval
     params = engine_params(jeng, batch, 20)
     key = jax.random.PRNGKey(3)
     ref = jax.jit(lambda p, b, k: jeng.sample_video(p, b, k, num_steps=3,
@@ -169,6 +169,7 @@ def test_tiny_sample_video_matches_jax():
     emb_models = cfg["params"]["conditioner_config"]["params"]["emb_models"]
     engine = load_engine(TINY_CONFIG, device="cpu", dtype=torch.float32,
                          state_dict=engine_state_dict(params, emb_models, 30))
+    engine.sampler.guidance_interval = guidance_interval
     out = engine.sample_video({k: torch.from_numpy(v) for k, v in batch.items()},
                               noise=torch.from_numpy(np.array(noise)), num_steps=3,
                               return_latents=True)
@@ -178,3 +179,66 @@ def test_tiny_sample_video_matches_jax():
     assert rel_l2(out["cond_video"].numpy(), ref["cond_video"]) <= 1e-6
     assert rel_l2(out["sampled_z"].numpy(), ref["sampled_z"]) <= 1e-3
     assert rel_l2(out["sampled_video"].numpy(), ref["sampled_video"]) <= 1e-3
+
+
+def test_tiny_sample_video_matches_jax():
+    """configs/smoke_kubric_tiny.yaml whole (CLIP width 32, VAE ch 32): 3
+    frames of 32x48, 3 steps, decode in the config's chunks of 2. The port
+    gets JAX's latent noise, normal(split(key)[0]), through `noise`."""
+    _tiny_sample_video_case(None)
+
+
+def test_tiny_sample_video_guidance_interval_matches_jax():
+    """The same with guidance_interval (1, 100): of the 3-step ladder
+    (700, 15.6, 0.002) only the middle step is guided; the two others run
+    the conditional half alone."""
+    sampler = load_engine(TINY_CONFIG, device="cpu").sampler
+    sampler.guidance_interval = (1.0, 100.0)
+    assert sampler.guided_steps(3) == [False, True, False]
+    _tiny_sample_video_case((1.0, 100.0))
+
+
+def _toy_sampler_config(interval):
+    cfg = copy.deepcopy(load_config(os.path.join(REPO, "configs", "infer_kubric.yaml"))[
+        "model"]["params"]["sampler_config"])
+    cfg["params"].update(num_steps=8, guidance_interval=interval)
+    cfg["params"]["guider_config"]["params"]["num_frames"] = T
+    return cfg
+
+
+@pytest.mark.parametrize("interval", [None, (0.5, 60.0), (-2.0, -1.0)])
+def test_euler_edm_sampler_guidance_interval_matches_jax(interval):
+    """The port's EulerEDMSampler against JAX's on the same toy denoiser,
+    written on each side: D(x, s, c) = tanh(x / sqrt(1 + s^2)) * vector +
+    concat. (0.5, 60) guides 3 of the 8 steps and runs 5 on the
+    conditional half; (-2, -1) guides none."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2 * T, 4, 4, 2)).astype(np.float32)
+    c = {"vector": rng.normal(size=(2 * T, 2)).astype(np.float32),
+         "concat": rng.normal(size=(2 * T, 4, 4, 2)).astype(np.float32)}
+    uc = {"vector": c["vector"], "concat": np.zeros_like(c["concat"])}
+
+    def j_denoiser(xx, s, cc):
+        return (jnp.tanh(xx / jnp.sqrt(1.0 + s ** 2)[:, None, None, None])
+                * cc["vector"][:, None, None, :] + cc["concat"])
+
+    jsampler = j_instantiate(_toy_sampler_config(interval))
+    ref = np.asarray(jsampler(j_denoiser, jnp.asarray(x),
+                              jax.tree_util.tree_map(jnp.asarray, c),
+                              jax.tree_util.tree_map(jnp.asarray, uc)))
+
+    batches = []
+
+    def denoiser(xx, s, cc):
+        batches.append(xx.shape[0])
+        return (torch.tanh(xx / torch.sqrt(1.0 + s ** 2)[:, None, None, None])
+                * cc["vector"][:, None, None, :] + cc["concat"])
+
+    sampler = instantiate_from_config(_toy_sampler_config(interval))
+    to_t = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}  # noqa: E731
+    out = sampler(denoiser, torch.from_numpy(x), to_t(c), to_t(uc)).numpy()
+    guided = {None: 8, (0.5, 60.0): 3, (-2.0, -1.0): 0}[interval]
+    assert sum(sampler.guided_steps()) == guided
+    assert batches.count(4 * T) == guided and batches.count(2 * T) == 8 - guided
+    assert np.abs(ref).max() > 0.1
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()

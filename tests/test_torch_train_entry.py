@@ -2,8 +2,8 @@
 config (configs/smoke_kubric_tiny.yaml) trained on a synthetic root, its CSV
 rows, its `step_N` checkpoints, a resume that restores the trainer bit for
 bit and steps on as the saved trainer would, the image log, serving a run's
-checkpoint with load_model_bundle, and the refusals (no CUDA, orbax run
-directories).
+checkpoint with load_model_bundle (and its guidance_interval), and the
+refusals (no CUDA, orbax run directories).
 
 Everything runs in fp32 on the CPU, so a restored trainer's next step on the
 same batch and generator equals the saved trainer's bit for bit.
@@ -232,10 +232,16 @@ def test_released_weights_scaled_lr_and_profile(runs, tmp_path):
 
 
 def test_load_model_bundle_refuses_guidance_interval():
-    """guidance_interval is not ported yet: the bundle refuses it by name
-    before it builds anything."""
-    with pytest.raises(NotImplementedError, match="^guidance_interval is not ported yet$"):
-        load_model_bundle(TINY_CONFIG, device="cpu", guidance_interval=(0.2, 0.8))
+    """The bundle's sampler carries a guidance_interval (lo, hi), written
+    into the config as scripts/eval_utils.py writes it; an interval whose lo
+    exceeds its hi is refused by name."""
+    bundle = load_model_bundle(TINY_CONFIG, device="cpu", guidance_interval=(0.2, 0.8))
+    assert bundle.engine.sampler.guidance_interval == (0.2, 0.8)
+    assert bundle.test_config["model"]["params"]["sampler_config"]["params"][
+        "guidance_interval"] == [0.2, 0.8]
+    assert load_model_bundle(TINY_CONFIG, device="cpu").engine.sampler.guidance_interval is None
+    with pytest.raises(ValueError, match="lo must not exceed hi"):
+        load_model_bundle(TINY_CONFIG, device="cpu", guidance_interval=(0.8, 0.2))
 
 
 def test_bundle_camera_metadata_of_a_pardom_config():

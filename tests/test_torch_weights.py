@@ -184,7 +184,10 @@ def test_port_imports_no_jax():
         "serving = {'gcd_tpu_torch.ops.fused_gn_conv', 'gcd_tpu_torch.engine.server',\n"
         "           'gcd_tpu_torch.engine.bundle', 'gcd_tpu_torch.serve',\n"
         "           'gcd_tpu_torch.io.checkpoint'}\n"
-        "assert training | serving <= set(mods), sorted((training | serving) - set(mods))\n")
+        "evaluation = {'gcd_tpu_torch.infer', 'gcd_tpu_torch.test',\n"
+        "              'gcd_tpu_torch.eval_utils', 'gcd_tpu_torch.utils.metrics'}\n"
+        "entries = training | serving | evaluation\n"
+        "assert entries <= set(mods), sorted(entries - set(mods))\n")
 
 
 def test_chip_smoke_imports_no_jax():
@@ -195,6 +198,7 @@ def test_chip_smoke_imports_no_jax():
             "gcd_tpu_torch.engine.server", "gcd_tpu_torch.engine.bundle",
             "gcd_tpu_torch.serve", "gcd_tpu_torch.data.fake",
             "gcd_tpu_torch.data.kubric", "gcd_tpu_torch.train",
-            "gcd_tpu_torch.data.pardom", "gcd_tpu_torch.data.png"} <= set(mods)
+            "gcd_tpu_torch.data.pardom", "gcd_tpu_torch.data.png", "gcd_tpu_torch.infer",
+            "gcd_tpu_torch.test", "gcd_tpu_torch.eval_utils"} <= set(mods)
     _run_no_jax("import importlib, chip_smoke\n"
                 + "".join(f"importlib.import_module({m!r})\n" for m in mods))
