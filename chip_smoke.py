@@ -143,6 +143,35 @@ without the final `ok` line):
                    to phase 6's per clip; load_model_bundle on
                    pretrained/pardom_gradual_semantic.yaml builds the same
                    weights.
+ 10. options     - the training options, after phase 9 frees its run:
+                   (a) load_trainer(configs/train_kubric_max90.yaml) with
+                   ft_strategy time_lora, EMA, a LambdaLinearScheduler
+                   warming up over 2 updates and 2 accumulated micro-steps;
+                   the first micro-step's loss and adapter gradient with
+                   every kernel on vs off (2e-2 / 5e-2, phase 7's bounds,
+                   launches phase 7's when on, none when off); 4 micro-steps
+                   on a B*T = 28 batch: the adapters move on micro-steps 2
+                   and 4 only, the module adapters equal their masters, the
+                   applied rate equals the schedule's formula, the base UNet
+                   stays bit for bit, the EMA of three base tensors equals
+                   the formula recomputed in plain torch bit for bit, each
+                   micro-step's launches phase 7's; ms per micro-step beside
+                   phase 7's step, one more micro-step's device time,
+                   peak memory. (b) the everything strategy
+                   for 2 steps without EMA, then with it: each EMA update's
+                   CUDA-event ms, its device ms, the shadow's bytes, the
+                   peak with and without it, two updates from one state
+                   bit-identical.
+                   (c) gcd_tpu_torch.train.main with (a)'s options on a
+                   synthetic root of small clouds inside an NCCL group of
+                   one (--coordinator 127.0.0.1:<free port>): 4 micro-steps,
+                   checkpoints at 3 (mid-accumulation) and 4; a resume from
+                   step 3 and the same run without a group both equal to it
+                   bit for bit (losses and the whole trainer state); every
+                   all-reduce's CUDA-event ms; then load_model_bundle
+                   (configs/infer_kubric.yaml, support_ema) on step_4 with
+                   0 missing keys samples one clip with the adapters merged,
+                   its launches phase 6's per clip.
 Then the kernel JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -254,6 +283,21 @@ PD_SEGM_CELL = 3.0
 EVAL_CONTROLS, EVAL_SAMPLES = 2, 2
 EVAL_MOVE = (30.0, 15.0, 0.0)
 EVAL_INTERVAL = (0.3, 100.0)
+# The options phase: time_lora, EMA, a LambdaLinearScheduler warming up over
+# 2 updates and 2 accumulated micro-steps, on the flagship training config;
+# 4 micro-steps through the trainer, 2 EMA steps of the everything strategy,
+# then the entry in an NCCL group of one (checkpoint at micro-step 3, in the
+# middle of an accumulation) on a synthetic root of small clouds.
+OPTIONS_SCHEDULE = dict(warm_up_steps=[2], cycle_lengths=[10000], f_start=[0.1], f_max=[1.0],
+                        f_min=[1.0])
+OPTIONS_OVERRIDES = [
+    "model.params.ft_strategy=time_lora", "model.params.use_ema=true",
+    "model.params.scheduler_config={target: sgm.lr_scheduler.LambdaLinearScheduler, "
+    "params: " + json.dumps(OPTIONS_SCHEDULE).replace('"', "") + "}",
+    "lightning.trainer.accumulate_grad_batches=2"]
+OPTIONS_STEPS, OPTIONS_ACCUMULATE, OPTIONS_CKPT_STEP = 4, 2, 3
+OPTIONS_EMA_STEPS = 2
+OPTIONS_VIEWS, OPTIONS_POINTS = 4, 20000
 SERVE_BATCH = 2   # clips per served batch
 SERVE_REQUESTS = 4
 SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
@@ -1442,8 +1486,9 @@ def train(smi: str) -> dict:
         del masters, weights, grads
     witness.remove()
     ms = 1e3 * statistics.median(step_s[2:])
+    peak = torch.cuda.max_memory_allocated()
     log("train", ms_per_step=ms, frames_per_s=bt / (ms / 1e3), step_seconds=step_s,
-        peak_mem_bytes=torch.cuda.max_memory_allocated(), batch_frames=bt, card=smi)
+        peak_mem_bytes=peak, batch_frames=bt, card=smi)
 
     by_name, total_ms = device_profile(lambda: trainer.train_step(batch, gen), warm=False)
     if total_ms is None:
@@ -1456,7 +1501,8 @@ def train(smi: str) -> dict:
     params = sum(p.numel() for p in named.values())
     trainable_params = sum(named[n].numel() for n in trainable)
     return dict(total), {"expected": expected, "frames_per_s": bt / (ms / 1e3), "ms": ms,
-                         "checkpoint_bytes": checkpoint_bytes(params, trainable_params)}
+                         "checkpoint_bytes": checkpoint_bytes(params, trainable_params),
+                         "peak_mem_bytes": peak, "device_ms": total_ms or "not measured"}
 
 
 def checkpoint_bytes(params: int, trainable_params: int) -> int:
@@ -2124,6 +2170,362 @@ def pardom_phase(smi: str, phase6: dict, phase7: dict) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+def lambda_linear(n: int) -> float:
+    """OPTIONS_SCHEDULE's LambdaLinearScheduler factor at update n (one
+    cycle), the reference's formula."""
+    c = OPTIONS_SCHEDULE
+    warm, length = c["warm_up_steps"][0], c["cycle_lengths"][0]
+    if n < warm:
+        return (c["f_max"][0] - c["f_start"][0]) / warm * n + c["f_start"][0]
+    return c["f_min"][0] + (c["f_max"][0] - c["f_min"][0]) * (length - n) / length
+
+
+def ema_weight(n: int, decay: float) -> float:
+    """1 - decay of the EMA's n-th update (counted from 1), in float32."""
+    return float(np.float32(1.0) - min(np.float32(decay),
+                                       np.float32(1 + n) / np.float32(10 + n)))
+
+
+def options_phase(smi: str, phase6: dict, phase7: dict) -> dict:
+    """The options phase. Returns the kernel launches over its trainer's
+    micro-steps, its entry runs and its clip."""
+    import gcd_tpu_torch.engine.trainer as trainer_mod
+    import gcd_tpu_torch.train as train_entry
+    from gcd_tpu_torch.data.fake import make_kubric_root
+    from gcd_tpu_torch.engine.bundle import load_model_bundle
+    from gcd_tpu_torch.engine.ema import ema_update
+    from gcd_tpu_torch.engine.trainer import load_trainer
+    from gcd_tpu_torch.models.lora import is_adapter
+    from gcd_tpu_torch.ops import KERNELS, kernel_flags
+    from gcd_tpu_torch.parallel import distributed
+
+    unet_prefix = "model.diffusion_model."
+    total = Counter()
+
+    def reset():
+        for fn in KERNELS.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in KERNELS.items()}
+
+    # (a) time_lora, EMA, the schedule and accumulation through the trainer.
+    t0 = time.perf_counter()
+    trainer = load_trainer(TRAIN_CONFIG, overrides=OPTIONS_OVERRIDES)
+    setup_s = time.perf_counter() - t0
+    engine = trainer.engine
+    named = dict(engine.named_parameters())
+    adapters = [n for n in trainer.trainable_names if is_adapter(n)]
+    base_names = [n for n in named if n.startswith(unet_prefix) and not is_adapter(n)]
+    base = {n: named[n].detach().to("cpu", copy=True) for n in base_names}
+    gen = torch.Generator("cuda").manual_seed(SEED + 40)
+    batch = random_batch(gen, TRAIN_B, target=True)
+
+    def loss_and_adapter_grads(seed: int):
+        for p in trainer.trainable:
+            p.grad = None
+        loss = engine.loss(batch, 0, torch.Generator("cuda").manual_seed(seed)).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), [named[n].grad for n in adapters]
+
+    reset()
+    loss_on, grads_on = loss_and_adapter_grads(SEED + 41)
+    launches_on = counts()
+    reset()
+    with kernel_flags(**dict.fromkeys(KERNELS, False)):
+        loss_off, grads_off = loss_and_adapter_grads(SEED + 41)
+    launches_off = counts()
+    num = den = 0.0
+    for a, b in zip(grads_on, grads_off):
+        if b is not None:
+            a = torch.zeros_like(b) if a is None else a
+            num += float((a.float() - b.float()).square().sum())
+            den += float(b.float().square().sum())
+    ab = {"loss_on": loss_on, "loss_off": loss_off,
+          "loss_rel": abs(loss_on - loss_off) / abs(loss_off),
+          "adapter_grad_rel_l2": (num / den) ** 0.5, "adapter_grad_norm_off": den ** 0.5}
+    del grads_on, grads_off
+    for p in trainer.trainable:
+        p.grad = None
+
+    # Plain-torch EMA of three base tensors beside the trainer's.
+    probe = [base_names[0], base_names[len(base_names) // 2], base_names[-1]]
+    plain_ema = {n: named[n].detach().float().clone() for n in probe}
+    lr0 = trainer.learning_rate
+    master = dict(zip(trainer.trainable_names, trainer.masters))
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(OPTIONS_STEPS):
+        before = {n: master[n].clone() for n in adapters}
+        applied_lr = trainer.optimizer.param_groups[0]["lr"]
+        updates = trainer.updates
+        gen.manual_seed(SEED + 50 + i)
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts()
+        total.update(launches)
+        for n in probe:
+            p = plain_ema[n]
+            plain_ema[n] = p - ema_weight(i + 1, engine.ema_decay_rate) * (
+                p - named[n].detach().float())
+        moved = sum(int(not torch.equal(master[n], before[n])) for n in adapters)
+        steps.append({
+            "micro_step": i + 1, "seconds": seconds, "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]), "adapters_moved": moved,
+            "applied_lr": applied_lr, "formula_lr": lr0 * lambda_linear(updates),
+            "updates_before": updates, "launches": launches,
+            "weights_are_masters": all(torch.equal(named[n], master[n].to(named[n].dtype))
+                                       for n in adapters)})
+    peak_a = torch.cuda.max_memory_allocated()
+    same_base = all(torch.equal(named[n].detach().cpu(), w) for n, w in base.items())
+    ema_bits = {n: torch.equal(trainer.ema.params[n], plain_ema[n]) for n in probe}
+    ema_updates = trainer.ema.num_updates
+    micro_ms = 1e3 * statistics.median(st["seconds"] for st in steps[1:])
+    # A fifth micro-step (no update) under torch.profiler: its device time.
+    gen.manual_seed(SEED + 50 + OPTIONS_STEPS)
+    _, micro_device_ms = device_profile(lambda: trainer.train_step(batch, gen), warm=False)
+    result_a = {"setup_seconds": setup_s, "adapters": len(adapters),
+                "adapter_params": sum(named[n].numel() for n in adapters),
+                "trainable": len(trainer.trainable_names), "ab": ab,
+                "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+                "launches_on": launches_on, "launches_off": launches_off,
+                "expected_per_step": phase7["expected"], "steps": steps,
+                "ms_per_micro_step": micro_ms, "phase7_ms_per_step": phase7["ms"],
+                "micro_step_device_ms": micro_device_ms if micro_device_ms is not None
+                else "not measured", "phase7_device_ms": phase7["device_ms"],
+                "peak_mem_bytes": peak_a, "phase7_peak_mem_bytes": phase7["peak_mem_bytes"],
+                "base_unchanged": same_base, "ema_num_updates": ema_updates,
+                "ema_equals_plain_formula": ema_bits, "card": smi}
+    log("options_trainer", **result_a)
+    del trainer, engine, named, base, master, plain_ema, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (ab["loss_rel"] <= TRAIN_LOSS_TOL and ab["adapter_grad_rel_l2"] <= TRAIN_GRAD_TOL):
+        raise RuntimeError(f"options: the time_lora step, kernels on vs off: {ab}")
+    if any(launches_off.values()) or launches_on != phase7["expected"]:
+        raise RuntimeError(f"options: launches {launches_on} (off: {launches_off}), expected "
+                           f"{phase7['expected']}")
+    for st in steps:
+        update = st["micro_step"] % OPTIONS_ACCUMULATE == 0
+        if not math.isfinite(st["loss"]) or st["launches"] != phase7["expected"]:
+            raise RuntimeError(f"options: micro-step {st}")
+        if bool(st["adapters_moved"]) != update or not st["weights_are_masters"]:
+            raise RuntimeError(f"options: adapters moved {st['adapters_moved']} at micro-step "
+                               f"{st['micro_step']}")
+        if st["applied_lr"] != st["formula_lr"]:
+            raise RuntimeError(f"options: lr {st['applied_lr']}, formula {st['formula_lr']}")
+    if not same_base or not all(ema_bits.values()) or result_a["ema_num_updates"] != \
+            OPTIONS_STEPS:
+        raise RuntimeError(f"options: base unchanged {same_base}, EMA {ema_bits}")
+
+    # (b) EMA at full width: the everything strategy, 2 steps, each EMA
+    # update timed by CUDA events.
+    ema_ms = []
+
+    def timed_ema(state, sources):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ema_update(state, sources)
+        end.record()
+        end.synchronize()
+        ema_ms.append(start.elapsed_time(end))
+        return out
+
+    batch = random_batch(torch.Generator("cuda").manual_seed(SEED + 60), TRAIN_B, target=True)
+    gen = torch.Generator("cuda")
+    peaks, step_s = {}, {}
+    trainer_mod.ema_update = timed_ema
+    try:
+        for ema_on in (False, True):  # the peak without the shadow, then with it
+            trainer = load_trainer(TRAIN_CONFIG, overrides=[f"model.params.use_ema={ema_on}"])
+            torch.cuda.reset_peak_memory_stats()
+            step_s[ema_on] = []
+            for i in range(OPTIONS_EMA_STEPS):
+                gen.manual_seed(SEED + 61 + i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_step(batch, gen)
+                torch.cuda.synchronize()
+                step_s[ema_on].append(time.perf_counter() - t0)
+            peaks[ema_on] = torch.cuda.max_memory_allocated()
+            if not ema_on:
+                del trainer
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        trainer_mod.ema_update = ema_update
+    state, sources = trainer.ema, trainer.ema_sources
+    shadow_bytes = sum(s.numel() * s.element_size() for s in state.params.values())
+    # Two runs of one update from the same state, bit for bit.
+    saved = [s.clone() for s in state.params.values()]
+    runs = []
+    for _ in range(2):
+        for s, s0 in zip(state.params.values(), saved):
+            s.copy_(s0)
+        state.num_updates = OPTIONS_EMA_STEPS
+        ema_update(state, sources)
+        runs.append([s.clone() for s in state.params.values()])
+    same_runs = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs, saved
+    _, ema_device_ms = device_profile(lambda: ema_update(state, sources), warm=False)
+    result_b = {"ema_ms": ema_ms, "ema_device_ms": ema_device_ms
+                if ema_device_ms is not None else "not measured",
+                "ema_tensors": len(state.params), "chunks": len(state.chunks),
+                "shadow_bytes": shadow_bytes, "step_seconds": step_s[True],
+                "step_seconds_without_ema": step_s[False], "peak_mem_bytes": peaks[True],
+                "peak_mem_bytes_without_ema": peaks[False],
+                "added_peak_bytes": peaks[True] - peaks[False],
+                "two_runs_bit_identical": same_runs, "card": smi}
+    log("options_ema", **result_b)
+    del trainer, state, sources, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same_runs or len(ema_ms) != OPTIONS_EMA_STEPS:
+        raise RuntimeError(f"options: EMA updates {ema_ms}, two runs identical {same_runs}")
+
+    # (c) The entry in an NCCL group of one: 4 micro-steps (checkpoints at 3,
+    # in the middle of an accumulation, and 4); a resume from step 3 to 4;
+    # the same 4 micro-steps without a group; then the bundle samples one
+    # clip from the checkpoint with the adapters merged.
+    work = tempfile.mkdtemp(prefix="gcd_options_")
+    reduce_ms = []
+    all_reduce_mean = distributed.all_reduce_mean
+
+    def timed_reduce(t):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = all_reduce_mean(t)
+        end.record()
+        end.synchronize()
+        reduce_ms.append([t.numel(), start.elapsed_time(end)])
+        return out
+
+    def free_port() -> int:
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    try:
+        root = os.path.join(work, "kubric")
+        make_kubric_root(root, n_frames=ENTRY_FRAMES, n_views=OPTIONS_VIEWS,
+                         n_points=OPTIONS_POINTS, seed=SEED)
+        args = ["-b", TRAIN_CONFIG, "--seed", str(SEED), "--no_date", "-n", "options",
+                f"data.params.dset_root={root}/data", f"data.params.pcl_root={root}/pcl",
+                "data.params.train_videos=1", "data.params.val_videos=0",
+                f"data.params.avail_frames={ENTRY_FRAMES}",
+                f"data.params.mock_dset_size={TRAIN_B}", "data.params.shuffle=false",
+                "model.params.ckpt_path=null",
+                "lightning.callbacks.image_logger.params.disabled=true", *OPTIONS_OVERRIDES]
+
+        def group():
+            return ["--coordinator", f"127.0.0.1:{free_port()}", "--num_processes", "1",
+                    "--process_id", "0"]
+
+        def entry(argv):
+            run = train_entry.main(argv)
+            trainer = run.pop("trainer")
+            run["state"] = cpu_state(trainer.state_dict())
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            return run
+
+        reset()
+        distributed.all_reduce_mean = timed_reduce
+        t0 = time.perf_counter()
+        try:
+            grouped = entry([*args, "-l", os.path.join(work, "group"), "--max_steps",
+                             str(OPTIONS_STEPS), *group(),
+                             f"lightning.modelcheckpoint.params.every_n_train_steps="
+                             f"{OPTIONS_CKPT_STEP}"])
+        finally:
+            distributed.all_reduce_mean = all_reduce_mean
+        grouped_s = time.perf_counter() - t0
+        entry_launches = counts()
+        group_dir = grouped["logdir"]
+        ckpt_dir = os.path.join(group_dir, "checkpoints")
+        ckpts = sorted(os.listdir(ckpt_dir))
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{OPTIONS_STEPS}"))
+        t0 = time.perf_counter()
+        resumed = entry(["--resume", group_dir, "--seed", str(SEED), "--max_steps",
+                         str(OPTIONS_STEPS), *group()])
+        resumed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = entry([*args, "-l", os.path.join(work, "plain"), "--max_steps",
+                       str(OPTIONS_STEPS)])
+        plain_s = time.perf_counter() - t0
+        shutil.rmtree(plain["logdir"], ignore_errors=True)
+        resume_misses = state_mismatches(resumed["state"], grouped["state"])
+        group_misses = state_mismatches(plain["state"], grouped["state"])
+
+        # The bundle on the resumed run's step_4: EMA shadow, adapters merged.
+        reset()
+        t0 = time.perf_counter()
+        bundle = load_model_bundle(CONFIG, os.path.join(ckpt_dir, f"step_{OPTIONS_STEPS}"),
+                                   support_ema=True)
+        bundle_s = time.perf_counter() - t0
+        missing = list(bundle.engine.missing_keys)
+        clip_batch = random_batch(torch.Generator("cuda").manual_seed(SEED + 70), 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = bundle.engine.sample_video(
+            clip_batch, generator=torch.Generator("cuda").manual_seed(SEED + 71),
+            decoding_t=T)["sampled_video"]
+        torch.cuda.synchronize()
+        clip_s = time.perf_counter() - t0
+        clip_launches = counts()
+        per_clip = {name: n // CLIPS for name, n in phase6.items()}
+        finite = bool(torch.isfinite(frames).all() and frames.min() >= 0 and frames.max() <= 1)
+        del bundle, frames, clip_batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    grads = [ms for n, ms in reduce_ms if n > 1]
+    result_c = {"losses": grouped["losses"], "plain_losses": plain["losses"],
+                "resumed_losses": resumed["losses"], "steps": grouped["steps"],
+                "resumed_from": resumed["start_step"], "checkpoints": ckpts,
+                "saves": grouped["saves"] + resumed["saves"],
+                "resume_mismatches": resume_misses[:8], "group_mismatches": group_misses[:8],
+                "all_reduce_calls": reduce_ms,
+                "gradient_all_reduce_ms": grads,
+                "gradient_all_reduce_ms_a_step": sum(grads) / len(grouped["steps"]),
+                "run_seconds": {"group": grouped_s, "resume": resumed_s, "plain": plain_s},
+                "entry_launches": entry_launches,
+                "expected_per_step": phase7["expected"],
+                "launch_misses": per_step_launch_misses(grouped["launches"],
+                                                         phase7["expected"])[:2],
+                "bundle_missing_keys": len(missing), "bundle_seconds": bundle_s,
+                "clip_seconds": clip_s, "clip_launches": clip_launches,
+                "expected_per_clip": per_clip, "clip_frames_finite": finite, "card": smi}
+    log("options_entry", **result_c)
+    if grouped["steps"] != list(range(1, OPTIONS_STEPS + 1)) or resumed["start_step"] != \
+            OPTIONS_CKPT_STEP or f"step_{OPTIONS_CKPT_STEP}" not in ckpts:
+        raise RuntimeError(f"options entry: steps {grouped['steps']}, checkpoints {ckpts}, "
+                           f"resumed at {resumed['start_step']}")
+    if resume_misses or resumed["losses"] != grouped["losses"][OPTIONS_CKPT_STEP:]:
+        raise RuntimeError(f"options entry: the resume differs at {resume_misses[:8]}")
+    if group_misses or plain["losses"] != grouped["losses"]:
+        raise RuntimeError(f"options entry: the run without a group differs at "
+                           f"{group_misses[:8]}")
+    if not grads or result_c["launch_misses"]:
+        raise RuntimeError(f"options entry: all-reduces {reduce_ms}, launches "
+                           f"{result_c['launch_misses']}")
+    if missing or not finite or clip_launches != per_clip:
+        raise RuntimeError(f"options bundle: {len(missing)} missing keys, frames finite "
+                           f"{finite}, launches {clip_launches}, expected {per_clip}")
+    total.update(entry_launches)
+    total.update(clip_launches)
+    return dict(total)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2174,6 +2576,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pardom_launches = pardom_phase(smi, launches, phase7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    options_launches = options_phase(smi, launches, phase7)
 
     # `launches`: the sample_video requests for K1-K5 and K7, the Adam steps
     # for K6 (which only training runs); `served_launches`: the served phase's
@@ -2185,6 +2590,7 @@ def main() -> int:
          "served_launches": served_launches[name], "train_launches": train_launches[name],
          "entry_launches": entry_launches[name], "eval_launches": eval_launches.get(name, 0),
          "pardom_launches": pardom_launches[name],
+         "options_launches": options_launches.get(name, 0),
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]

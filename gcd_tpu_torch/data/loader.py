@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,13 +64,20 @@ PREFETCH = 2
 class PrefetchLoader:
     """Iterates a map-style dataset in full batches (the last partial one is
     dropped), with worker threads and a prefetch queue. Each pass over it is
-    one epoch."""
+    one epoch.
 
-    def __init__(self, dataset, batch_size: int, shuffle: bool = True, num_workers: int = 2):
+    `process_shard` (process index, process count), set by a data-parallel
+    run: `batch_size` stays the global batch, every process computes the
+    same epoch order, and each loads and renders only its contiguous rows
+    [p*B/P, (p+1)*B/P) of every batch (gcd_tpu/data/loader.py:54-76)."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True, num_workers: int = 2,
+                 process_shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
+        self.process_shard = process_shard
         self._epoch = 0
 
     def __len__(self):
@@ -83,6 +90,13 @@ class PrefetchLoader:
         self._epoch += 1
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(len(self))]
+        if self.process_shard is not None:
+            pid, nproc = self.process_shard
+            if not 0 <= pid < nproc or self.batch_size % nproc:
+                raise ValueError(f"process_shard {self.process_shard}: the global batch of "
+                                 f"{self.batch_size} must split evenly over the processes")
+            rows = self.batch_size // nproc
+            batches = [b[pid * rows:(pid + 1) * rows] for b in batches]
         if not batches:
             return
         first_batch = collate_fn([self.dataset[int(i)] for i in batches[0]])

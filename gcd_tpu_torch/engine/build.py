@@ -9,7 +9,9 @@ materialised on the target device in `dtype`. There is no CPU fallback: with
 no CUDA device the default raises, and the CPU is used only when asked for.
 The weights of the 2D ResBlocks' 3x3 convs are built in channels_last memory,
 the layout K7 reads in place (models/resblock.py); the dtype cast, the
-materialisation and load_state_dict's copies all keep it.
+materialisation and load_state_dict's copies all keep it. LoRA adapters
+(`ft_strategy: time_lora`) start at LoRA's own initialisation, B = 0
+(models/lora.py), unless the state dict holds them.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from gcd_tpu_torch.engine.engine import DiffusionEngine
+from gcd_tpu_torch.models.lora import init_adapters
 from gcd_tpu_torch.utils.config import instantiate_from_config, load_config
 
 # Random weights when no state dict is given: N(0, RANDOM_STD) on every
@@ -40,7 +43,8 @@ def engine_from_config(model_config: Dict, device: Optional[Union[str, torch.dev
                        state_dict: Optional[Dict[str, torch.Tensor]] = None,
                        strict: bool = True) -> DiffusionEngine:
     """The engine of a config's `model` section on `device` (CUDA when
-    None), in eval mode. Without `state_dict` the weights are seeded random.
+    None), in eval mode. Without `state_dict` the weights are seeded random
+    (the adapters LoRA's initialisation).
     `state_dict` (the reference checkpoint's key space) is loaded with
     `strict`. Only a released checkpoint (engine/bundle.py) loads non-strictly:
     the keys it lacks keep the seeded random weights, the keys the engine
@@ -61,6 +65,7 @@ def engine_from_config(model_config: Dict, device: Optional[Union[str, torch.dev
         with torch.no_grad():
             for p in engine.parameters():
                 p.normal_(0.0, RANDOM_STD, generator=gen)
+        init_adapters(engine, gen)
     if state_dict is not None:
         result = engine.load_state_dict(state_dict, strict=strict)
         engine.missing_keys, engine.unexpected_keys = result.missing_keys, result.unexpected_keys

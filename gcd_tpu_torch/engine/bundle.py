@@ -33,7 +33,8 @@ from gcd_tpu_torch.engine.build import engine_from_config
 from gcd_tpu_torch.engine.engine import DiffusionEngine
 from gcd_tpu_torch.io.checkpoint import (STEP_RE, checkpoint_state_dict,
                                          is_training_checkpoint, latest_step,
-                                         restore_checkpoint)
+                                         restore_checkpoint, with_ema)
+from gcd_tpu_torch.models.lora import merge_lora_state_dict
 from gcd_tpu_torch.utils.config import get_by_path, load_config, set_by_path
 
 MODEL_NAME_SHORTENER = {
@@ -113,7 +114,8 @@ def camera_metadata(train_config: Optional[Dict], test_config: Dict) -> Dict:
 
 def training_checkpoint_weights(model_path: str) -> Dict[str, torch.Tensor]:
     """The module weights of the port's training checkpoint at `model_path`:
-    a `step_N` directory, or a `checkpoints` directory (its latest step)."""
+    a `step_N` directory, or a `checkpoints` directory (its latest step),
+    with the EMA shadow's `model_ema.*` entries when the run kept one."""
     ckpt_dir = model_path.rstrip("/")
     m = STEP_RE.match(os.path.basename(ckpt_dir))
     if m:
@@ -135,9 +137,10 @@ def load_model_bundle(config_path: str, model_path: Optional[str] = None,
     """The engine of an inference config after the reference's config
     surgery (sampler steps, the guider's frame count and scales, EMA use,
     and the sampler's `guidance_interval` (lo, hi) when given), with a
-    released checkpoint's weights (the EMA shadows with
-    `support_ema`; keys it lacks keep seeded random weights and are
-    reported) or, without `model_path`, seeded random weights. On CUDA
+    released checkpoint's or a training run's weights (the EMA shadows with
+    `support_ema`; LoRA adapters of a `time_lora` run merged into their base
+    weights, models/lora.py; keys it lacks keep seeded random weights and
+    are reported) or, without `model_path`, seeded random weights. On CUDA
     unless `device="cpu"` is asked for."""
     test_config = load_config(config_path)
     set_by_path(test_config, "model.params.ckpt_path", model_path)
@@ -155,12 +158,15 @@ def load_model_bundle(config_path: str, model_path: Optional[str] = None,
     if model_path and os.path.exists(model_path):
         if os.path.isdir(model_path) or "step_" in os.path.basename(model_path):
             state_dict = training_checkpoint_weights(model_path)
+            if support_ema:
+                state_dict = with_ema(state_dict, verbose)
         else:
             state_dict = checkpoint_state_dict(
                 model_path, use_ema=support_ema,
                 ablate_unet_scratch=bool(get_by_path(test_config,
                                                      "model.params.ablate_unet_scratch", False)),
                 verbose=verbose)
+        state_dict = merge_lora_state_dict(state_dict)
     elif model_path and verbose:
         print(f"Warning: model path {model_path!r} not found; using random-init weights")
     engine = engine_from_config(test_config["model"], device, dtype, state_dict, strict=False)

@@ -8,8 +8,13 @@ engine's `sample_video`: conditioner (c and uc), CFG-doubled Euler-EDM
 sampling, then chunked decode; `sample_video_from_cond` is the part after
 the conditioner. `loss(batch, global_step)` is the JAX engine's `loss`: the
 sampled first-stage encoding without grad, the conditioner in training mode,
-then StandardDiffusionLoss; `trainable_parameter_names` is its
-`trainable_mask` by parameter name; `example_batch` its shape-correct batch.
+then StandardDiffusionLoss, on the random numbers `draw` makes;
+`trainable_parameter_names` is its `trainable_mask` by parameter name;
+`example_batch` its shape-correct batch. Under `ft_strategy:
+time_lora` the UNet's "time" projections carry LoRA adapters merged into
+their weights at every read (models/lora.py), so `network_fn`, the loss
+and the sampler all run the merged weights, as the JAX engine's
+`effective_model_params`.
 The public layout is the JAX package's
 channels-last one: frames in (B*T, H, W, 3), conditioning and latents in
 (B*T, h, w, C); modules run channels-first inside. `load_engine`
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gcd_tpu_torch.models.lora import add_lora, is_adapter
 from gcd_tpu_torch.utils.config import instantiate_from_config
 
 # The unconditional branch of sample_video zeroes the image embeddings.
@@ -49,6 +55,10 @@ def _unit_interval(frames: torch.Tensor) -> torch.Tensor:
 
 # ft_strategy "dummy" trains this one parameter of the UNet.
 DUMMY_TRAINABLE = "output_blocks.11.1.time_mixer.mix_factor"
+# Which UNet parameters each ft_strategy trains, by name under the UNet:
+# all, those holding "time", the one blend factor, or the LoRA adapters.
+FT_STRATEGIES = {"everything": lambda key: True, "time": lambda key: "time" in key,
+                 "dummy": lambda key: DUMMY_TRAINABLE in key, "time_lora": is_adapter}
 
 
 class DiffusionEngine(nn.Module):
@@ -57,21 +67,29 @@ class DiffusionEngine(nn.Module):
                  conditioner_config: Optional[Dict] = None,
                  loss_fn_config: Optional[Dict] = None,
                  optimizer_config: Optional[Dict] = None,
+                 scheduler_config: Optional[Dict] = None,
                  ft_strategy: str = "everything",
                  base_learning_rate: Optional[float] = None,
+                 use_ema: bool = False, ema_decay_rate: float = 0.9999,
                  scale_factor: float = 1.0,
                  en_and_decode_n_samples_a_time: Optional[int] = None, **unused):
         super().__init__()
-        # unused: the reference's checkpoint, EMA, scheduler, autocast and
-        # logging settings (no shipped config sets a scheduler or EMA).
+        # unused: the reference's checkpoint, autocast and logging settings.
+        # The optimizer, scheduler and EMA settings are read by
+        # engine/trainer.py.
         self.loss_fn = instantiate_from_config(loss_fn_config) if loss_fn_config else None
         self.optimizer_config = optimizer_config or {"target": "torch.optim.AdamW"}
+        self.scheduler_config = scheduler_config
         self.ft_strategy = ft_strategy
         self.base_learning_rate = base_learning_rate
+        self.use_ema = bool(use_ema)
+        self.ema_decay_rate = float(ema_decay_rate)
         self.conditioner = instantiate_from_config(
             conditioner_config or {"target": "sgm.modules.GeneralConditioner",
                                    "params": {"emb_models": []}})
         self.model = _ModelWrapper(instantiate_from_config(network_config))
+        if ft_strategy == "time_lora":
+            add_lora(self.model.diffusion_model)
         self.first_stage_model = instantiate_from_config(first_stage_config)
         self.denoiser = instantiate_from_config(denoiser_config)
         self.sampler = instantiate_from_config(sampler_config)
@@ -104,19 +122,19 @@ class DiffusionEngine(nn.Module):
         """(c, uc), uc with the `force_uc_zero_embeddings` keys zeroed."""
         return self.conditioner.get_unconditional_conditioning(batch, force_uc_zero_embeddings)
 
-    def encode_first_stage(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+    def encode_first_stage(self, x: torch.Tensor,
                            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Frames (N, H, W, 3) in [-1, 1] -> scaled latents (N, H/8, W/8, 4),
         encoded in chunks of en_and_decode_n_samples_a_time: a sample of the
         posterior, mean + std * noise, with the unit Gaussian `noise`
-        (N, H/8, W/8, 4) given or drawn chunk by chunk from `generator`."""
+        (N, H/8, W/8, 4), or one drawn from torch's global generator."""
         vae = self.first_stage_model
         x = x.permute(0, 3, 1, 2).to(vae.encoder.conv_in.weight.dtype)
         n = self.en_and_decode_n_samples_a_time or x.shape[0]
         chunks = x.split(n)
         noises = (noise.permute(0, 3, 1, 2).split(n) if noise is not None
                   else [None] * len(chunks))
-        z = torch.cat([vae.encode(c, generator, e) for c, e in zip(chunks, noises)])
+        z = torch.cat([vae.encode(c, e) for c, e in zip(chunks, noises)])
         return (z * self.scale_factor).permute(0, 2, 3, 1)
 
     def decode_first_stage(self, z: torch.Tensor,
@@ -134,19 +152,21 @@ class DiffusionEngine(nn.Module):
         """Per-sample training loss, (B*T,) fp32 (gcd_tpu engine.py `loss`).
 
         `batch` is sample_video's plus "jpg", the target frames
-        (B*T, H, W, 3) in [-1, 1]. The random numbers come from `draws` where
-        it has them -- "posterior" (B*T, H/8, W/8, 4) for the first-stage
-        sample, "ucg_keep" {embedder index: (B*T,) keep mask} for the
-        conditioning dropout, and the loss's "sigma_rand", "noise" and
-        "offset" (StandardDiffusionLoss.draw) -- and otherwise from
-        `generator`, in that order."""
-        draws = draws or {}
+        (B*T, H, W, 3) in [-1, 1]. The random numbers are `draws` --
+        "posterior" (B*T, H/8, W/8, 4) for the first-stage sample,
+        "ucg_keep" {embedder index: (B*T,) keep mask} for the conditioning
+        dropout, and the loss's "sigma_rand", "noise" and "offset"
+        (StandardDiffusionLoss.draw) -- or, when None, `draw` makes them
+        from `generator`. A key missing from `draws` is drawn from torch's
+        global generator."""
+        frames = batch["jpg"]
+        if draws is None:
+            draws = self.draw(frames.shape[0], tuple(frames.shape[1:3]), generator,
+                              frames.device)
         t = int(batch["image_only_indicator"].shape[1])
         with torch.no_grad():
-            z = self.encode_first_stage(batch["jpg"], generator,
-                                        draws.get("posterior")).float()
-        cond = self.apply_conditioner(batch, train=True, generator=generator,
-                                      ucg_keep=draws.get("ucg_keep"))
+            z = self.encode_first_stage(frames, draws.get("posterior")).float()
+        cond = self.apply_conditioner(batch, train=True, ucg_keep=draws.get("ucg_keep"))
         cond = {k: _channels_first(v) for k, v in cond.items()}
 
         def network(xin, c_noise, c, image_only_indicator=None, **unused):
@@ -156,25 +176,47 @@ class DiffusionEngine(nn.Module):
         loss_draws = draws if "noise" in draws else None
         return self.loss_fn.loss_from_cond(network, self.denoiser, cond, z,
                                            dict(batch, num_video_frames=t), global_step,
-                                           generator, loss_draws)
+                                           None, loss_draws)
+
+    def draw(self, frames: int, frame_hw: Tuple[int, int],
+             generator: Optional[torch.Generator],
+             device: Union[str, torch.device]) -> Dict:
+        """The random numbers of `loss` for a batch of `frames` frames of
+        frame_hw, drawn from `generator` (the one definition of their order
+        and shapes): the posterior noise chunk by chunk (when the first
+        stage samples), the conditioning-dropout keep masks of the embedders
+        with a ucg_rate (one per frame), then the loss's. A data-parallel
+        rank draws those of the global batch and keeps its own rows
+        (engine/trainer.py), so any number of ranks makes the same step."""
+        h, w = frame_hw[0] // 8, frame_hw[1] // 8
+        z = self.first_stage_model.decoder.conv_in.in_channels
+        draws: Dict = {}
+        if getattr(self.first_stage_model.regularization, "sample", False):
+            chunk = self.en_and_decode_n_samples_a_time or frames
+            draws["posterior"] = torch.cat([
+                torch.randn((min(chunk, frames - i), z, h, w), generator=generator,
+                            device=device)
+                for i in range(0, frames, chunk)]).permute(0, 2, 3, 1)
+        keep = {i: torch.rand(frames, generator=generator, device=device) < 1.0 - rate
+                for i, rate in enumerate(self.conditioner.ucg_rates) if rate > 0.0}
+        if keep:
+            draws["ucg_keep"] = keep
+        draws.update(self.loss_fn.draw(torch.empty((frames, h, w, z), device=device),
+                                       generator))
+        return draws
 
     def trainable_parameter_names(self) -> Set[str]:
         """Names of the parameters a training step updates (gcd_tpu engine.py
-        `trainable_mask`): the UNet's by `ft_strategy` ("everything", "time":
-        names holding "time", "dummy": one time_mixer), the conditioner's
-        embedders marked is_trainable, never the first stage."""
+        `trainable_mask`): the UNet's by `ft_strategy` (FT_STRATEGIES;
+        under "time_lora" only the adapters, the base frozen), the
+        conditioner's embedders marked is_trainable, never the first stage."""
         unet_prefix, emb_prefix = "model.diffusion_model.", "conditioner.embedders."
-        rules = {"everything": lambda key: True, "time": lambda key: "time" in key,
-                 "dummy": lambda key: DUMMY_TRAINABLE in key}
-        if self.ft_strategy not in rules:
-            if self.ft_strategy == "time_lora":
-                raise NotImplementedError("ft_strategy 'time_lora' trains LoRA adapters, "
-                                          "which the port does not have yet (later work)")
+        if self.ft_strategy not in FT_STRATEGIES:
             raise NotImplementedError(f"ft_strategy {self.ft_strategy!r}")
         names = set()
         for name, _ in self.named_parameters():
             if name.startswith(unet_prefix):
-                keep = rules[self.ft_strategy](name[len(unet_prefix):])
+                keep = FT_STRATEGIES[self.ft_strategy](name[len(unet_prefix):])
             elif name.startswith(emb_prefix):
                 keep = self.conditioner.is_trainable[int(name.split(".")[2])]
             else:

@@ -18,9 +18,13 @@ so the `safetensors` package is not needed.
 
 Training checkpoints (port of gcd_tpu/io/checkpoint.py:17-68, the same
 layout and resume rules): `{ckpt_dir}/step_N/checkpoint.pt`, one torch save
-of {"module": the engine's state dict, "masters": the fp32 masters by
-parameter name, "optimizer": the optimizer's state dict, "global_step"}
-(engine/trainer.py `Trainer.state_dict`). A save goes to a temporary
+of {"module": the engine's state dict (LoRA adapters included) and, with
+EMA, the shadow under LitEma's `model_ema.*` names, "masters": the fp32
+masters by parameter name, "optimizer": the optimizer's state dict,
+"global_step", "updates", and under gradient accumulation "micro_step" and
+"accumulated_grad"} (engine/trainer.py `Trainer.state_dict`;
+`split_ema` takes the shadow back out of "module"). Checkpoints of the
+first format, without the later entries, still restore. A save goes to a temporary
 directory that is renamed into place, so an interrupted save never looks
 like a checkpoint; a restore maps the file (mmap) rather than reading a
 second copy into host memory.
@@ -33,7 +37,7 @@ import os
 import re
 import shutil
 import struct
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -105,23 +109,33 @@ def extract_ema_state_dict(sd: Dict) -> Dict:
     return out
 
 
+def split_ema(sd: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(the entries of `sd` that are not LitEma's, its `model_ema.*` entries)."""
+    ema = {k: v for k, v in sd.items() if k.startswith(EMA_PREFIX)}
+    return {k: v for k, v in sd.items() if k not in ema}, ema
+
+
+def with_ema(sd: Dict[str, torch.Tensor], verbose: bool = False) -> Dict[str, torch.Tensor]:
+    """`sd` with its EMA shadows in place of the live UNet weights (the
+    reference's ema_scope at evaluation); `sd` itself when it has none."""
+    ema = extract_ema_state_dict(sd)
+    if not ema:
+        return sd
+    if verbose:
+        print(f"Using {len(ema)} EMA shadow tensors for the UNet")
+    return {**sd, **ema}
+
+
 def checkpoint_state_dict(path: str, use_ema: bool = False, ablate_unet_scratch: bool = False,
                           verbose: bool = False) -> Dict[str, torch.Tensor]:
     """A released checkpoint as a state dict for load_engine: with
     `ablate_unet_scratch` every key holding "diffusion" is dropped (the UNet
     then keeps its fresh weights); with `use_ema` the EMA shadows replace
-    the live UNet weights (the reference's ema_scope at evaluation)."""
+    the live UNet weights (with_ema)."""
     sd = load_torch_state_dict(path)
     if ablate_unet_scratch:
         sd = {k: v for k, v in sd.items() if "diffusion" not in k.lower()}
-    if use_ema:
-        ema = extract_ema_state_dict(sd)
-        if ema:
-            if verbose:
-                print(f"Using {len(ema)} EMA shadow tensors for the UNet")
-            sd = dict(sd)
-            sd.update(ema)
-    return sd
+    return with_ema(sd, verbose) if use_ema else sd
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: Dict[str, Any]) -> str:

@@ -6,6 +6,10 @@ gcd_clip_rename); the port imports nothing of that package. Linear
 (in, out) -> (out, in), conv HWIO -> OIHW, DHWIO -> OIDHW, the CLIP tower's
 combined in_proj (C, 3C) -> (3C, C). The port's modules use the reference's
 parameter names, so the result loads with `load_state_dict(..., strict=True)`.
+JAX's `params["lora"]` tree ({path: {"lora_a", "lora_b"}}) carries across
+as it is, prefixed like the UNet: its leaves are direct parameters, which
+land on the port's adapters (`<module>.lora_a` / `.lora_b`,
+models/lora.py) in JAX's layout.
 """
 
 from __future__ import annotations

@@ -289,12 +289,11 @@ class DiagonalGaussianDistribution:
         self.logvar = logvar.clamp(-30.0, 20.0)
         self.std = torch.exp(0.5 * self.logvar)
 
-    def sample(self, generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def sample(self, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """mean + std * noise, the unit Gaussian `noise` (N, z, h, w) given
-        or drawn in fp32 from `generator`."""
+        or drawn in fp32 from torch's global generator."""
         if noise is None:
-            noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device)
+            noise = torch.randn(self.mean.shape, device=self.mean.device)
         return self.mean + self.std * noise.to(self.mean.dtype)
 
     def mode(self) -> torch.Tensor:
@@ -309,10 +308,10 @@ class DiagonalGaussianRegularizer:
     def __init__(self, sample: bool = True):
         self.sample = sample
 
-    def __call__(self, moments: torch.Tensor, generator: Optional[torch.Generator] = None,
+    def __call__(self, moments: torch.Tensor,
                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         posterior = DiagonalGaussianDistribution(moments)
-        return posterior.sample(generator, noise) if self.sample else posterior.mode()
+        return posterior.sample(noise) if self.sample else posterior.mode()
 
 
 class AutoencodingEngine(nn.Module):
@@ -330,11 +329,11 @@ class AutoencodingEngine(nn.Module):
         self.regularization = (instantiate_from_config(regularizer_config)
                                if regularizer_config else DiagonalGaussianRegularizer())
 
-    def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (N, 3, H, W) -> latents (N, z, H/8, W/8); a posterior sample
-        takes `noise` (N, z, H/8, W/8) or draws it from `generator`."""
-        return self.regularization(self.encoder(x), generator, noise)
+        takes `noise` (N, z, H/8, W/8) or draws it from torch's global
+        generator."""
+        return self.regularization(self.encoder(x), noise)
 
     def decode(self, z: torch.Tensor, timesteps: int) -> torch.Tensor:
         return self.decoder(z, timesteps)

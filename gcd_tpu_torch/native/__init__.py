@@ -12,10 +12,12 @@ unfilter_plain) serve the tests and callers that ask for them by name.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional
 
@@ -34,6 +36,20 @@ _lib: Optional[ctypes.CDLL] = None
 _png_lib: Optional[ctypes.CDLL] = None
 
 
+@contextmanager
+def build_lock(build_dir: Path):
+    """An exclusive lock on `build_dir`/.lock (flock: the kernel drops it
+    when the holder dies), so that processes starting together on one
+    machine, the ranks of a data-parallel run, build a library once."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(source: Path = SOURCE, stem: str = "libgcdsplat") -> Path:
     """Compile `source` unless an up-to-date library is already built;
     returns its path. Raises RuntimeError with the compiler's output if the
@@ -42,17 +58,19 @@ def build(source: Path = SOURCE, stem: str = "libgcdsplat") -> Path:
     out = BUILD_DIR / f"{stem}-{digest[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    try:
-        proc = subprocess.run([CXX, *CXX_FLAGS, str(source), "-o", str(tmp)],
-                              capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"cannot build the native {source.stem} with {CXX!r}: {e}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"{CXX} failed on {source.name} ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    with build_lock(BUILD_DIR):
+        if out.exists():  # built by another process while this one waited
+            return out
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        try:
+            proc = subprocess.run([CXX, *CXX_FLAGS, str(source), "-o", str(tmp)],
+                                  capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot build the native {source.stem} with {CXX!r}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"{CXX} failed on {source.name} ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
     return out
 
 

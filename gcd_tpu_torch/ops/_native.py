@@ -29,6 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from gcd_tpu_torch.native import build_lock
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -75,8 +77,9 @@ def _nvcc() -> str:
 def build() -> Tuple[Path, str]:
     """Compile csrc/ into the build directory unless an up-to-date library
     is already there: one nvcc per source, all started together, then one
-    link. Returns (library path, the compilers' stderr -- the ptxas
-    register/shared-memory report -- or "" when it was cached)."""
+    link, under the build directory's lock (one build for the processes of a
+    data-parallel run). Returns (library path, the compilers' stderr -- the
+    ptxas register/shared-memory report -- or "" when it was cached)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [*(CSRC / name for name in SOURCES), *sorted(CSRC.glob("*.cuh"))]:
         digest.update(path.name.encode())
@@ -84,8 +87,14 @@ def build() -> Tuple[Path, str]:
     out = BUILD_DIR / f"libgcdkernels-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    with build_lock(BUILD_DIR):
+        if out.exists():  # built by another process while this one waited
+            return out, ""
+        return out, _compile(out, digest.hexdigest()[:16])
+
+
+def _compile(out: Path, digest: str) -> str:
+    tag = f"{digest}.{os.getpid()}"
     objs = [BUILD_DIR / f"{Path(n).stem}-{tag}.o" for n in SOURCES]
     nvcc = _nvcc()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)],
@@ -105,7 +114,7 @@ def build() -> Tuple[Path, str]:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-8000:]}")
     os.replace(tmp, out)
-    return out, "".join(reports)
+    return "".join(reports)
 
 
 def library() -> ctypes.CDLL:

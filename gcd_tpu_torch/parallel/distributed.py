@@ -1,0 +1,100 @@
+"""Data-parallel training across processes (port of
+gcd_tpu/parallel/distributed.py, and of the data axis of
+gcd_tpu/parallel/mesh.py), on torch.distributed.
+
+Every process holds a full replica of the engine and the trainer. The
+conventions are the JAX package's:
+  * the config's `batch_size` is the global batch: process p loads rows
+    [p*B/P, (p+1)*B/P) of every global batch (data/loader.py
+    `process_shard`), so P processes consume the one-process run's examples;
+  * every process draws the global batch's random numbers from the same
+    seed and keeps its rows (engine/trainer.py), and the fp32 master
+    gradients are averaged over the processes (JAX's psum), so a P-process
+    run makes the one-process run's steps up to the order of the sums;
+  * the config snapshot, the metrics CSV, wandb, the checkpoints and the
+    image log are written by process 0 only; every process restores.
+
+The group is NCCL on CUDA and gloo for `--device cpu`; a failed
+initialisation raises, it never falls back to the other. Given a
+coordinator, the group is formed even for one process, so the NCCL path
+runs on a one-card machine too. The fsdp and tensor axes of the JAX mesh are
+not ported (ROADMAP Queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+# How long a collective may wait for the slowest process (an image log on
+# process 0, a checkpoint write) before it fails.
+TIMEOUT = datetime.timedelta(minutes=30)
+
+
+def check_mesh(fsdp: int, tensor: int) -> None:
+    """Only the data axis is ported: raise on fsdp or tensor axes."""
+    if fsdp > 1 or tensor > 1:
+        raise NotImplementedError(
+            f"--mesh_fsdp {fsdp} / --mesh_tensor {tensor}: the port trains data-parallel "
+            "only; FSDP and tensor parallelism are ROADMAP Queue 1 item 10")
+
+
+def initialize(coordinator: Optional[str], num_processes: int, process_id: int,
+               device: torch.device) -> bool:
+    """Join the process group of `num_processes` processes at
+    `coordinator` (host:port of process 0), as process `process_id`; on
+    CUDA first select card process_id % the host's card count. No
+    coordinator and at most one process: no group. Returns whether a group
+    was formed."""
+    if not coordinator:
+        if num_processes > 1:
+            raise ValueError(f"--num_processes {num_processes} needs --coordinator host:port")
+        return False
+    if num_processes < 1 or not 0 <= process_id < num_processes:
+        raise ValueError(f"--process_id {process_id} of --num_processes {num_processes}")
+    if device.type == "cuda":
+        torch.cuda.set_device(process_id % torch.cuda.device_count())
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://{coordinator}", world_size=num_processes,
+                            rank=process_id, timeout=TIMEOUT)
+    return True
+
+
+def shutdown() -> None:
+    """Leave the process group, if there is one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_main() -> bool:
+    return process_index() == 0
+
+
+def broadcast_str(s: str) -> str:
+    """Process 0's `s` on every process (the run directory's timestamped
+    name, which would otherwise differ between processes)."""
+    if not dist.is_initialized():
+        return s
+    box = [s]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
+    """`t` averaged over the processes, in place (a no-op without a group);
+    returns `t`."""
+    if dist.is_initialized():
+        dist.all_reduce(t)
+        t.div_(dist.get_world_size())
+    return t

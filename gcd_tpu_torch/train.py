@@ -5,16 +5,34 @@
     python -m gcd_tpu_torch.train --resume logs/<run>            # on from its last checkpoint
     python -m gcd_tpu_torch.train --device cpu -b configs/smoke_kubric_tiny.yaml \
         data.params.dset_root=... data.params.pcl_root=...
+    # data-parallel over N processes (one per card, or gloo with --device cpu):
+    python -m gcd_tpu_torch.train ... --coordinator host:port --num_processes N --process_id P
 
 Configs merge left to right, then the `key.path=value` overrides; the run
 directory {logdir}/{date}_{name} holds configs/ (the merged config),
 checkpoints/step_N (io/checkpoint.py: module weights, fp32 masters,
-optimizer state, step), metrics.csv and images/train (engine/image_logger.py).
-A checkpoint is written every `lightning.modelcheckpoint.params.
-every_n_train_steps` steps and at the end, and on SIGUSR1 or an exception
-("melk"). `--resume` restores the latest checkpoint of a run; the loader
-starts again at epoch 0, as main.py's does. `--resume_from_checkpoint`
-(or `model.params.ckpt_path`) starts from released weights instead.
+optimizer state, step, and the EMA, the accumulated gradient and the update
+count when the run has them), metrics.csv and images/train
+(engine/image_logger.py). A checkpoint is written every
+`lightning.modelcheckpoint.params.every_n_train_steps` steps and at the
+end, and on SIGUSR1 or an exception ("melk"). `--resume` restores the
+latest checkpoint of a run; the loader starts again at epoch 0, as
+main.py's does. `--resume_from_checkpoint` (or `model.params.ckpt_path`)
+starts from released weights instead.
+
+The training options are the trainer's (engine/trainer.py):
+`model.params.use_ema`, `model.params.scheduler_config` (the CSV's `lr` is
+main.py's `schedule(global_step)`), `model.params.ft_strategy: time_lora`
+and `lightning.trainer.accumulate_grad_batches`; a step of the CSV is a
+micro-step. With `--coordinator` the processes form one torch.distributed
+group (parallel/distributed.py; NCCL on CUDA, gloo with `--device cpu`,
+formed even for one process): `batch_size` is the global batch, each
+process renders its rows, the gradients are averaged, all agree on the run
+directory, and process 0 alone writes the config snapshot, the CSV, wandb,
+the checkpoints and the image log (sampled from its full replica while the
+others go on to the next step's reduction); every process restores.
+`--scale_lr` multiplies the rate by accumulate x processes x batch size.
+`--mesh_fsdp` / `--mesh_tensor` above 1 raise: only the data axis is ported.
 
 The data module (data/kubric.py) renders the batches on host threads while
 the card trains; `batch_to_device` copies each through pinned memory. The
@@ -22,12 +40,13 @@ step's random numbers come from one torch.Generator on the device, seeded
 from `--seed` and the step's index (JAX's fold_in has no counterpart, so the
 losses are not main.py's). On CUDA, in bf16 with fp32 masters
 (engine/trainer.py), unless `--device cpu` asks for the CPU (fp32); without
-CUDA and without that flag it raises. main.py's mesh and multi-process flags
-are the JAX package's; this entry trains on one card.
+CUDA and without that flag it raises.
 
 `main(argv)` returns what the run measured (losses, step and loader-wait
 seconds, kernel launches per step, checkpoint sizes and seconds) with its
-trainer; `setup` and `fit` are its two halves.
+trainer; `setup` and `fit` are its two halves (`main` leaves the process
+group it formed; a caller of `setup` and `fit` calls
+`distributed.shutdown()`).
 """
 
 from __future__ import annotations
@@ -53,8 +72,9 @@ from gcd_tpu_torch.engine.build import engine_from_config
 from gcd_tpu_torch.engine.image_logger import ImageLogger
 from gcd_tpu_torch.engine.trainer import DEFAULT_LEARNING_RATE, Trainer
 from gcd_tpu_torch.io.checkpoint import (checkpoint_state_dict, find_resume_logdir, latest_step,
-                                         restore_checkpoint, save_checkpoint)
+                                         restore_checkpoint, save_checkpoint, split_ema)
 from gcd_tpu_torch.ops import KERNELS
+from gcd_tpu_torch.parallel import distributed
 from gcd_tpu_torch.utils.config import (apply_dotlist, config_to_dict, get_by_path,
                                         instantiate_from_config, load_config, merge_configs,
                                         save_config)
@@ -81,6 +101,15 @@ def get_parser() -> argparse.ArgumentParser:
                         help="torch.profiler trace of steps 2..2+N under <logdir>/profile")
     parser.add_argument("--device", type=str, default=None,
                         help="'cpu' to train on the CPU (fp32); default: the CUDA card (bf16)")
+    parser.add_argument("--coordinator", type=str, default="",
+                        help="host:port of process 0: train data-parallel in one "
+                        "torch.distributed group (formed even for one process)")
+    parser.add_argument("--num_processes", type=int, default=1)
+    parser.add_argument("--process_id", type=int, default=0)
+    parser.add_argument("--mesh_fsdp", type=int, default=1,
+                        help="FSDP axis size; only 1 (data parallelism) is ported")
+    parser.add_argument("--mesh_tensor", type=int, default=1,
+                        help="tensor-parallel axis size; only 1 is ported")
     return parser
 
 
@@ -105,8 +134,10 @@ class CSVLogger:
 
 
 def checkpoint_state(trainer: Trainer) -> Dict[str, Any]:
-    """What a checkpoint holds: the module weights, then Trainer.state_dict()."""
-    return {"module": trainer.engine.state_dict(), **trainer.state_dict()}
+    """What a checkpoint holds: the module weights with the EMA shadow under
+    LitEma's names, then the rest of Trainer.state_dict()."""
+    state = trainer.state_dict()
+    return {"module": {**trainer.engine.state_dict(), **state.pop("ema", {})}, **state}
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -128,32 +159,49 @@ class Run:
     trainer: Trainer
     loader: Any
     image_logger: ImageLogger
-    csv_logger: CSVLogger
+    csv_logger: Optional[CSVLogger]
     wandb_run: Any
     lr: float
     ckpt_every: int
     max_epochs: int
     start_step: int
     restore_seconds: Optional[float]
+    owns_group: bool
 
     def log_metrics(self, metrics: Dict) -> None:
-        self.csv_logger.log(metrics)
+        if self.csv_logger is not None:
+            self.csv_logger.log(metrics)
         if self.wandb_run is not None:
             self.wandb_run.log(metrics, step=metrics.get("step"))
 
 
 def setup(argv: Optional[List[str]] = None) -> Run:
-    """Parse, assemble the config and the run directory, build the data
-    module, the engine and the trainer, and restore the run's latest
-    checkpoint on `--resume`."""
+    """Parse, join the process group when asked, assemble the config and
+    the run directory, build the data module, the engine and the trainer,
+    and restore the run's latest checkpoint on `--resume`."""
     opt, unknown = get_parser().parse_known_args(argv)
+    distributed.check_mesh(opt.mesh_fsdp, opt.mesh_tensor)
     if opt.device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("gcd_tpu_torch.train: no CUDA device; pass --device cpu to "
                                "train on the CPU")
         opt.device = "cuda"
+    owns_group = distributed.initialize(opt.coordinator, opt.num_processes, opt.process_id,
+                                        torch.device(opt.device))
+    try:
+        return _setup(opt, unknown, owns_group)
+    except BaseException:
+        if owns_group:
+            distributed.shutdown()
+        raise
+
+
+def _setup(opt: argparse.Namespace, unknown: List[str], owns_group: bool) -> Run:
     device = torch.device(opt.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    nproc, is_main = distributed.process_count(), distributed.is_main()
 
     # ---- config assembly (main.py:134-161) -------------------------------
     if opt.resume:
@@ -163,26 +211,28 @@ def setup(argv: Optional[List[str]] = None) -> Run:
         now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
         cfg_name = os.path.splitext(os.path.basename(opt.base[0]))[0] if opt.base else "none"
         name = opt.name or cfg_name
-        logdir = os.path.join(opt.logdir, name if opt.no_date else f"{now}_{name}")
+        # Every process must write into process 0's (timestamped) directory.
+        logdir = os.path.join(opt.logdir, distributed.broadcast_str(
+            name if opt.no_date else f"{now}_{name}"))
     config = apply_dotlist(merge_configs([load_config(fp) for fp in opt.base]),
                            [u for u in unknown if "=" in u])
     ckptdir = os.path.join(logdir, "checkpoints")
     cfgdir = os.path.join(logdir, "configs")
     os.makedirs(ckptdir, exist_ok=True)
     os.makedirs(cfgdir, exist_ok=True)
-    save_config(config, os.path.join(
-        cfgdir, f"{datetime.datetime.now():%Y-%m-%dT%H-%M-%S}-project.yaml"))
+    if is_main:
+        save_config(config, os.path.join(
+            cfgdir, f"{datetime.datetime.now():%Y-%m-%dT%H-%M-%S}-project.yaml"))
     np.random.seed(opt.seed)
 
     model_cfg = dict(config["model"])
     params = model_cfg.get("params") or {}
-    for key, what in (("use_ema", "EMA"), ("scheduler_config", "a learning-rate schedule")):
-        if params.get(key):
-            raise NotImplementedError(f"model.params.{key}: {what} is not ported yet")
     base_lr = float(model_cfg.get("base_learning_rate", DEFAULT_LEARNING_RATE))
 
     data_module = instantiate_from_config(config["data"])
     loader = data_module.train_dataloader()
+    if nproc > 1:
+        loader.process_shard = (distributed.process_index(), nproc)
     frame_h = int(get_by_path(config, "data.params.frame_height", 256))
     frame_w = int(get_by_path(config, "data.params.frame_width", 384))
     t = int(get_by_path(config, "data.params.model_frames", 14))
@@ -191,9 +241,6 @@ def setup(argv: Optional[List[str]] = None) -> Run:
     lightning_cfg = config.get("lightning", {})
     trainer_cfg = lightning_cfg.get("trainer", {})
     accumulate = int(trainer_cfg.get("accumulate_grad_batches", 1))
-    if accumulate != 1:
-        raise NotImplementedError("accumulate_grad_batches > 1: gradient accumulation is not "
-                                  "ported yet")
     max_epochs = int(trainer_cfg.get("max_epochs", 300))
     ckpt_every = int(get_by_path(lightning_cfg, "modelcheckpoint.params.every_n_train_steps",
                                  1250))
@@ -201,9 +248,9 @@ def setup(argv: Optional[List[str]] = None) -> Run:
     image_logger = ImageLogger(logdir, **{
         k: v for k, v in img_logger_cfg.items()
         if k in ("batch_frequency", "disabled", "log_first_step")})
-    csv_logger = CSVLogger(logdir)
+    csv_logger = CSVLogger(logdir) if is_main else None
     wandb_run = None
-    if opt.wandb:
+    if opt.wandb and is_main:
         try:
             import wandb
 
@@ -212,21 +259,26 @@ def setup(argv: Optional[List[str]] = None) -> Run:
         except ImportError:
             print("wandb requested but not installed; using CSV logger only")
 
-    # ---- LR scaling (main.py:222-229), one device ------------------------
+    # ---- LR scaling (main.py:222-229) ------------------------------------
     if opt.scale_lr:
-        lr = accumulate * 1 * batch_size * base_lr
-        print(f"Scaling LR to {lr:.2e} = {accumulate} x 1 x {batch_size} x {base_lr:.2e}")
+        lr = accumulate * nproc * batch_size * base_lr
+        print(f"Scaling LR to {lr:.2e} = {accumulate} x {nproc} x {batch_size} x "
+              f"{base_lr:.2e}")
     else:
         lr = base_lr
 
     # ---- model and trainer -----------------------------------------------
-    print(f"Initializing parameters ({frame_h}x{frame_w}, T={t}) on {device}...")
+    print(f"Initializing parameters ({frame_h}x{frame_w}, T={t}) on {device}, process "
+          f"{distributed.process_index()} of {nproc}...")
     resume_step = latest_step(ckptdir) if opt.resume else None
     restored, restore_seconds = None, None
     if resume_step is not None:
         t0 = time.perf_counter()
         restored = restore_checkpoint(ckptdir, resume_step)
-        engine = engine_from_config(model_cfg, device, dtype, restored["module"])
+        weights, ema = split_ema(restored["module"])
+        if ema:
+            restored["ema"] = ema
+        engine = engine_from_config(model_cfg, device, dtype, weights)
     else:
         ckpt_path = opt.resume_from_checkpoint or params.get("ckpt_path")
         state_dict = None
@@ -238,7 +290,7 @@ def setup(argv: Optional[List[str]] = None) -> Run:
                 verbose=True)
         engine = engine_from_config(model_cfg, device, dtype, state_dict,
                                     strict=state_dict is None)
-    trainer = Trainer(engine, lr)
+    trainer = Trainer(engine, lr, accumulate)
     start_step = 0
     if restored is not None:
         print(f"Resuming from {ckptdir} step {resume_step}")
@@ -251,7 +303,8 @@ def setup(argv: Optional[List[str]] = None) -> Run:
     return Run(opt=opt, logdir=logdir, ckptdir=ckptdir, device=device,
                trainer=trainer, loader=loader, image_logger=image_logger,
                csv_logger=csv_logger, wandb_run=wandb_run, lr=lr, ckpt_every=ckpt_every,
-               max_epochs=max_epochs, start_step=start_step, restore_seconds=restore_seconds)
+               max_epochs=max_epochs, start_step=start_step, restore_seconds=restore_seconds,
+               owns_group=owns_group)
 
 
 def _timed(loader):
@@ -279,18 +332,25 @@ def fit(run: Run) -> Dict[str, Any]:
         "step_seconds": [], "loader_wait_seconds": [], "launches": [], "saves": [],
         "image_logs": []}
     saved_step = [None]
+    is_main = distributed.is_main()
 
     def save() -> None:
+        # Process 0 writes. Every process holds the same state, a
+        # part-accumulated mean included (engine/trainer.py), so melk's
+        # save on process 0 alone is as exact as a periodic one.
+        saved_step[0] = trainer.global_step
+        if not is_main:
+            return
         t0 = time.perf_counter()
         path = save_checkpoint(run.ckptdir, trainer.global_step, checkpoint_state(trainer))
         stats["saves"].append({"step": trainer.global_step,
                                "seconds": time.perf_counter() - t0,
                                "bytes": sum(os.path.getsize(p) for p in
                                             glob.glob(os.path.join(path, "*")))})
-        saved_step[0] = trainer.global_step
 
     def melk(*args):
-        print("Saving checkpoint on interrupt/exception (melk)...")
+        if is_main:
+            print("Saving checkpoint on interrupt/exception (melk)...")
         save()
         if args:
             sys.exit(1)
@@ -301,14 +361,15 @@ def fit(run: Run) -> Dict[str, Any]:
     log_gen = torch.Generator(device)
     max_steps = opt.max_steps if opt.max_steps > 0 else None
     prof = None
-    print(f"Training from step {trainer.global_step} (ckpt every {run.ckpt_every})...")
+    if is_main:
+        print(f"Training from step {trainer.global_step} (ckpt every {run.ckpt_every})...")
     try:
         done = False
         for epoch in range(run.max_epochs):
             if done:
                 break
             for wait_s, batch_np in _timed(run.loader):
-                if opt.profile_steps > 0 and trainer.global_step == 2:
+                if is_main and opt.profile_steps > 0 and trainer.global_step == 2:
                     prof = torch.profiler.profile(activities=[
                         torch.profiler.ProfilerActivity.CPU,
                         *([torch.profiler.ProfilerActivity.CUDA] if device.type == "cuda"
@@ -335,13 +396,13 @@ def fit(run: Run) -> Dict[str, Any]:
                 stats["step_seconds"].append(dt)
                 stats["loader_wait_seconds"].append(wait_s)
                 stats["launches"].append({k: after[k] - before[k] for k in after})
-                if global_step % 10 == 0 or global_step <= 5:
+                if is_main and (global_step % 10 == 0 or global_step <= 5):
                     print(f"step {global_step} epoch {epoch} loss {loss:.4f} ({dt:.2f}s/it, "
                           f"{wait_s:.2f}s waiting for data)")
                 run.log_metrics({"step": global_step, "epoch": epoch, "loss": loss,
-                                 "grad_norm": grad_norm, "lr": run.lr})
+                                 "grad_norm": grad_norm, "lr": trainer.lr_at(global_step)})
 
-                if run.image_logger.should_log(global_step):
+                if is_main and run.image_logger.should_log(global_step):
                     try:
                         t0 = time.perf_counter()
                         log_gen.manual_seed(step_seed(opt.seed,
@@ -367,17 +428,24 @@ def fit(run: Run) -> Dict[str, Any]:
             prof.stop()
         if on_main_thread:
             signal.signal(signal.SIGUSR1, previous_handler)
-        run.csv_logger.close()
+        if run.csv_logger is not None:
+            run.csv_logger.close()
 
     if saved_step[0] != trainer.global_step:
         save()
     stats["global_step"] = trainer.global_step
-    print(f"Training finished at step {trainer.global_step}; logdir: {run.logdir}")
+    if is_main:
+        print(f"Training finished at step {trainer.global_step}; logdir: {run.logdir}")
     return stats
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    return fit(setup(argv))
+    run = setup(argv)
+    try:
+        return fit(run)
+    finally:
+        if run.owns_group:
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

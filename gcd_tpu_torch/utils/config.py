@@ -88,6 +88,12 @@ REGISTRY = {
         "gcd_tpu_torch.data.kubric.KubricSynthViewModule",
     "sgm.data.pardom_arbit.ParallelDomainSynthViewModule":
         "gcd_tpu_torch.data.pardom.ParallelDomainSynthViewModule",
+    "sgm.lr_scheduler.LambdaWarmUpCosineScheduler":
+        "gcd_tpu_torch.engine.lr_schedule.LambdaWarmUpCosineScheduler",
+    "sgm.lr_scheduler.LambdaWarmUpCosineScheduler2":
+        "gcd_tpu_torch.engine.lr_schedule.LambdaWarmUpCosineScheduler2",
+    "sgm.lr_scheduler.LambdaLinearScheduler":
+        "gcd_tpu_torch.engine.lr_schedule.LambdaLinearScheduler",
 }
 
 

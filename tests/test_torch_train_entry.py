@@ -253,3 +253,60 @@ def test_bundle_camera_metadata_of_a_pardom_config():
     assert meta["camera_control"] == "none" and meta["move_time"] == 13
     assert meta["trajectory"] == "interpol_sine" and meta["motion_bucket_range"] == [127, 127]
     assert cfg["data"]["params"]["output_modality"] == "segm"
+
+
+def test_pr10_checkpoint_still_restores(runs, tmp_path):
+    """A checkpoint of the first format (module, masters, optimizer,
+    global_step; no update count, EMA, adapters or accumulation) resumes,
+    and the resumed trainer steps as the saved one."""
+    import shutil
+
+    logdir = str(tmp_path / "pr10_run")
+    shutil.copytree(os.path.join(runs["run_a"]["logdir"], "configs"),
+                    os.path.join(logdir, "configs"))
+    old = {k: v for k, v in runs["file"].items()
+           if k in ("module", "masters", "optimizer", "global_step")}
+    assert set(runs["file"]) - set(old) == {"updates"}
+    save_checkpoint(os.path.join(logdir, "checkpoints"), 2, old)
+    run = train.setup(["--device", "cpu", "--resume", logdir, "--max_steps", "4"])
+    state = run.trainer.state_dict()
+    assert state["global_step"] == 2 and state["updates"] == 2
+    assert _same_state(state["masters"], runs["saved"]["masters"])
+    data = apply_dotlist(load_config(TINY_CONFIG), _data(runs["root"]))["data"]
+    batch = batch_to_device(next(iter(instantiate_from_config(data).train_dataloader())), "cpu")
+    loss, masters = _fixed_step(run.trainer, batch)
+    assert loss == runs["next_a"][0] and _same_state(masters, runs["next_a"][1])
+
+
+def test_time_lora_ema_checkpoint_serves_through_the_bundle(runs, tmp_path):
+    """A time_lora run with EMA: its checkpoint holds the adapters and the
+    shadow under LitEma's names; load_model_bundle(support_ema=True) loads
+    it with 0 missing keys, the UNet at the shadow with the adapters merged."""
+    from gcd_tpu_torch.io.checkpoint import extract_ema_state_dict
+    from gcd_tpu_torch.models.lora import merged_weight
+
+    run = train.main(_args(runs["root"], str(tmp_path), "--max_steps", "2",
+                           "model.params.ft_strategy=time_lora", "model.params.use_ema=true",
+                           "lightning.callbacks.image_logger.params.disabled=true"))
+    step_2 = os.path.join(run["logdir"], "checkpoints", "step_2")
+    module = restore_checkpoint(os.path.dirname(step_2), 2)["module"]
+    assert int(module["model_ema.num_updates"]) == 2
+    heads = [k[:-len(".lora_a")] for k in module if k.endswith(".lora_a")]
+    assert len(heads) == 108
+    shadow = extract_ema_state_dict(module)
+    bundle = load_model_bundle(TINY_CONFIG, step_2, support_ema=True, num_steps=2,
+                               num_frames=T, device="cpu", dtype=torch.float32)
+    assert bundle.engine.missing_keys == []
+    got = dict(bundle.engine.state_dict())
+    assert not any(k.endswith((".lora_a", ".lora_b")) for k in got)
+    for head in heads:
+        want = merged_weight(shadow[f"{head}.weight"], module[f"{head}.lora_a"],
+                             module[f"{head}.lora_b"])
+        assert torch.equal(got[f"{head}.weight"], want), head
+    unet = [k for k in shadow if k[:-len(".weight")] not in heads]
+    assert unet and all(torch.equal(got[k], shadow[k]) for k in unet)
+    frames = np.random.default_rng(0).uniform(size=(T, H, W, 3))
+    batch = construct_batch(frames, 30.0, 5.0, 0.0, T, 5, 127, 0.02, False, bundle)
+    out = bundle.engine.sample_video(batch_to_device(batch, "cpu"),
+                                     generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(out["sampled_video"]).all()

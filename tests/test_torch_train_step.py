@@ -182,10 +182,20 @@ def test_dummy_strategy_trains_one_flagship_time_mixer():
 
 
 def test_time_lora_is_later_work(setup):
-    engine = setup[3]
-    engine.ft_strategy = "time_lora"
-    try:
-        with pytest.raises(NotImplementedError, match="LoRA"):
-            engine.trainable_parameter_names()
-    finally:
-        engine.ft_strategy = "everything"
+    """time_lora, the strategy ported after the other three, trains the
+    LoRA adapters of the 108 "time" projections and the trainable embedder,
+    no base weight (tests/test_torch_training_options.py holds the set to
+    JAX's mask)."""
+    cfg = _config()
+    cfg["params"]["ft_strategy"] = "time_lora"
+    with torch.device("meta"):
+        engine = instantiate_from_config(cfg)
+    names = engine.trainable_parameter_names()
+    unet = {n for n in names if n.startswith(UNET)}
+    assert len(unet) == 2 * 108
+    assert all(n.endswith((".lora_a", ".lora_b")) and "time" in n for n in unet)
+    assert names - unet == {"conditioner.embedders.5.proj.weight",
+                            "conditioner.embedders.5.proj.bias"}
+    engine.ft_strategy = "nothing"
+    with pytest.raises(NotImplementedError, match="nothing"):
+        engine.trainable_parameter_names()

@@ -148,7 +148,7 @@ _NO_JAX = (
     "import sys\n"
     "bad = sorted(m for m in sys.modules if m in ('jax', 'gcd_tpu', 'cv2', 'imageio',\n"
     "                                              'matplotlib', 'PIL')\n"
-    "             or m.startswith(('jax.', 'flax', 'gcd_tpu.', 'orbax', 'cv2.',\n"
+    "             or m.startswith(('jax.', 'flax', 'optax', 'gcd_tpu.', 'orbax', 'cv2.',\n"
     "                              'imageio.', 'matplotlib.', 'PIL.')))\n"
     "assert not bad, bad\n"
 )
@@ -163,8 +163,8 @@ def _run_no_jax(code: str) -> None:
 
 def test_port_imports_no_jax():
     """Importing every gcd_tpu_torch module loads neither JAX nor any module
-    of the JAX package, nor cv2, imageio, matplotlib, PIL or orbax (the
-    card's machine has none of them)."""
+    of the JAX package, nor flax, optax, cv2, imageio, matplotlib, PIL or
+    orbax (the card's machine has none of them)."""
     _run_no_jax(
         "import importlib, pkgutil\n"
         "import gcd_tpu_torch\n"
@@ -180,7 +180,9 @@ def test_port_imports_no_jax():
         "            'gcd_tpu_torch.data.geometry', 'gcd_tpu_torch.data.loader',\n"
         "            'gcd_tpu_torch.data.kubric', 'gcd_tpu_torch.data.fake',\n"
         "            'gcd_tpu_torch.native', 'gcd_tpu_torch.engine.image_logger',\n"
-        "            'gcd_tpu_torch.data.pardom', 'gcd_tpu_torch.data.png'}\n"
+        "            'gcd_tpu_torch.data.pardom', 'gcd_tpu_torch.data.png',\n"
+        "            'gcd_tpu_torch.engine.ema', 'gcd_tpu_torch.engine.lr_schedule',\n"
+        "            'gcd_tpu_torch.models.lora', 'gcd_tpu_torch.parallel.distributed'}\n"
         "serving = {'gcd_tpu_torch.ops.fused_gn_conv', 'gcd_tpu_torch.engine.server',\n"
         "           'gcd_tpu_torch.engine.bundle', 'gcd_tpu_torch.serve',\n"
         "           'gcd_tpu_torch.io.checkpoint'}\n"
