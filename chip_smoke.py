@@ -172,8 +172,34 @@ without the final `ok` line):
                    (configs/infer_kubric.yaml, support_ema) on step_4 with
                    0 missing keys samples one clip with the adapters merged,
                    its launches phase 6's per clip.
+ 11. mesh        - the fsdp and tensor axes (parallel/mesh.py, tensor.py):
+                   (a) load_trainer on the flagship in an NCCL group of one,
+                   its UNet placed as on 4 cards (fully_shard over a
+                   one-card mesh: fp32 sharded masters, bf16 gathers); 3
+                   steps on phase 7's batch and generator: each loss within
+                   2e-2 of phase 7's step, the first step's UNet gradient
+                   within 5e-2 of phase 7's, every step's launches phase
+                   7's; ms a step beside phase 7's, peak memory, and the
+                   placement summaries (computed, not run) at fsdp 4,
+                   fsdp 2 x tensor 2, tensor 2 and tensor 4 with the state
+                   bytes a card holds. (b) K1 forward, K6 and K2 with
+                   heads / TP heads at every level whose heads divide by
+                   TP, and K3 with inner / TP columns at every level, for
+                   TP = 2 and 4, at B*T = 28's token counts: within 1e-2
+                   of their plain versions, bit-identical on a second call.
+                   (c) with 4 cards or more: the entry in four processes
+                   (NCCL) at fsdp 4 against four data-parallel processes
+                   (the batch of 4 clips one card cannot hold), and at
+                   fsdp 2 x tensor 2 against one process, on a synthetic
+                   root of small clouds: losses within 2e-2, peak memory
+                   per card, NCCL's device ms in a profiled step; on one
+                   card it prints that it did not run.
 Then the kernel JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --mesh-cards
+
+runs phase 2 and the mesh phase's (c) alone (a machine of four cards).
 """
 
 from __future__ import annotations
@@ -298,6 +324,22 @@ OPTIONS_OVERRIDES = [
 OPTIONS_STEPS, OPTIONS_ACCUMULATE, OPTIONS_CKPT_STEP = 4, 2, 3
 OPTIONS_EMA_STEPS = 2
 OPTIONS_VIEWS, OPTIONS_POINTS = 4, 20000
+# The mesh phase: (a) the fsdp path in an NCCL group of one, its placement
+# computed for MESH_RULE_FSDP cards, MESH_STEPS steps of phase 7's; (b) the
+# kernels at the shapes a rank of MESH_TP tensor ranks sees; (c) with four
+# cards or more, entry runs at fsdp 4 and fsdp 2 x tensor 2 (MESH_RUN_STEPS
+# steps, the third profiled on process 0).
+MESH_RULE_FSDP = 4
+MESH_STEPS = 3
+MESH_TP = (2, 4)
+MESH_CARDS = 4
+MESH_RUN_STEPS = 4
+# The entry in a child process, its results on one JSON line.
+MESH_CHILD = ("import json, sys, torch; from gcd_tpu_torch import train; "
+              "out = train.main(sys.argv[1:]); "
+              "print('MESH_RESULT ' + json.dumps({'losses': out['losses'], "
+              "'step_seconds': out['step_seconds'], "
+              "'peak_mem_bytes': torch.cuda.max_memory_allocated()}), flush=True)")
 SERVE_BATCH = 2   # clips per served batch
 SERVE_REQUESTS = 4
 SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
@@ -1439,6 +1481,7 @@ def train(smi: str) -> dict:
     frozen = {n: p.detach().clone() for n, p in named.items() if not p.requires_grad}
     total = Counter()
     step_s = []
+    losses, grad0 = [], None  # for the mesh phase: its steps' losses, step 0's UNet gradient
     torch.cuda.reset_peak_memory_stats()
     for step in range(TRAIN_STEPS):
         masters = [m.clone() for m in trainer.masters]
@@ -1457,6 +1500,9 @@ def train(smi: str) -> dict:
         if not (math.isfinite(loss) and all(g is not None and bool(torch.isfinite(g).all())
                                              for g in grads.values())):
             raise RuntimeError(f"step {step}: loss {loss} or a gradient not finite / missing")
+        losses.append(loss)
+        if step == 0:
+            grad0 = [grads[n].detach().to("cpu", copy=True) for n in unet_names]
         zero = {n for n, g in grads.items() if not g.any()}
         unet_norm = math.sqrt(sum(float(grads[n].float().square().sum()) for n in unet_names))
         moved = [bool((m != m0).any()) for m, m0 in zip(trainer.masters, masters)]
@@ -1501,6 +1547,7 @@ def train(smi: str) -> dict:
     params = sum(p.numel() for p in named.values())
     trainable_params = sum(named[n].numel() for n in trainable)
     return dict(total), {"expected": expected, "frames_per_s": bt / (ms / 1e3), "ms": ms,
+                         "losses": losses, "grad0": dict(zip(unet_names, grad0)),
                          "checkpoint_bytes": checkpoint_bytes(params, trainable_params),
                          "peak_mem_bytes": peak, "device_ms": total_ms or "not measured"}
 
@@ -2396,10 +2443,10 @@ def options_phase(smi: str, phase6: dict, phase7: dict) -> dict:
     reduce_ms = []
     all_reduce_mean = distributed.all_reduce_mean
 
-    def timed_reduce(t):
+    def timed_reduce(t, group=None):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = all_reduce_mean(t)
+        out = all_reduce_mean(t, group)
         end.record()
         end.synchronize()
         reduce_ms.append([t.numel(), start.elapsed_time(end)])
@@ -2527,6 +2574,262 @@ def options_phase(smi: str, phase6: dict, phase7: dict) -> dict:
     return dict(total)
 
 
+def tp_cases(gen: torch.Generator, tensor: int):
+    """(kernel, label, kernel call, plain call, bytes, operations) of K1, K6,
+    K2 and K3 at the shapes a rank of `tensor` tensor ranks sees at
+    B*T = 28: heads / tensor heads where the level's heads divide (the
+    layers the port cuts), inner / tensor GEGLU columns."""
+    from gcd_tpu_torch.ops import (flash_attention, flash_attention_bwd,
+                                   flash_attention_bwd_plain, flash_attention_plain,
+                                   geglu_mlp, geglu_mlp_plain, temporal_attention,
+                                   temporal_attention_plain)
+    from gcd_tpu_torch.parallel.mesh import ff_cut
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    for name, s, c, _ in LEVELS:
+        heads = c // 64
+        if heads % tensor == 0:
+            h, cl = heads // tensor, c // tensor
+            q, k, v, do = (randn(BT, s, cl) for _ in range(4))
+            yield ("flash", f"{name} ({BT},{s},{h}x64) TP={tensor}",
+                   lambda q=q, k=k, v=v, h=h: flash_attention(q, k, v, h),
+                   lambda q=q, k=k, v=v, h=h: flash_attention_plain(q, k, v, h),
+                   4 * BT * s * cl * 2, 4 * BT * s * s * cl)
+            yield ("flash_bwd", f"{name} ({BT},{s},{h}x64) TP={tensor}",
+                   lambda q=q, k=k, v=v, do=do, h=h: flash_attention_bwd(q, k, v, do, h),
+                   lambda q=q, k=k, v=v, do=do, h=h: flash_attention_bwd_plain(q, k, v, do, h),
+                   7 * BT * s * cl * 2, 10 * BT * s * s * cl)
+            yield ("tattn", f"{tattn_label(name, BT, s, cl)} TP={tensor}",
+                   lambda q=q, k=k, v=v, h=h: temporal_attention(q, k, v, T, h),
+                   lambda q=q, k=k, v=v, h=h: temporal_attention_plain(q, k, v, T, h),
+                   4 * BT * s * cl * 2, 4 * BT * s * T * cl)
+        inner = 4 * c
+        if ff_cut(inner, tensor):
+            il, m = inner // tensor, BT * s
+            x = randn(m, c)
+            w1, b1 = randn(2 * il, c, std=c ** -0.5), randn(2 * il, std=0.1)
+            w2, b2 = randn(c, il, std=inner ** -0.5), torch.zeros(c, device="cuda",
+                                                                  dtype=torch.bfloat16)
+            yield ("fused_mlp", f"{mlp_label(name, m, c, il)} TP={tensor}",
+                   lambda a=(x, w1, b1, w2, b2): geglu_mlp(*a),
+                   lambda a=(x, w1, b1, w2, b2): geglu_mlp_plain(*a),
+                   2 * (2 * m * c + 3 * il * c + 2 * il + c), 6 * m * c * il)
+
+
+def mesh_phase(smi: str, phase7: dict) -> dict:
+    """The mesh phase's (a) and (b), and (c) or the line saying why it did
+    not run. Returns the kernel launches over (a)'s steps."""
+    import socket
+
+    from gcd_tpu_torch.engine.trainer import load_trainer
+    from gcd_tpu_torch.ops import KERNELS
+    from gcd_tpu_torch.parallel import distributed
+    from gcd_tpu_torch.parallel.mesh import create_mesh, placement_summary, unet_placements
+    from gcd_tpu_torch.utils.config import instantiate_from_config, load_config
+
+    def reset():
+        for fn in KERNELS.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in KERNELS.items()}
+
+    # Placement summaries of the flagship UNet (computed on the meta device).
+    network = load_config(TRAIN_CONFIG)["model"]["params"]["network_config"]
+    with torch.device("meta"):
+        unet = instantiate_from_config(network)
+    summaries = {f"fsdp{f}_tensor{t}": placement_summary(unet, unet_placements(unet, f, t), f, t)
+                 for f, t in ((MESH_RULE_FSDP, 1), (2, 2), (1, 2), (1, 4))}
+    log("mesh_placement", **summaries, card=smi)
+    del unet
+
+    # (a) fsdp in an NCCL group of one.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, torch.device("cuda"))
+    total = Counter()
+    try:
+        mesh = create_mesh(1, 1, 1, "cuda")
+        t0 = time.perf_counter()
+        trainer = load_trainer(TRAIN_CONFIG, mesh=mesh, rule=(MESH_RULE_FSDP, 1))
+        setup_s = time.perf_counter() - t0
+        from torch.distributed.tensor import DTensor
+
+        sharded = sum(isinstance(p, DTensor) for p in trainer.trainable)
+        gen = torch.Generator("cuda").manual_seed(SEED + 20)  # phase 7's batch and draws
+        batch = random_batch(gen, TRAIN_B, target=True)
+        steps, step_s = [], []
+        torch.cuda.reset_peak_memory_stats()
+        grad_rel = None
+        for step in range(MESH_STEPS):
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(batch, gen)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            launches = counts()
+            total.update(launches)
+            loss = float(metrics["loss"])
+            if step == 0:  # the UNet's gradient against phase 7's first step's
+                num = den = 0.0
+                for name, g in zip(trainer.trainable_names, trainer._grads):
+                    if name in phase7["grad0"]:
+                        ref = phase7["grad0"][name].to("cuda").float()
+                        num += float((g.float() - ref).square().sum())
+                        den += float(ref.square().sum())
+                grad_rel = (num / den) ** 0.5
+            steps.append({"loss": loss, "phase7_loss": phase7["losses"][step],
+                          "loss_rel": abs(loss - phase7["losses"][step]) /
+                          abs(phase7["losses"][step]), "grad_norm": float(metrics["grad_norm"]),
+                          "seconds": step_s[-1], "launches": launches})
+        peak = torch.cuda.max_memory_allocated()
+        result = {"setup_seconds": setup_s, "rule_fsdp": MESH_RULE_FSDP,
+                  "sharded_trainable_tensors": sharded,
+                  "replicated_trainable_tensors": len(trainer.trainable) - sharded,
+                  "steps": steps, "unet_grad_rel_l2": grad_rel,
+                  "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+                  "ms_per_step": 1e3 * statistics.median(step_s[1:]),
+                  "phase7_ms_per_step": phase7["ms"], "peak_mem_bytes": peak,
+                  "phase7_peak_mem_bytes": phase7["peak_mem_bytes"],
+                  "predicted_state_bytes_per_card": summaries[
+                      f"fsdp{MESH_RULE_FSDP}_tensor1"]["state_bytes_per_card"],
+                  "expected_per_step": phase7["expected"], "card": smi}
+        log("mesh_fsdp", **result)
+        del trainer, batch, metrics
+    finally:
+        distributed.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not sharded or any(st["launches"] != phase7["expected"] for st in steps):
+        raise RuntimeError(f"mesh (a): {sharded} sharded tensors, launches "
+                           f"{[st['launches'] for st in steps]}, expected {phase7['expected']}")
+    if not (grad_rel <= TRAIN_GRAD_TOL and all(math.isfinite(st["loss"]) and
+                                               st["loss_rel"] <= TRAIN_LOSS_TOL
+                                               for st in steps)):
+        raise RuntimeError(f"mesh (a): losses {steps}, UNet gradient {grad_rel}")
+
+    # (b) the kernels at the tensor ranks' shapes.
+    gen = torch.Generator("cuda").manual_seed(SEED + 80)
+    for tensor in MESH_TP:
+        for name, label, run, plain, nbytes, flops in tp_cases(gen, tensor):
+            out = run()
+            torch.cuda.synchronize()
+            ref = plain()
+            err = rel_l2(out, ref)
+            same = rel_l2(run(), out) == 0.0
+            (ms, _), (plain_ms, _) = cuda_ms(run), cuda_ms(plain)
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+            log("mesh_kernel", kernel=name, shape=label, rel_l2=err, max_abs_err=max_abs(out, ref),
+                bit_identical=same, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                card=smi)
+            if not (err <= KERNEL_TOL and same):
+                raise RuntimeError(f"mesh (b) {name} {label}: relative L2 {err}, second call "
+                                   f"identical {same}")
+            del out, ref, run, plain
+    torch.cuda.empty_cache()
+
+    # (c) the multi-card runs.
+    if torch.cuda.device_count() >= MESH_CARDS:
+        mesh_cards(smi)
+    else:
+        log("mesh_cards", ran=False, reason=f"{torch.cuda.device_count()} card(s); the "
+            f"four-process runs need {MESH_CARDS} (python3 chip_smoke.py --mesh-cards on a "
+            "machine of four)", card=smi)
+    return dict(total)
+
+
+def nccl_ms(trace_path: str) -> dict:
+    """Device ms by NCCL kernel name in a chrome trace of torch.profiler."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = Counter()
+    for ev in events:
+        if ev.get("cat") == "kernel" and "nccl" in ev.get("name", "").lower():
+            out[ev["name"].split("(")[0][:60]] += ev.get("dur", 0.0) / 1e3
+    return dict(out)
+
+
+def mesh_cards(smi: str) -> None:
+    """(c): the entry in four NCCL processes, one a card, at fsdp 4 (a batch
+    of 4 clips, against four data-parallel processes) and at fsdp 2 x
+    tensor 2 (2 clips, against one process), on a root of small clouds."""
+    import socket
+
+    from gcd_tpu_torch import train as train_entry
+    from gcd_tpu_torch.data.fake import make_kubric_root
+
+    work = tempfile.mkdtemp(prefix="gcd_mesh_")
+    try:
+        root = os.path.join(work, "kubric")
+        make_kubric_root(root, n_frames=ENTRY_FRAMES, n_views=OPTIONS_VIEWS,
+                         n_points=OPTIONS_POINTS, seed=SEED)
+
+        def args(name, clips):
+            return ["-b", TRAIN_CONFIG, "--seed", str(SEED), "--no_date", "-n", name,
+                    "-l", os.path.join(work, "logs"), "--max_steps", str(MESH_RUN_STEPS),
+                    "--profile_steps", "1", f"data.params.dset_root={root}/data",
+                    f"data.params.pcl_root={root}/pcl", "data.params.train_videos=1",
+                    "data.params.val_videos=0", f"data.params.avail_frames={ENTRY_FRAMES}",
+                    f"data.params.batch_size={clips}",
+                    f"data.params.mock_dset_size={clips * MESH_RUN_STEPS}",
+                    "data.params.shuffle=false", "model.params.ckpt_path=null",
+                    "lightning.callbacks.image_logger.params.disabled=true"]
+
+        def run(name, clips, nproc, *mesh):
+            logdir = os.path.join(work, "logs", name)
+            t0 = time.perf_counter()
+            if nproc == 1:
+                out = train_entry.main(args(name, clips))
+                res = [{"losses": out["losses"], "step_seconds": out["step_seconds"],
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated()}]
+                del out
+                gc.collect()
+                torch.cuda.empty_cache()
+            else:
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    port = sock.getsockname()[1]
+                procs = [subprocess.Popen(
+                    [sys.executable, "-c", MESH_CHILD, *args(name, clips), "--coordinator",
+                     f"127.0.0.1:{port}", "--num_processes", str(nproc), "--process_id",
+                     str(pid), *mesh], cwd=REPO, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True) for pid in range(nproc)]
+                try:
+                    outs = [p.communicate(timeout=900)[0] for p in procs]
+                finally:
+                    for p in procs:
+                        p.kill()
+                for p, o in zip(procs, outs):
+                    if p.returncode != 0:
+                        raise RuntimeError(f"mesh (c) {name}: exit {p.returncode}: {o[-3000:]}")
+                res = [json.loads(o.split("MESH_RESULT ", 1)[1].splitlines()[0]) for o in outs]
+            trace = os.path.join(logdir, "profile", "trace.json")
+            result = {"run": name, "processes": nproc, "clips": clips, "mesh": list(mesh),
+                      "losses": res[0]["losses"], "step_seconds": res[0]["step_seconds"],
+                      "peak_mem_bytes_per_card": [r["peak_mem_bytes"] for r in res],
+                      "nccl_ms_profiled_step": nccl_ms(trace) if os.path.exists(trace) else
+                      "not measured", "seconds": time.perf_counter() - t0, "card": smi}
+            shutil.rmtree(logdir, ignore_errors=True)  # a checkpoint of ~23 GB
+            log("mesh_run", **result)
+            return result
+
+        pairs = [(run("one", TRAIN_B, 1), run("f2t2", TRAIN_B, 4, "--mesh_fsdp", "2",
+                                                "--mesh_tensor", "2")),
+                 (run("dp4", 4, 4), run("f4", 4, 4, "--mesh_fsdp", "4"))]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for ref, got in pairs:
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])]
+        log("mesh_cards", ran=True, run=got["run"], against=ref["run"], loss_rel=rel,
+            loss_tol=TRAIN_LOSS_TOL, card=smi)
+        if len(rel) != MESH_RUN_STEPS or not all(r <= TRAIN_LOSS_TOL for r in rel):
+            raise RuntimeError(f"mesh (c) {got['run']} against {ref['run']}: {rel}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2558,6 +2861,12 @@ def main() -> int:
                 note = line.split(": ", 1)[-1].split(" in the function")[0].strip()
                 ptxas_lines.setdefault(where, []).append(note)
     log("build", seconds=time.perf_counter() - t0, ptxas=ptxas_lines)
+    if "--mesh-cards" in sys.argv[1:]:
+        if torch.cuda.device_count() < MESH_CARDS:
+            print(f"chip_smoke --mesh-cards: needs {MESH_CARDS} cards", file=sys.stderr)
+            return 1
+        mesh_cards(smi)
+        return 0
 
     stats, launches, served_launches, launch_model = serve(smi)
     gc.collect()
@@ -2579,6 +2888,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     options_launches = options_phase(smi, launches, phase7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_phase(smi, phase7)
 
     # `launches`: the sample_video requests for K1-K5 and K7, the Adam steps
     # for K6 (which only training runs); `served_launches`: the served phase's
@@ -2591,6 +2903,7 @@ def main() -> int:
          "entry_launches": entry_launches[name], "eval_launches": eval_launches.get(name, 0),
          "pardom_launches": pardom_launches[name],
          "options_launches": options_launches.get(name, 0),
+         "mesh_launches": mesh_launches.get(name, 0),
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]

@@ -13,18 +13,25 @@ so it launches a few multi-tensor kernels a chunk (no Python loop over the
 under LitEma's names (`model_ema.` + the parameter name without
 `model.` and without its dots, with `num_updates` and `decay`), the names
 io/checkpoint.py `extract_ema_state_dict` reads back.
+
+Under a mesh (engine/trainer.py) each shadow tensor follows its source's
+placement: an fsdp shard or a tensor-parallel share, updated in place from
+the rank's master shard; the trainer gathers the shadow whole for a
+checkpoint and cuts it again on a load.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from gcd_tpu_torch.io.checkpoint import EMA_PREFIX
 
+# (parameter name, tensor) -> tensor: a share made whole, or the reverse.
+Convert = Callable[[str, torch.Tensor], torch.Tensor]
 # Elements of one chunk of the update (256 MiB of fp32 temporary at most).
 CHUNK_ELEMENTS = 1 << 26
 
@@ -84,18 +91,26 @@ def lit_ema_key(name: str) -> str:
     return EMA_PREFIX + name[len("model."):].replace(".", "")
 
 
-def lit_ema_state_dict(state: EmaState) -> Dict[str, torch.Tensor]:
-    """The shadow under LitEma's names, with its two bookkeeping buffers."""
-    out = {lit_ema_key(name): s for name, s in state.params.items()}
+def lit_ema_state_dict(state: EmaState, whole: Optional[Convert] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """The shadow under LitEma's names, with its two bookkeeping buffers;
+    `whole(name, shadow)` makes each whole first (the trainer gathers a
+    mesh's shares)."""
+    out = {lit_ema_key(name): whole(name, s) if whole else s
+           for name, s in state.params.items()}
     out[EMA_PREFIX + "num_updates"] = torch.tensor(state.num_updates, dtype=torch.int32)
     out[EMA_PREFIX + "decay"] = torch.tensor(state.decay, dtype=torch.float32)
     return out
 
 
 @torch.no_grad()
-def load_lit_ema_state_dict(state: EmaState, sd: Dict[str, torch.Tensor]) -> None:
-    """Copy a lit_ema_state_dict() into `state`; raises on a missing key."""
+def load_lit_ema_state_dict(state: EmaState, sd: Dict[str, torch.Tensor],
+                            share: Optional[Convert] = None) -> None:
+    """Copy a lit_ema_state_dict() into `state`, each tensor through
+    `share(name, whole)` when given (a mesh's share); raises on a missing
+    key."""
     for name, s in state.params.items():
-        s.copy_(sd[lit_ema_key(name)])
+        saved = sd[lit_ema_key(name)]
+        s.copy_(share(name, saved) if share else saved)
     state.num_updates = int(sd[EMA_PREFIX + "num_updates"])
     state.decay = float(sd[EMA_PREFIX + "decay"])

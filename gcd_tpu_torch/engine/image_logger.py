@@ -57,9 +57,12 @@ class ImageLogger:
         return "_".join(parts)
 
     def log(self, engine, batch: Dict, global_step: int,
-            generator: Optional[torch.Generator] = None) -> str:
+            generator: Optional[torch.Generator] = None, write: bool = True) -> Optional[str]:
         """Sample the first video of a collated numpy `batch` on the engine's
-        device and write its files; returns their common path prefix."""
+        device and, with `write`, write its files; returns their common path
+        prefix (None without `write`). Under a mesh that cuts or shards the
+        UNet every process samples (its gathers and reductions are
+        collectives) and process 0 alone writes, as main.py:344-356."""
         t = int(np.asarray(batch["image_only_indicator"]).shape[-1])
         bt_full = np.asarray(batch["jpg"]).shape[0]
         small = {}
@@ -73,6 +76,8 @@ class ImageLogger:
         device = next(engine.parameters()).device
         out = engine.sample_video(batch_to_device(small, device), generator=generator,
                                   decoding_t=min(t, 7))
+        if not write:
+            return None
         rows = [out["cond_video"], out["sampled_video"]]
         if "gt_video" in out:
             rows.append(out["gt_video"])

@@ -16,6 +16,7 @@ from torch import nn
 
 from gcd_tpu_torch.ops.fused_mlp import geglu_mlp
 from gcd_tpu_torch.ops.fused_norm import group_norm
+from gcd_tpu_torch.parallel.tensor import copy_to_tensor_group, row_parallel_out
 
 
 class GroupNorm32(nn.Module):
@@ -53,7 +54,18 @@ class GEGLUProj(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU transformer MLP (reference FeedForward with glu=True), run as
-    one fused call: K3 on CUDA. Keys net.0.proj / net.2 as in the reference."""
+    one fused call: K3 on CUDA. Keys net.0.proj / net.2 as in the reference.
+
+    Cut over `tp_group` (parallel/tensor.py), rank r holds the r-th share of
+    the value rows and of the gate rows of net.0.proj, [value_r | gate_r],
+    and the matching input columns of net.2: K3 computes only the rank's
+    columns of h and its partial down product, which is summed over the
+    group before net.2's bias is added. This is JAX's row cut of net_2
+    (gcd_tpu/parallel/mesh.py:106,120); JAX leaves the fused [value | gate]
+    projection uncut (each half would land on one shard), but each rank
+    needs only its columns of both halves, so the port cuts it as well."""
+
+    tp_group = None
 
     def __init__(self, dim: int, dim_out: Optional[int] = None, mult: int = 4):
         super().__init__()
@@ -63,7 +75,11 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up, down = self.net[0].proj, self.net[2]
-        return geglu_mlp(x, up.weight, up.bias, down.weight, down.bias)
+        if self.tp_group is None:
+            return geglu_mlp(x, up.weight, up.bias, down.weight, down.bias)
+        x = copy_to_tensor_group(x, self.tp_group)
+        partial = geglu_mlp(x, up.weight, up.bias, down.weight, torch.zeros_like(down.bias))
+        return row_parallel_out(partial, down.bias, self.tp_group, x.dtype)
 
 
 class AlphaBlender(nn.Module):

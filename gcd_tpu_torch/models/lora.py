@@ -17,6 +17,13 @@ as base + (A @ B)^T, computed anew at every read. K3 and K2's projections
 therefore receive the merged weight, autograd takes its gradient to A and
 B, and a rematerialised block's recompute reads the same merge, never a
 weight kept from an earlier step.
+
+Under tensor parallelism (parallel/tensor.py) the adapter of a cut
+projection is cut with it: B (r, out) on `out` for a column cut, A (in, r)
+on `in` for a row cut, the other factor whole (its gradient summed over
+the group, `copy_to_tensor_group`), so each rank merges its share of the
+merged full weight and `merge_lora_state_dict` on the gathered checkpoint
+gives the same full weight.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from gcd_tpu_torch.parallel.tensor import copy_to_tensor_group
 
 RANK = 16
 MATCH = "time"
@@ -40,11 +50,28 @@ def merged_weight(weight: torch.Tensor, lora_a: torch.Tensor,
 
 class LoRALinear(nn.Linear):
     """An nn.Linear whose `weight` is its base merged with its adapter. The
-    base stays the registered parameter `weight`."""
+    base stays the registered parameter `weight`. Sharded by FSDP, the base
+    is a DTensor shard outside the forward, and `weight` reads as that
+    parameter itself (FSDP2 reads its parameters back by name); inside the
+    forward FSDP registers the gathered base, which merges as above."""
+
+    # Set when the projection is cut over a tensor group: the name of the
+    # factor every rank holds whole, whose gradient is the sum of the ranks'.
+    tp_group = None
+    tp_whole = None
 
     @property
     def weight(self) -> torch.Tensor:
-        return merged_weight(self._parameters["weight"], self.lora_a, self.lora_b)
+        base = self._parameters["weight"]
+        if isinstance(base, DTensor):
+            return base
+        a, b = self.lora_a, self.lora_b
+        if self.tp_group is not None:
+            if self.tp_whole == "lora_a":
+                a = copy_to_tensor_group(a, self.tp_group)
+            else:
+                b = copy_to_tensor_group(b, self.tp_group)
+        return merged_weight(base, a, b)
 
 
 def is_adapter(name: str) -> bool:

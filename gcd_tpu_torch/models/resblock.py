@@ -77,7 +77,10 @@ class ResBlock(nn.Module):
         norm, conv = layers[0], layers[-1]
         if (x.dim() == 4 and kernel_enabled("fused_gn_conv")
                 and supported(x, conv.weight, norm.num_groups)):
-            return gn_silu_conv3x3(x, norm.weight, norm.bias, conv.weight, conv.bias,
+            # The weight as built is channels_last already (no copy); FSDP's
+            # gathered weight is contiguous, and is relaid out here.
+            weight = conv.weight.contiguous(memory_format=torch.channels_last)
+            return gn_silu_conv3x3(x, norm.weight, norm.bias, weight, conv.bias,
                                    norm.num_groups, norm.eps, norm.silu)
         return conv(norm(x))
 

@@ -1,24 +1,29 @@
-"""Data-parallel training across processes (port of
-gcd_tpu/parallel/distributed.py, and of the data axis of
-gcd_tpu/parallel/mesh.py), on torch.distributed.
+"""Training across processes (port of gcd_tpu/parallel/distributed.py),
+on torch.distributed.
 
-Every process holds a full replica of the engine and the trainer. The
-conventions are the JAX package's:
-  * the config's `batch_size` is the global batch: process p loads rows
-    [p*B/P, (p+1)*B/P) of every global batch (data/loader.py
-    `process_shard`), so P processes consume the one-process run's examples;
+The conventions are the JAX package's:
+  * the config's `batch_size` is the global batch: it splits over the
+    data x fsdp axes of the mesh (parallel/mesh.py), so the process at row
+    block c of P = data x fsdp blocks loads rows [c*B/P, (c+1)*B/P) of every
+    global batch (data/loader.py `process_shard`), and P blocks consume the
+    one-process run's examples; the processes of one tensor group load the
+    same rows;
   * every process draws the global batch's random numbers from the same
-    seed and keeps its rows (engine/trainer.py), and the fp32 master
-    gradients are averaged over the processes (JAX's psum), so a P-process
-    run makes the one-process run's steps up to the order of the sums;
+    seed and keeps its block's rows (engine/trainer.py), and the fp32
+    gradients are averaged over data x fsdp (JAX's psum), so any mesh makes
+    the one-process run's steps up to the order of the sums;
   * the config snapshot, the metrics CSV, wandb, the checkpoints and the
     image log are written by process 0 only; every process restores.
+
+Without --mesh_fsdp / --mesh_tensor every process holds a full replica
+(data parallelism); with them the fsdp axis shards the UNet's parameters
+and the tensor axis cuts its attention and feed-forward projections
+(engine/trainer.py, parallel/tensor.py).
 
 The group is NCCL on CUDA and gloo for `--device cpu`; a failed
 initialisation raises, it never falls back to the other. Given a
 coordinator, the group is formed even for one process, so the NCCL path
-runs on a one-card machine too. The fsdp and tensor axes of the JAX mesh are
-not ported (ROADMAP Queue 1 item 10).
+runs on a one-card machine too.
 """
 
 from __future__ import annotations
@@ -34,12 +39,21 @@ import torch.distributed as dist
 TIMEOUT = datetime.timedelta(minutes=30)
 
 
-def check_mesh(fsdp: int, tensor: int) -> None:
-    """Only the data axis is ported: raise on fsdp or tensor axes."""
-    if fsdp > 1 or tensor > 1:
-        raise NotImplementedError(
-            f"--mesh_fsdp {fsdp} / --mesh_tensor {tensor}: the port trains data-parallel "
-            "only; FSDP and tensor parallelism are ROADMAP Queue 1 item 10")
+def check_mesh(num_processes: int, fsdp: int, tensor: int) -> None:
+    """Raise unless `num_processes` divides by fsdp x tensor (the data axis
+    takes what they leave)."""
+    if fsdp < 1 or tensor < 1:
+        raise ValueError(f"--mesh_fsdp {fsdp} / --mesh_tensor {tensor} must be >= 1")
+    if num_processes % (fsdp * tensor):
+        raise ValueError(f"--num_processes {num_processes} does not divide by --mesh_fsdp "
+                         f"{fsdp} x --mesh_tensor {tensor}")
+
+
+def check_batch(batch_size: int, blocks: int) -> None:
+    """Raise unless the global batch splits over `blocks` = data x fsdp."""
+    if batch_size % blocks:
+        raise ValueError(f"the global batch of {batch_size} does not split over data x fsdp "
+                         f"= {blocks} row blocks")
 
 
 def initialize(coordinator: Optional[str], num_processes: int, process_id: int,
@@ -91,10 +105,10 @@ def broadcast_str(s: str) -> str:
     return box[0]
 
 
-def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
-    """`t` averaged over the processes, in place (a no-op without a group);
-    returns `t`."""
+def all_reduce_mean(t: torch.Tensor, group=None) -> torch.Tensor:
+    """`t` averaged over the processes of `group` (all of them when None),
+    in place (a no-op without a process group); returns `t`."""
     if dist.is_initialized():
-        dist.all_reduce(t)
-        t.div_(dist.get_world_size())
+        dist.all_reduce(t, group=group)
+        t.div_(dist.get_world_size(group))
     return t

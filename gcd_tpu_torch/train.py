@@ -5,8 +5,10 @@
     python -m gcd_tpu_torch.train --resume logs/<run>            # on from its last checkpoint
     python -m gcd_tpu_torch.train --device cpu -b configs/smoke_kubric_tiny.yaml \
         data.params.dset_root=... data.params.pcl_root=...
-    # data-parallel over N processes (one per card, or gloo with --device cpu):
-    python -m gcd_tpu_torch.train ... --coordinator host:port --num_processes N --process_id P
+    # over N processes (one per card, or gloo with --device cpu), data-parallel,
+    # or with the UNet sharded over F (fsdp) and cut over TP (tensor):
+    python -m gcd_tpu_torch.train ... --coordinator host:port --num_processes N --process_id P \
+        [--mesh_fsdp F] [--mesh_tensor TP]
 
 Configs merge left to right, then the `key.path=value` overrides; the run
 directory {logdir}/{date}_{name} holds configs/ (the merged config),
@@ -32,7 +34,16 @@ directory, and process 0 alone writes the config snapshot, the CSV, wandb,
 the checkpoints and the image log (sampled from its full replica while the
 others go on to the next step's reduction); every process restores.
 `--scale_lr` multiplies the rate by accumulate x processes x batch size.
-`--mesh_fsdp` / `--mesh_tensor` above 1 raise: only the data axis is ported.
+`--mesh_fsdp F` / `--mesh_tensor TP` lay the N processes out as JAX's mesh
+(parallel/mesh.py; data = N / (F x TP)): the global batch splits over data
+x fsdp, the UNet's parameters shard over fsdp (FSDP2) and its attention and
+feed-forward projections are cut over tensor (parallel/tensor.py), as the
+trainer says (engine/trainer.py). Process 0 prints the mesh and the
+placement summary (parameters and bytes sharded, cut and replicated, the
+layers left uncut). On such a mesh every process gathers the checkpoints
+whole (the one format: any mesh resumes any run's checkpoint) and samples
+the image log, and melk on an exception is skipped (the failed process
+cannot join the gather; SIGUSR1 sent to every process still saves).
 
 The data module (data/kubric.py) renders the batches on host threads while
 the card trains; `batch_to_device` copies each through pinned memory. The
@@ -56,6 +67,7 @@ import csv
 import dataclasses
 import datetime
 import glob
+import json
 import os
 import signal
 import sys
@@ -71,10 +83,12 @@ from gcd_tpu_torch.data.loader import batch_to_device
 from gcd_tpu_torch.engine.build import engine_from_config
 from gcd_tpu_torch.engine.image_logger import ImageLogger
 from gcd_tpu_torch.engine.trainer import DEFAULT_LEARNING_RATE, Trainer
-from gcd_tpu_torch.io.checkpoint import (checkpoint_state_dict, find_resume_logdir, latest_step,
-                                         restore_checkpoint, save_checkpoint, split_ema)
+from gcd_tpu_torch.io.checkpoint import (UNET_PREFIX, checkpoint_state_dict, find_resume_logdir,
+                                         latest_step, restore_checkpoint, save_checkpoint,
+                                         split_ema)
 from gcd_tpu_torch.ops import KERNELS
 from gcd_tpu_torch.parallel import distributed
+from gcd_tpu_torch.parallel.mesh import create_mesh, placement_summary, unet_placements
 from gcd_tpu_torch.utils.config import (apply_dotlist, config_to_dict, get_by_path,
                                         instantiate_from_config, load_config, merge_configs,
                                         save_config)
@@ -107,9 +121,9 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num_processes", type=int, default=1)
     parser.add_argument("--process_id", type=int, default=0)
     parser.add_argument("--mesh_fsdp", type=int, default=1,
-                        help="FSDP axis size; only 1 (data parallelism) is ported")
+                        help="fsdp axis size: shard the UNet's parameters over F processes")
     parser.add_argument("--mesh_tensor", type=int, default=1,
-                        help="tensor-parallel axis size; only 1 is ported")
+                        help="tensor axis size: cut the UNet's projections over TP processes")
     return parser
 
 
@@ -137,7 +151,7 @@ def checkpoint_state(trainer: Trainer) -> Dict[str, Any]:
     """What a checkpoint holds: the module weights with the EMA shadow under
     LitEma's names, then the rest of Trainer.state_dict()."""
     state = trainer.state_dict()
-    return {"module": {**trainer.engine.state_dict(), **state.pop("ema", {})}, **state}
+    return {"module": {**trainer.module_state_dict(), **state.pop("ema", {})}, **state}
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -180,7 +194,7 @@ def setup(argv: Optional[List[str]] = None) -> Run:
     the run directory, build the data module, the engine and the trainer,
     and restore the run's latest checkpoint on `--resume`."""
     opt, unknown = get_parser().parse_known_args(argv)
-    distributed.check_mesh(opt.mesh_fsdp, opt.mesh_tensor)
+    distributed.check_mesh(opt.num_processes, opt.mesh_fsdp, opt.mesh_tensor)
     if opt.device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("gcd_tpu_torch.train: no CUDA device; pass --device cpu to "
@@ -229,14 +243,21 @@ def _setup(opt: argparse.Namespace, unknown: List[str], owns_group: bool) -> Run
     params = model_cfg.get("params") or {}
     base_lr = float(model_cfg.get("base_learning_rate", DEFAULT_LEARNING_RATE))
 
-    data_module = instantiate_from_config(config["data"])
-    loader = data_module.train_dataloader()
-    if nproc > 1:
-        loader.process_shard = (distributed.process_index(), nproc)
     frame_h = int(get_by_path(config, "data.params.frame_height", 256))
     frame_w = int(get_by_path(config, "data.params.frame_width", 384))
     t = int(get_by_path(config, "data.params.model_frames", 14))
     batch_size = int(get_by_path(config, "data.params.batch_size", 1))
+    fsdp, tensor = opt.mesh_fsdp, opt.mesh_tensor
+    blocks = nproc // tensor  # data x fsdp row blocks of the global batch
+    distributed.check_batch(batch_size, blocks)
+    mesh = create_mesh(-1, fsdp, tensor, device.type) if fsdp * tensor > 1 else None
+    if is_main and mesh is not None:
+        print(f"Mesh: {mesh.shape} over {nproc} process(es)")
+    data_module = instantiate_from_config(config["data"])
+    loader = data_module.train_dataloader()
+    if blocks > 1:
+        loader.process_shard = (mesh.batch_coordinate if mesh is not None
+                                else distributed.process_index(), blocks)
 
     lightning_cfg = config.get("lightning", {})
     trainer_cfg = lightning_cfg.get("trainer", {})
@@ -290,7 +311,17 @@ def _setup(opt: argparse.Namespace, unknown: List[str], owns_group: bool) -> Run
                 verbose=True)
         engine = engine_from_config(model_cfg, device, dtype, state_dict,
                                     strict=state_dict is None)
-    trainer = Trainer(engine, lr, accumulate)
+    placements = None
+    if mesh is not None:
+        unet = engine.model.diffusion_model
+        placements = unet_placements(unet, fsdp, tensor)
+        if is_main:
+            summary = placement_summary(unet, placements, fsdp, tensor,
+                                        [n[len(UNET_PREFIX):] for n in
+                                         engine.trainable_parameter_names()
+                                         if n.startswith(UNET_PREFIX)])
+            print(f"Placement: {json.dumps(summary)}")
+    trainer = Trainer(engine, lr, accumulate, mesh=mesh, placements=placements)
     start_step = 0
     if restored is not None:
         print(f"Resuming from {ckptdir} step {resume_step}")
@@ -333,22 +364,34 @@ def fit(run: Run) -> Dict[str, Any]:
         "image_logs": []}
     saved_step = [None]
     is_main = distributed.is_main()
+    # A mesh that cuts or shards the UNet: the checkpoint and the image log
+    # are collectives.
+    sharded = bool(trainer.layouts)
 
     def save() -> None:
-        # Process 0 writes. Every process holds the same state, a
-        # part-accumulated mean included (engine/trainer.py), so melk's
-        # save on process 0 alone is as exact as a periodic one.
+        # Process 0 writes. Without a sharded mesh every process holds the
+        # same state, a part-accumulated mean included (engine/trainer.py),
+        # so melk's save on process 0 alone is as exact as a periodic one;
+        # with one, every process joins the gather.
         saved_step[0] = trainer.global_step
-        if not is_main:
+        if not (is_main or sharded):
             return
         t0 = time.perf_counter()
-        path = save_checkpoint(run.ckptdir, trainer.global_step, checkpoint_state(trainer))
+        state = checkpoint_state(trainer)
+        if not is_main:
+            return
+        path = save_checkpoint(run.ckptdir, trainer.global_step, state)
+        del state
         stats["saves"].append({"step": trainer.global_step,
                                "seconds": time.perf_counter() - t0,
                                "bytes": sum(os.path.getsize(p) for p in
                                             glob.glob(os.path.join(path, "*")))})
 
     def melk(*args):
+        if sharded and not args:
+            if is_main:
+                print("Not saving on the exception: a sharded state needs every process")
+            return
         if is_main:
             print("Saving checkpoint on interrupt/exception (melk)...")
         save()
@@ -402,15 +445,16 @@ def fit(run: Run) -> Dict[str, Any]:
                 run.log_metrics({"step": global_step, "epoch": epoch, "loss": loss,
                                  "grad_norm": grad_norm, "lr": trainer.lr_at(global_step)})
 
-                if is_main and run.image_logger.should_log(global_step):
+                if (is_main or sharded) and run.image_logger.should_log(global_step):
                     try:
                         t0 = time.perf_counter()
                         log_gen.manual_seed(step_seed(opt.seed,
                                                       IMAGE_LOG_SEED_OFFSET + global_step))
                         prefix = run.image_logger.log(trainer.engine, batch_np, global_step,
-                                                      log_gen)
-                        stats["image_logs"].append({"step": global_step, "prefix": prefix,
-                                                    "seconds": time.perf_counter() - t0})
+                                                      log_gen, write=is_main)
+                        if is_main:
+                            stats["image_logs"].append({"step": global_step, "prefix": prefix,
+                                                        "seconds": time.perf_counter() - t0})
                     except Exception:  # a failed image log does not stop training
                         print("image logging failed:")
                         traceback.print_exc()

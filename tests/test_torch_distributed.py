@@ -166,11 +166,17 @@ def test_two_process_resume_reaches_the_requested_step(runs):
 
 
 def test_only_the_data_axis_is_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+    """Named when the mesh flags raised; the fsdp and tensor axes are now
+    ported (tests/test_torch_mesh.py), and this holds the refusals of a mesh
+    the processes cannot form, beside the process-group basics."""
+    with pytest.raises(ValueError, match="--num_processes 1 does not divide"):
         train.main(["--device", "cpu", "-b", TINY_CONFIG, "-l", str(tmp_path),
                     "--mesh_fsdp", "2"])
-    with pytest.raises(NotImplementedError, match="tensor"):
-        distributed.check_mesh(1, 2)
+    with pytest.raises(ValueError, match="--mesh_tensor 2"):
+        distributed.check_mesh(1, 1, 2)
+    with pytest.raises(ValueError, match="--num_processes 3"):
+        distributed.check_mesh(3, 2, 1)
+    distributed.check_mesh(4, 2, 2)
     with pytest.raises(ValueError, match="needs --coordinator"):
         distributed.initialize("", 2, 0, torch.device("cpu"))
     assert not distributed.initialize("", 1, 0, torch.device("cpu"))
@@ -178,3 +184,4 @@ def test_only_the_data_axis_is_ported(tmp_path):
     assert distributed.broadcast_str("run") == "run"
     t = torch.ones(3)
     assert distributed.all_reduce_mean(t) is t and torch.equal(t, torch.ones(3))
+    assert distributed.all_reduce_mean(t, None) is t and torch.equal(t, torch.ones(3))

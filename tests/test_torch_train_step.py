@@ -23,6 +23,10 @@ change carries ~1e-3 of rounding.
 """
 
 import copy
+import os
+import socket
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +46,7 @@ from gcd_tpu_torch.io.convert import (
 )
 from gcd_tpu_torch.utils.config import instantiate_from_config, load_config
 from tests.torch_port_helpers import (
+    REPO,
     TINY_CONFIG,
     engine_params,
     engine_state_dict,
@@ -100,8 +105,12 @@ def _keeping_grads(opt: optax.GradientTransformation) -> optax.GradientTransform
     return optax.GradientTransformation(init, update)
 
 
-def test_train_step_matches_jax(setup):
-    jeng, params, batch, engine = setup
+@pytest.fixture(scope="module")
+def jax_step(setup):
+    """JAX's whole `train_step`, once: (lr, metrics, the UNet's gradient and
+    the new UNet / conditioner weights by torch key, the step's draws
+    rebuilt from its key)."""
+    jeng, params, batch, _ = setup
     lr = float(load_config(TINY_CONFIG)["model"]["base_learning_rate"])
     key = jax.random.PRNGKey(5)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -119,35 +128,124 @@ def test_train_step_matches_jax(setup):
     draws = {"posterior": posterior,
              "sigma_rand": np.asarray(jax.random.normal(k_sigma, (B * T,))),
              "noise": np.asarray(jax.random.normal(k_noise, (B * T, H // 8, W // 8, 4)))}
-    trainer = Trainer(engine, lr)
-    before = {n: p.detach().clone() for n, p in engine.named_parameters()}
-    out = trainer.train_step({k: torch.from_numpy(v) for k, v in batch.items()},
-                             draws={k: torch.from_numpy(np.array(v)) for k, v in draws.items()})
-
-    assert out["global_step"] == int(metrics["global_step"]) == 0
-    assert abs(float(out["loss"]) - float(metrics["loss"])) <= 1e-5 * abs(float(metrics["loss"]))
-    assert rel_l2(float(out["grad_norm"]), float(metrics["grad_norm"])) <= 1e-4
-    want_grads = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, grads), UNET)
-    params_now = dict(engine.named_parameters())
-    names = sorted(want_grads)
-    assert names == sorted(n for n in params_now if n.startswith(UNET))
-    want = torch.cat([want_grads[n].flatten() for n in names])
-    got = torch.cat([params_now[n].grad.flatten() for n in names])
-    assert float(want.abs().max()) > 1e-3
-    assert rel_l2(got.numpy(), want.numpy()) <= 1e-4
-
     new_sd = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, new_params["model"]), UNET)
     new_sd.update(state_dict_from_flax(
         jax.tree_util.tree_map(np.asarray, new_params["conditioner"]), "conditioner."))
+    return dict(lr=lr, loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                global_step=int(metrics["global_step"]), draws=draws, new_sd=new_sd,
+                grads=state_dict_from_flax(jax.tree_util.tree_map(np.asarray, grads), UNET))
+
+
+def _check_step(jax_step, out, grads, before, now):
+    """The step against JAX's: the loss 1e-5, the grad norm and the UNet's
+    gradient 1e-4, the weights' change 1e-2 (module docstring)."""
+    lr = jax_step["lr"]
+    assert out["global_step"] == jax_step["global_step"] == 0
+    assert abs(float(out["loss"]) - jax_step["loss"]) <= 1e-5 * abs(jax_step["loss"])
+    assert rel_l2(float(out["grad_norm"]), jax_step["grad_norm"]) <= 1e-4
+    want_grads = jax_step["grads"]
+    names = sorted(want_grads)
+    assert names == sorted(n for n in now if n.startswith(UNET))
+    want = torch.cat([want_grads[n].flatten() for n in names])
+    got = torch.cat([grads[n].flatten() for n in names])
+    assert float(want.abs().max()) > 1e-3
+    assert rel_l2(got.numpy(), want.numpy()) <= 1e-4
+    new_sd = jax_step["new_sd"]
     for prefix in (UNET, "conditioner.embedders.5."):
         keys = sorted(k for k in new_sd if k.startswith(prefix))
         want_delta = torch.cat([(new_sd[k] - before[k]).flatten() for k in keys])
-        got_delta = torch.cat([(params_now[k].detach() - before[k]).flatten() for k in keys])
+        got_delta = torch.cat([(now[k].detach() - before[k]).flatten() for k in keys])
         assert float(want_delta.abs().max()) > 0.5 * lr
         assert rel_l2(got_delta.numpy(), want_delta.numpy()) <= 1e-2
     frozen = [n for n in before if n.startswith(("first_stage_model.", "conditioner.embedders.0.",
                                                  "conditioner.embedders.3."))]
-    assert frozen and all(torch.equal(params_now[n], before[n]) for n in frozen)
+    assert frozen and all(torch.equal(now[n], before[n]) for n in frozen)
+
+
+def test_train_step_matches_jax(setup, jax_step):
+    _, _, batch, engine = setup
+    trainer = Trainer(engine, jax_step["lr"])
+    before = {n: p.detach().clone() for n, p in engine.named_parameters()}
+    out = trainer.train_step({k: torch.from_numpy(v) for k, v in batch.items()},
+                             draws={k: torch.from_numpy(np.array(v))
+                                    for k, v in jax_step["draws"].items()})
+    now = dict(engine.named_parameters())
+    _check_step(jax_step, out, {n: p.grad for n, p in now.items() if p.grad is not None},
+                before, now)
+
+
+def _sharded_child(path: str, rank: int, port: int) -> None:
+    """One of four processes at fsdp 2 x tensor 2: the port's engine on the
+    file's weights, one train_step on its rows of the batch and of JAX's
+    draws; process 0 writes the step's metrics, the UNet's gradient and the
+    weights, gathered whole."""
+    import torch.distributed as dist
+
+    from gcd_tpu_torch.engine.trainer import take_rows
+    from gcd_tpu_torch.parallel.mesh import create_mesh, unet_placements
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=4,
+                            rank=rank)
+    mesh = create_mesh(-1, 2, 2, "cpu")
+    case = torch.load(path, weights_only=False)
+    engine = instantiate_from_config(case["config"])
+    engine.load_state_dict(case["state_dict"], strict=True)
+    unet = engine.model.diffusion_model
+    placements = unet_placements(unet, 2, 2, min_weight_size=2 ** 12)
+    trainer = Trainer(engine.eval(), case["lr"], mesh=mesh, placements=placements)
+    bt = B * T // mesh.batch_count
+    lo, hi = mesh.batch_coordinate * bt, (mesh.batch_coordinate + 1) * bt
+    out = trainer.train_step({k: torch.from_numpy(v[lo // T:hi // T] if k ==
+                                                  "image_only_indicator" else v[lo:hi])
+                              for k, v in case["batch"].items()},
+                             draws=take_rows({k: torch.from_numpy(np.array(v))
+                                              for k, v in case["draws"].items()}, lo, hi))
+    grads = {n: trainer._whole(n, m.grad) for n, m in zip(trainer.trainable_names,
+                                                           trainer.masters)}
+    weights = trainer.module_state_dict()
+    if rank == 0:
+        torch.save({"out": {k: float(v) if torch.is_tensor(v) else v for k, v in out.items()},
+                    "grads": grads, "weights": weights,
+                    "sharded": sum(p.fsdp_dim is not None for p in placements.values()),
+                    "cut": sum(p.tensor_dim is not None for p in placements.values())},
+                   path + ".out")
+    dist.destroy_process_group()
+
+
+def test_sharded_train_step_matches_jax(setup, jax_step, tmp_path):
+    """Four gloo processes at fsdp 2 x tensor 2 (the one JAX step above, as
+    tests/test_parallel.py:153-184 holds JAX's sharded step to the
+    single-device one), JAX's min_weight_size lowered to 2**12 so that the
+    tiny UNet is sharded and cut; the same bounds as the one-process step."""
+    _, params, batch, engine = setup
+    cfg = _config()
+    cfg["params"]["network_config"]["params"]["use_checkpoint"] = True
+    emb_models = cfg["params"]["conditioner_config"]["params"]["emb_models"]
+    before = engine_state_dict(params, emb_models, 71)
+    path = str(tmp_path / "step.pt")
+    torch.save({"config": cfg, "state_dict": before, "batch": batch, "lr": jax_step["lr"],
+                "draws": jax_step["draws"]}, path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    env.pop("PYTHONSTARTUP", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "from tests.test_torch_train_step import _sharded_child; "
+         f"_sharded_child({path!r}, {rank}, {port})"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(4)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    got = torch.load(path + ".out", weights_only=False)
+    assert got["sharded"] > 0 and got["cut"] > 0
+    _check_step(jax_step, got["out"], got["grads"], before, got["weights"])
 
 
 @pytest.mark.parametrize("strategy", ["everything", "time", "dummy"])
