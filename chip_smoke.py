@@ -194,12 +194,41 @@ without the final `ok` line):
                    root of small clouds: losses within 2e-2, peak memory
                    per card, NCCL's device ms in a profiled step; on one
                    card it prints that it did not run.
+ 12. sharded     - sharded sampling (engine/serving.py, parallel/frames.py):
+                   (a) make_sharded_sampler in an NCCL group of one on
+                   phase 6's first request (its batch and its generator's
+                   noise): frames bit-identical to phase 6's, each kernel's
+                   launches phase 6's per clip, the clip's wall s beside
+                   phase 6's. (b) the kernels at the shapes a rank of a
+                   4-rank mesh sees at one clip (V = 2 video blocks x F = 2
+                   frame blocks; the 2-rank mesh's B*T = 14 is phase 4's
+                   plain step): K1, K3, K7 and the per-frame K4 / K5 sites
+                   at 7 rows, K2 on 14 frames at 768 / 192 / 48 / 12
+                   positions, within 1e-2 of their plain versions and
+                   bit-identical on a second call; each time_stack
+                   GroupNorm site cut into F position blocks, their K5 sums
+                   added against K5 on the whole (within 1e-5 of the sums of
+                   |x| and x^2) and each block normalised with them (K4's
+                   split-path apply) within 1e-2 of the plain GroupNorm of
+                   the whole; the two re-layouts, the all-to-all played by
+                   hand on the card, equal to their models and bit-identical
+                   on the round trip. (c) with 4 cards or more: the infer
+                   entry on one .npz clip, 5 samples, in one process and at
+                   --mesh_data 2, --mesh_data 2 --mesh_fsdp 2 and --mesh_fsdp
+                   2 --mesh_tensor 2 (NCCL, one process a card): every
+                   sample's frames within 2e-2 of one card's; clip wall s
+                   (clips 2-3), UNet and NCCL device ms of one evaluation
+                   and NCCL device ms of one clip on process 0 (profiled),
+                   peak memory a card; on one card it prints that it did
+                   not run.
 Then the kernel JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --mesh-cards
 
-runs phase 2 and the mesh phase's (c) alone (a machine of four cards).
+runs phase 2 and the mesh phase's and the sharded phase's (c) alone (a
+machine of four cards); `--sampling-cards` runs phase 2 and the sharded
+phase's (c) alone.
 """
 
 from __future__ import annotations
@@ -340,6 +369,19 @@ MESH_CHILD = ("import json, sys, torch; from gcd_tpu_torch import train; "
               "print('MESH_RESULT ' + json.dumps({'losses': out['losses'], "
               "'step_seconds': out['step_seconds'], "
               "'peak_mem_bytes': torch.cuda.max_memory_allocated()}), flush=True)")
+# The sharded-sampling phase: (a) make_sharded_sampler in an NCCL group of
+# one on phase 6's first request; (b) the kernels at the shapes a rank of a
+# SHARD_RANKS-rank mesh sees at one clip (V = 2 video blocks of SHARD_F
+# frame blocks); (c) with four cards or more, the infer entry at each of
+# SHARD_MESHES against one card, SHARD_SAMPLES clips a run: clip 1 warms,
+# clips 2-3 are timed, clip 4 is profiled whole and the SHARD_EVAL-th UNet
+# evaluation of clip 5 alone.
+SHARD_RANKS, SHARD_F = 4, 2
+SHARD_MESHES = {"data2": ["--mesh_data", "2"],
+                "data2_fsdp2": ["--mesh_data", "2", "--mesh_fsdp", "2"],
+                "fsdp2_tensor2": ["--mesh_fsdp", "2", "--mesh_tensor", "2"]}
+SHARD_SAMPLES, SHARD_TIMED, SHARD_PROFILED_CLIP, SHARD_EVAL = 5, (1, 2), 4, 10
+SHARD_CHILD = "import sys, chip_smoke; chip_smoke.sharded_entry_child(sys.argv[1:])"
 SERVE_BATCH = 2   # clips per served batch
 SERVE_REQUESTS = 4
 SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
@@ -862,7 +904,8 @@ def serve(smi: str):
     """Phases 3-6 and the served phase. Returns (per-kernel statistics of
     phase 4, launches over phase 6's requests, the served phase's launches,
     the launch model: each kernel's launches per clip and per UNet
-    evaluation at B*T = 28 and 14)."""
+    evaluation at B*T = 28 and 14, what the sharded phase needs of phase
+    6)."""
     from gcd_tpu_torch.engine.build import load_engine
     from gcd_tpu_torch.models.attention import BasicTransformerBlock
     from gcd_tpu_torch.models.embedders import VideoPredictionEmbedderWithEncoder
@@ -1167,7 +1210,7 @@ def serve(smi: str):
     # The conditioner's and the decode's launches, once a clip.
     outside = {name: n - steps * per_eval[BT][name] for name, n in expected.items()}
     launch_model = {"per_clip": expected, "per_eval": per_eval, "outside_unet": outside}
-    clip_s = []
+    clip_s, first_frames = [], None
     torch.cuda.reset_peak_memory_stats()
     for fn in KERNELS.values():
         fn.launches = 0
@@ -1183,6 +1226,8 @@ def serve(smi: str):
             raise RuntimeError(f"frames shape {tuple(frames.shape)}")
         if not (torch.isfinite(frames).all() and frames.min() >= 0 and frames.max() <= 1):
             raise RuntimeError("frames not finite in [0, 1]")
+        if first_frames is None:
+            first_frames = frames.cpu()
     launches = {name: fn.launches for name, fn in KERNELS.items()}
     log("slice", clip_seconds=clip_s, frames_per_s=T / statistics.mean(clip_s[1:]),
         peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches,
@@ -1212,7 +1257,11 @@ def serve(smi: str):
     if not k7_rel <= AB_TOL:
         raise RuntimeError(f"clip frames, K7 on vs off: relative L2 {k7_rel} > {AB_TOL}")
     log("launch_model", **launch_model)
-    return stats, launches, served(engine, smi, per_batch), launch_model
+    # For the sharded phase: the first request's frames, the clips' wall
+    # times, the launches a clip, and the UNet's GroupNorm and K7 sites.
+    phase6 = {"frames": first_frames, "clip_s": clip_s, "expected": expected,
+              "gn_unet": gn_calls["unet"], "gn_conv": gn_conv_calls}
+    return stats, launches, served(engine, smi, per_batch), launch_model, phase6
 
 
 def post_npz(url: str, arrays: dict, timeout: float = 600.0) -> dict:
@@ -2830,6 +2879,339 @@ def mesh_cards(smi: str) -> None:
             raise RuntimeError(f"mesh (c) {got['run']} against {ref['run']}: {rel}")
 
 
+def shard_cases(gen: torch.Generator, gn_unet: Counter, gn_conv: Counter):
+    """(kernel, label, kernel call, plain call, bytes, operations, peak) at
+    the shapes a rank of SHARD_RANKS ranks sees at one clip: K1, K3, K7 and
+    the per-frame K4 / K5 sites at T / SHARD_F rows (phase 4's sites with
+    that N), K2 on all T frames of one video at 1 / SHARD_F of each level's
+    positions."""
+    from gcd_tpu_torch.ops import (flash_attention, flash_attention_plain, geglu_mlp,
+                                   geglu_mlp_plain, temporal_attention, temporal_attention_plain)
+
+    rows = T // SHARD_F
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    for name, s, c, _ in LEVELS:
+        heads = c // 64
+        q, k, v = (randn(rows, s, c) for _ in range(3))
+        yield ("flash", flash_label(name, rows, s, heads),
+               lambda q=q, k=k, v=v, h=heads: flash_attention(q, k, v, h),
+               lambda q=q, k=k, v=v, h=heads: flash_attention_plain(q, k, v, h),
+               4 * rows * s * c * 2, 4 * rows * s * s * c, BF16_FLOPS)
+        inner, m = 4 * c, rows * s
+        x = randn(m, c)
+        w1, b1 = randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, std=0.1)
+        w2, b2 = randn(c, inner, std=inner ** -0.5), randn(c, std=0.1)
+        yield ("fused_mlp", mlp_label(name, m, c, inner),
+               lambda a=(x, w1, b1, w2, b2): geglu_mlp(*a),
+               lambda a=(x, w1, b1, w2, b2): geglu_mlp_plain(*a),
+               2 * (2 * m * c + 3 * inner * c + 2 * inner + c), 6 * m * c * inner, BF16_FLOPS)
+        sp = s // SHARD_F
+        q, k, v = (randn(T, sp, c) for _ in range(3))
+        yield ("tattn", tattn_label(name, T, sp, c),
+               lambda q=q, k=k, v=v, h=heads: temporal_attention(q, k, v, T, h),
+               lambda q=q, k=k, v=v, h=heads: temporal_attention_plain(q, k, v, T, h),
+               4 * T * sp * c * 2, 4 * T * sp * T * c, BF16_FLOPS)
+    k7 = Counter({(rows, *site[1:]): 0 for site in gn_conv})
+    for name, label, _, run, plain, _, nbytes, flops, peak in gn_conv_cases(gen, k7):
+        yield name, label, run, plain, nbytes, flops, peak
+    frame_sites = Counter({((rows, *shape[1:]), *rest): 0
+                           for (shape, *rest) in gn_unet if len(shape) == 4})
+    for name, label, _, run, plain, _, nbytes, flops, peak in groupnorm_cases(gen, frame_sites,
+                                                                             {}):
+        yield name, label, run, plain, nbytes, flops, peak
+
+
+def time_stack_cases(gen: torch.Generator, gn_unet: Counter):
+    """The time_stack GroupNorm sites (phase 4's 5D sites) as a rank of
+    SHARD_F frame ranks holds them, one video: each of the SHARD_F position
+    blocks' K5 sums added, against K5 on the whole video; each block
+    normalised with the summed statistics (K4's split-path apply), against
+    the plain GroupNorm of the whole video. Yields (label, whole, blocks,
+    weight, bias, eps, silu)."""
+    for (shape, layout, eps, silu) in sorted({(sh, *rest) for (sh, *rest) in gn_unet
+                                              if len(sh) == 5}):
+        _, c, t, h, w = shape
+        x = torch.randn(1, t, h, w, c, generator=gen, device="cuda").permute(0, 4, 1, 2, 3)
+        x = (x * 2.0 + 0.5).to(torch.bfloat16)  # channels_last_3d, one video
+        hb = h // SHARD_F
+        blocks = [x[:, :, :, j * hb:(j + 1) * hb].contiguous(
+            memory_format=torch.channels_last_3d) for j in range(SHARD_F)]
+        wt = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        bs = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        yield (f"(1,{c},{t},{hb},{w}) x {SHARD_F} blocks {layout} eps={eps} silu={silu}", x,
+               blocks, wt, bs, eps, silu)
+
+
+def sharded_phase(smi: str, phase6: dict) -> dict:
+    """The sharded-sampling phase's (a) and (b), and (c) or the line saying
+    why it did not run. Returns the kernel launches over (a)'s clip."""
+    import socket
+
+    from gcd_tpu_torch.engine.build import load_engine
+    from gcd_tpu_torch.engine.serving import make_sharded_sampler
+    from gcd_tpu_torch.ops import KERNELS, group_norm_plain, group_stats
+    from gcd_tpu_torch.ops.fused_norm import group_norm_from_sums
+    from gcd_tpu_torch.parallel import distributed
+    from gcd_tpu_torch.parallel.frames import (pack_frames, pack_rows, position_block,
+                                               unpack_frames, unpack_rows)
+    from gcd_tpu_torch.parallel.mesh import create_mesh
+
+    phase_t0 = time.perf_counter()
+    # (a) make_sharded_sampler in an NCCL group of one, on phase 6's first
+    # request: its batch and its generator's noise.
+    t0 = time.perf_counter()
+    engine = load_engine(CONFIG)
+    load_s = time.perf_counter() - t0
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, torch.device("cuda"))
+    clip_s, launches, same = [], None, False
+    try:
+        sample = make_sharded_sampler(engine, create_mesh(1, 1, 1, "cuda"), decoding_t=T)
+        for rep in range(2):
+            for fn in KERNELS.values():
+                fn.launches = 0
+            gen = torch.Generator("cuda").manual_seed(SEED + 10)
+            batch = random_batch(gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames = sample(batch, gen)["sampled_video"]
+            torch.cuda.synchronize()
+            clip_s.append(time.perf_counter() - t0)
+            if rep == 0:
+                launches = {name: fn.launches for name, fn in KERNELS.items()}
+                same = torch.equal(frames.cpu(), phase6["frames"])
+    finally:
+        distributed.shutdown()
+    log("sharded_one_card", bit_identical_to_phase6=same, launches=launches,
+        expected_per_clip=phase6["expected"], clip_seconds=clip_s,
+        phase6_clip_seconds=phase6["clip_s"], engine_seconds=load_s, card=smi)
+    del engine, sample, frames, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same or launches != phase6["expected"]:
+        raise RuntimeError(f"sharded (a): bit-identical {same}, launches {launches}, "
+                           f"expected {phase6['expected']}")
+
+    # (b) the kernels at a rank's shapes. P = 2 (V = 2, F = 1) runs the UNet
+    # at B*T = 14, held in phase 4 (its "plain step" cases).
+    log("sharded_kernel", ranks=2, shapes="B*T = 14: phase 4's plain-step cases", card=smi)
+    gen = torch.Generator("cuda").manual_seed(SEED + 90)
+    for name, label, run, plain, nbytes, flops, peak in shard_cases(gen, phase6["gn_unet"],
+                                                                    phase6["gn_conv"]):
+        out = run()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = rel_l2(out, ref)
+        same = rel_l2(run(), out) == 0.0
+        (ms, _), (plain_ms, _) = cuda_ms(run), cuda_ms(plain)
+        b_ms, b_by = bound(nbytes, flops, peak)
+        log("sharded_kernel", ranks=SHARD_RANKS, kernel=name, shape=label, rel_l2=err,
+            max_abs_err=max_abs(out, ref), bit_identical=same, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, card=smi)
+        if not (err <= KERNEL_TOL and same):
+            raise RuntimeError(f"sharded (b) {name} {label}: relative L2 {err}, second call "
+                               f"identical {same}")
+        del out, ref, run, plain
+    for label, x, blocks, wt, bs, eps, silu in time_stack_cases(gen, phase6["gn_unet"]):
+        s1, s2 = group_stats(x, G)
+        parts = [group_stats(blk, G) for blk in blocks]
+        p1, p2 = sum(p[0] for p in parts), sum(p[1] for p in parts)
+        xf = x.float().reshape(1, G, -1)  # x is channels_last_3d: this copies
+        scale1, scale2 = xf.abs().sum(-1), (xf * xf).sum(-1)
+        sums_err = max(float(((p1 - s1).abs() / scale1).max()),
+                       float(((p2 - s2).abs() / scale2).max()))
+        count = x[0].numel() // G
+        whole = group_norm_plain(x, wt, bs, G, eps, silu)
+        hb = blocks[0].shape[3]
+        errs, same = [], True
+        for j, blk in enumerate(blocks):
+            def run(blk=blk):
+                return group_norm_from_sums(blk, wt, bs, G, eps, silu, p1, p2, count)
+            out = run()
+            errs.append(rel_l2(out, whole[:, :, :, j * hb:(j + 1) * hb]))
+            same = same and rel_l2(run(), out) == 0.0
+        (ms, _) = cuda_ms(lambda: [group_stats(blk, G) for blk in blocks])
+        log("sharded_time_stack_groupnorm", shape=label, sums_rel_err=sums_err,
+            rel_l2=max(errs), bit_identical=same, k5_blocks_ms=ms, card=smi)
+        if not (sums_err <= 1e-5 and max(errs) <= KERNEL_TOL and same):
+            raise RuntimeError(f"sharded (b) time_stack GroupNorm {label}: sums {sums_err}, "
+                               f"relative L2 {errs}, second call identical {same}")
+    # The two re-layouts, the all-to-all played by hand among SHARD_F
+    # ranks' packs on the card: channels-last ds1 activations of 7 rows a
+    # rank, and ds1 tokens.
+    for what, whole in (("image (14,320,32,48) channels_last",
+                         torch.randn(T, 32, 48, 320, generator=gen, device="cuda").to(
+                             torch.bfloat16).permute(0, 3, 1, 2)),
+                        ("tokens (14,1536,320)", torch.randn(T, 1536, 320, generator=gen,
+                                                             device="cuda").to(torch.bfloat16))):
+        rows = T // SHARD_F
+        frames = [whole[i * rows:(i + 1) * rows] for i in range(SHARD_F)]
+        packs = [pack_frames(f, T, SHARD_F) for f in frames]
+        recv = [torch.stack([p[j] for p in packs]) for j in range(SHARD_F)]
+        got = [unpack_rows(r, f, T, SHARD_F) for r, f in zip(recv, frames)]
+        model = all(torch.equal(g, position_block(whole, SHARD_F, j)) for j, g in enumerate(got))
+        packs = [pack_rows(g, T, SHARD_F) for g in got]
+        back = [unpack_frames(torch.stack([p[j] for p in packs]), got[j], SHARD_F, (32, 48))
+                for j in range(SHARD_F)]
+        round_trip = all(torch.equal(b, f) for b, f in zip(back, frames))
+        log("sharded_relayout", tensor=what, matches_model=model, round_trip_bit_identical=
+            round_trip, card=smi)
+        if not (model and round_trip):
+            raise RuntimeError(f"sharded (b) re-layout of {what}: model {model}, round trip "
+                               f"{round_trip}")
+    torch.cuda.empty_cache()
+    log("sharded_phase", one_card_seconds=time.perf_counter() - phase_t0, card=smi)
+
+    # (c) across cards.
+    if torch.cuda.device_count() >= MESH_CARDS:
+        sharded_cards(smi)
+    else:
+        log("sharded_cards", ran=False, reason=f"{torch.cuda.device_count()} card(s); the "
+            f"four-process runs need {MESH_CARDS} (python3 chip_smoke.py --mesh-cards on a "
+            "machine of four)", card=smi)
+    return launches
+
+
+def sharded_entry_child(argv) -> None:
+    """One process of (c): the infer entry with `argv`, its clips wrapped to
+    profile clip SHARD_PROFILED_CLIP whole and the SHARD_EVAL-th UNet
+    evaluation of the clip after it; prints its results on one line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gcd_tpu_torch import eval_utils, infer
+    from gcd_tpu_torch.engine.engine import DiffusionEngine
+
+    state = {"clip": 0, "eval": 0, "clip_ms": None, "eval_ms": None}
+
+    def split_ms(prof):
+        by = Counter()
+        for ev in prof.key_averages():
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(ev, "is_user_annotation", False)):
+                by["nccl" if "nccl" in ev.key.lower() else "other"] += \
+                    ev.self_device_time_total / 1e3
+        return dict(by)
+
+    make = eval_utils.make_sampler
+
+    def making(*args, **kwargs):
+        sample = make(*args, **kwargs)
+
+        def wrapped(batch, seed):
+            state["clip"] += 1
+            state["eval"] = 0
+            if state["clip"] != SHARD_PROFILED_CLIP:
+                return sample(batch, seed)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = sample(batch, seed)
+                torch.cuda.synchronize()
+            state["clip_ms"] = split_ms(prof)
+            return out
+
+        return wrapped
+
+    denoise = DiffusionEngine.denoise
+
+    def profiled_denoise(self, *args, **kwargs):
+        state["eval"] += 1
+        if state["clip"] != SHARD_PROFILED_CLIP + 1 or state["eval"] != SHARD_EVAL:
+            return denoise(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = denoise(self, *args, **kwargs)
+            torch.cuda.synchronize()
+        state["eval_ms"] = split_ms(prof)
+        return out
+
+    eval_utils.make_sampler = making
+    DiffusionEngine.denoise = profiled_denoise
+    result = infer.main(argv)
+    print("SHARD_RESULT " + json.dumps({
+        "sample_seconds": None if result is None else result["examples"][0]["sample_seconds"],
+        "clip_device_ms": state["clip_ms"], "eval_device_ms": state["eval_ms"],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}), flush=True)
+
+
+def sharded_cards(smi: str) -> None:
+    """(c): the infer entry on one .npz clip of 14 seeded random frames,
+    SHARD_SAMPLES samples, in one process and at each of SHARD_MESHES (four
+    processes, or two at data 2; NCCL, one a card): every sample's frames
+    within AB_TOL of the one-card run's from the same noise."""
+    import socket
+
+    work = tempfile.mkdtemp(prefix="gcd_shard_")
+    try:
+        clip = os.path.join(work, "clip.npz")
+        rng = np.random.default_rng(SEED)
+        np.savez(clip, frames=rng.integers(0, 256, (T, H, W, 3), dtype=np.uint8))
+
+        def run(name, mesh):
+            nproc = 1
+            for _, n in zip(mesh[::2], mesh[1::2]):
+                nproc *= int(n)
+            out = os.path.join(work, name)
+            args = ["--config_path", CONFIG, "--input", clip, "--output", out,
+                    "--num_samples", str(SHARD_SAMPLES), "--seed", str(SEED), *mesh]
+            group = []
+            if nproc > 1:
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    port = sock.getsockname()[1]
+                group = ["--coordinator", f"127.0.0.1:{port}", "--num_processes", str(nproc)]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", SHARD_CHILD, *args, *group,
+                 *(["--process_id", str(pid)] if group else [])], cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for pid in range(nproc)]
+            try:
+                outs = [p.communicate(timeout=900)[0] for p in procs]
+            finally:
+                for p in procs:
+                    p.kill()
+            for p, o in zip(procs, outs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"sharded (c) {name}: exit {p.returncode}: {o[-3000:]}")
+            res = [json.loads(o.split("SHARD_RESULT ", 1)[1].splitlines()[0]) for o in outs]
+            rule = [ln for ln in outs[0].splitlines() if ln.startswith("Sampling over")]
+            frames = []
+            for s in range(SHARD_SAMPLES):
+                with np.load(os.path.join(out, f"clip_out{s}.npz")) as z:
+                    frames.append(torch.from_numpy(z["frames"].astype(np.float32) / 255.0))
+            samples_s = res[0]["sample_seconds"]
+            clip_ms, eval_ms = res[0]["clip_device_ms"], res[0]["eval_device_ms"]
+            result = {"run": name, "processes": nproc, "mesh": mesh, "row_rule": rule,
+                      "clip_seconds": [samples_s[i] for i in SHARD_TIMED],
+                      "all_sample_seconds": samples_s,
+                      "unet_device_ms_an_evaluation": None if eval_ms is None else
+                      eval_ms.get("other", 0.0),
+                      "nccl_device_ms_an_evaluation": None if eval_ms is None else
+                      eval_ms.get("nccl", 0.0),
+                      "nccl_device_ms_a_clip": None if clip_ms is None else
+                      clip_ms.get("nccl", 0.0),
+                      "clip_device_ms": None if clip_ms is None else sum(clip_ms.values()),
+                      "peak_mem_bytes_per_card": [r["peak_mem_bytes"] for r in res],
+                      "seconds": time.perf_counter() - t0, "card": smi}
+            log("sharded_run", **result)
+            return frames
+
+        ref = run("one", [])
+        for name, mesh in SHARD_MESHES.items():
+            got = run(name, mesh)
+            rel = [rel_l2(g, r) for g, r in zip(got, ref)]
+            log("sharded_cards", ran=True, run=name, against="one", frames_rel_l2=rel,
+                tol=AB_TOL, card=smi)
+            if not all(r <= AB_TOL for r in rel):
+                raise RuntimeError(f"sharded (c) {name} against one card: {rel} > {AB_TOL}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2866,9 +3248,16 @@ def main() -> int:
             print(f"chip_smoke --mesh-cards: needs {MESH_CARDS} cards", file=sys.stderr)
             return 1
         mesh_cards(smi)
+        sharded_cards(smi)
+        return 0
+    if "--sampling-cards" in sys.argv[1:]:
+        if torch.cuda.device_count() < MESH_CARDS:
+            print(f"chip_smoke --sampling-cards: needs {MESH_CARDS} cards", file=sys.stderr)
+            return 1
+        sharded_cards(smi)
         return 0
 
-    stats, launches, served_launches, launch_model = serve(smi)
+    stats, launches, served_launches, launch_model, phase6_clip = serve(smi)
     gc.collect()
     torch.cuda.empty_cache()
     train_launches, phase7 = train(smi)
@@ -2891,6 +3280,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_launches = mesh_phase(smi, phase7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_launches = sharded_phase(smi, phase6_clip)
 
     # `launches`: the sample_video requests for K1-K5 and K7, the Adam steps
     # for K6 (which only training runs); `served_launches`: the served phase's
@@ -2904,6 +3296,7 @@ def main() -> int:
          "pardom_launches": pardom_launches[name],
          "options_launches": options_launches.get(name, 0),
          "mesh_launches": mesh_launches.get(name, 0),
+         "sharded_launches": sharded_launches.get(name, 0),
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]

@@ -6,7 +6,9 @@ Holds the conditioner (`conditioner.*`), the VideoUNet
 the reference-layout YAML (configs/*.yaml). `sample_video(batch)` is the JAX
 engine's `sample_video`: conditioner (c and uc), CFG-doubled Euler-EDM
 sampling, then chunked decode; `sample_video_from_cond` is the part after
-the conditioner. `loss(batch, global_step)` is the JAX engine's `loss`: the
+the conditioner. `sample_video` and `sample_latents` take a `denoise` in
+place of the engine's own one-card `denoise` (engine/serving.py splits the
+UNet evaluation over a mesh). `loss(batch, global_step)` is the JAX engine's `loss`: the
 sampled first-stage encoding without grad, the conditioner in training mode,
 then StandardDiffusionLoss, on the random numbers `draw` makes;
 `trainable_parameter_names` is its `trainable_mask` by parameter name;
@@ -24,7 +26,7 @@ channels-last one: frames in (B*T, H, W, 3), conditioning and latents in
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Set, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -244,14 +246,37 @@ class DiffusionEngine(nn.Module):
                 "scaled_relative_angles": full((bt, 3)),
                 "scaled_relative_pose": full((bt, 3, 4)), "num_video_frames": t}
 
+    def denoise(self, x: torch.Tensor, sigma: torch.Tensor, cond: Dict,
+                image_only_indicator: torch.Tensor,
+                rows: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+        """D(x, sigma) of the UNet, channels-first: x (B*T, 4, h, w), sigma
+        (B*T,), cond's rows and the indicator (B, T) of the same B videos.
+        `rows` picks the rows the network returns, when it returns only some
+        (a frame-sharded UNet, parallel/frames.py)."""
+        t = self.sampler.guider.num_frames
+
+        def network(xin, c_noise, cc):
+            return self.network_fn(xin, c_noise, cc, t, image_only_indicator)
+
+        return self.denoiser(network, x, sigma, cond, rows)
+
+    def latent_noise(self, frames: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The sampler's unit Gaussian noise (B*T, H/8, W/8, 4) for frames
+        (B*T, H, W, 3), drawn from `generator`."""
+        bt, h, w, _ = frames.shape
+        return torch.randn((bt, h // 8, w // 8, 4), generator=generator, device=frames.device)
+
     @torch.no_grad()
     def sample_latents(self, c: Dict, uc: Dict, noise: torch.Tensor,
                        num_steps: Optional[int] = None,
-                       image_only_indicator: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       image_only_indicator: Optional[torch.Tensor] = None,
+                       denoise: Optional[Callable] = None) -> torch.Tensor:
         """c / uc: {"crossattn": (B*T, 1, Ck), "vector": (B*T, V),
         "concat": (B*T, h, w, 4)}; noise: (B*T, h, w, 4) unit Gaussian;
         image_only_indicator (B, T), zeros when None. Returns the sampled
-        latents (B*T, 4, h, w), fp32."""
+        latents (B*T, 4, h, w), fp32. `denoise` (the signature of
+        `self.denoise`, which it defaults to) evaluates each step's UNet."""
         t = self.sampler.guider.num_frames
         c = {k: _channels_first(v) for k, v in c.items()}
         uc = {k: _channels_first(v) for k, v in uc.items()}
@@ -259,14 +284,12 @@ class DiffusionEngine(nn.Module):
         if image_only_indicator is None:
             image_only_indicator = torch.zeros(x.shape[0] // t, t, device=x.device)
         ioi2 = torch.cat([image_only_indicator, image_only_indicator])  # uc | c
+        denoise = denoise or self.denoise
 
         def denoiser_fn(xx, sigma, cond):
             # The indicator of the incoming batch: both halves on a guided
             # step, the conditional half on a plain one (guidance_interval).
-            def network(xin, c_noise, cc):
-                return self.network_fn(xin, c_noise, cc, t, ioi2[-(xin.shape[0] // t):])
-
-            return self.denoiser(network, xx, sigma, cond)
+            return denoise(xx, sigma, cond, ioi2[-(xx.shape[0] // t):])
 
         return self.sampler(denoiser_fn, x, c, uc, num_steps=num_steps)
 
@@ -282,24 +305,24 @@ class DiffusionEngine(nn.Module):
     @torch.no_grad()
     def sample_video(self, batch: Dict, generator: Optional[torch.Generator] = None,
                      noise: Optional[torch.Tensor] = None, num_steps: Optional[int] = None,
-                     decoding_t: Optional[int] = None,
-                     return_latents: bool = False) -> Dict[str, torch.Tensor]:
+                     decoding_t: Optional[int] = None, return_latents: bool = False,
+                     denoise: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """Novel-view video from raw frames and a camera move.
 
         `batch` is the JAX package's (engine.py example_batch): "cond_frames"
         and "cond_frames_without_noise" (B*T, H, W, 3) in [-1, 1], "cond_aug",
         "fps_id", "motion_bucket_id" (B*T,), "scaled_relative_angles"
         (B*T, 3), "image_only_indicator" (B, T), optionally "jpg". The latent
-        noise is `noise` (B*T, H/8, W/8, 4), or drawn from `generator`.
+        noise is `noise` (B*T, H/8, W/8, 4), or drawn from `generator`
+        (`latent_noise`). `denoise` as sample_latents takes it.
         Returns {"cond_video", "sampled_video"[, "gt_video", "sampled_z"]},
         frames (B*T, H, W, 3) in [0, 1], fp32."""
         c, uc = self.get_unconditional_conditioning(batch, UC_ZERO_KEYS)
         frames = batch["cond_frames"]
         if noise is None:
-            bt, h, w, _ = frames.shape
-            noise = torch.randn((bt, h // 8, w // 8, 4), generator=generator,
-                                device=frames.device)
-        z = self.sample_latents(c, uc, noise, num_steps, batch["image_only_indicator"])
+            noise = self.latent_noise(frames, generator)
+        z = self.sample_latents(c, uc, noise, num_steps, batch["image_only_indicator"],
+                                denoise)
         out = {"cond_video": _unit_interval(frames),
                "sampled_video": _unit_interval(
                    self.decode_first_stage(z, decoding_t)).permute(0, 2, 3, 1)}

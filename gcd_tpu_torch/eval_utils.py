@@ -8,6 +8,14 @@ no video codec and no image library, so any other file raises, naming the
 decoder it would need. Outputs are, per video, `{name}.npz` (`frames`
 uint8 (T, H, W, 3) and `fps`) and a `{name}.png` strip of up to 8 of its
 frames, in place of the reference's MP4.
+
+The entries' mesh (`add_mesh_arguments`, `join_mesh`): with `--coordinator`
+their processes form one torch.distributed group (parallel/distributed.py;
+NCCL on CUDA, gloo with `--device cpu`), one process a card, and
+`make_sampler` splits each clip's sampling over the `--mesh_data` x
+`--mesh_fsdp` x `--mesh_tensor` mesh of them (engine/serving.py). Every
+process reads the same inputs and samples the same clips; process 0 alone
+computes the host metrics and writes.
 """
 
 from __future__ import annotations
@@ -18,12 +26,16 @@ from typing import Callable, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gcd_tpu_torch.data.common import process_image
 from gcd_tpu_torch.data.loader import batch_to_device
 from gcd_tpu_torch.data.png import read_png, write_png
 from gcd_tpu_torch.engine.bundle import ModelBundle, load_model_bundle
 from gcd_tpu_torch.engine.image_logger import frame_strip
+from gcd_tpu_torch.engine.serving import make_sharded_sampler
+from gcd_tpu_torch.parallel import distributed
+from gcd_tpu_torch.parallel.mesh import create_mesh
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 VIDEO_EXTS = (".npz", ".mp4", ".avi", ".mov", ".webm", ".gif", ".mkv")
@@ -132,19 +144,62 @@ def load_bundle(config_path: str, model_path: str, args) -> ModelBundle:
         verbose=True)
 
 
-def make_sampler(bundle: ModelBundle, decoding_t: int = 14, return_latents: bool = False
+def add_mesh_arguments(p) -> None:
+    """The process-group and mesh flags of the inference entries."""
+    p.add_argument("--coordinator", type=str, default="",
+                   help="host:port of process 0: sample in one torch.distributed group of "
+                        "--num_processes processes, one a card (formed even for one)")
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--process_id", type=int, default=0)
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="shard each clip's sampling over a data mesh axis "
+                        "(multi-card serving; mesh_data*mesh_fsdp*mesh_tensor processes)")
+    p.add_argument("--mesh_fsdp", type=int, default=1)
+    p.add_argument("--mesh_tensor", type=int, default=1,
+                   help="Megatron tensor-parallel axis for serving (parallel/tensor.py)")
+
+
+def join_mesh(args, who: str) -> bool:
+    """Check the entry's mesh against --num_processes, settle the device
+    (the CUDA card unless `--device cpu`; without CUDA that flag is needed)
+    and join the process group when a coordinator is given. Returns
+    whether a group was formed (the caller leaves it)."""
+    distributed.check_sampling_mesh(args.num_processes, args.mesh_data, args.mesh_fsdp,
+                                    args.mesh_tensor)
+    if args.device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who}: no CUDA device; pass --device cpu to run on the CPU")
+        args.device = "cuda"
+    return distributed.initialize(args.coordinator, args.num_processes, args.process_id,
+                                  torch.device(args.device))
+
+
+def make_sampler(bundle: ModelBundle, decoding_t: int = 14, return_latents: bool = False,
+                 mesh_data: int = 1, mesh_fsdp: int = 1, mesh_tensor: int = 1
                  ) -> Callable[[Dict, int], Dict[str, np.ndarray]]:
     """sample(batch, seed) -> the engine's sample_video outputs as float32
     host arrays: the numpy batch moved to the engine's device, the latent
-    noise from a torch.Generator there seeded with `seed`. One card; the
-    reference's mesh serving is not ported."""
+    noise from a torch.Generator there seeded with `seed`. In a process
+    group, the clip's sampling is split over the mesh data x fsdp x tensor
+    of the group's processes (engine/serving.py; every process gets the
+    outputs); process 0 prints the mesh and the row rule's split of each
+    UNet batch."""
     engine = bundle.engine
     device = next(engine.parameters()).device
 
+    def run(batch, gen):
+        return engine.sample_video(batch, generator=gen, decoding_t=decoding_t,
+                                   return_latents=return_latents)
+
+    if dist.is_initialized() or mesh_data * mesh_fsdp * mesh_tensor > 1:
+        mesh = create_mesh(mesh_data, mesh_fsdp, mesh_tensor, device.type)
+        run = make_sharded_sampler(engine, mesh, decoding_t=decoding_t,
+                                   return_latents=return_latents,
+                                   verbose=distributed.is_main())
+
     def sample(batch: Dict, seed: int) -> Dict[str, np.ndarray]:
         gen = torch.Generator(device).manual_seed(int(seed))
-        out = engine.sample_video(batch_to_device(batch, device), generator=gen,
-                                  decoding_t=decoding_t, return_latents=return_latents)
+        out = run(batch_to_device(batch, device), gen)
         return {k: v.float().cpu().numpy() for k, v in out.items()}
 
     return sample

@@ -5,6 +5,9 @@ scripts/infer.py).
         --model_path <ckpt | run/checkpoints/step_N> --input <file | dir | glob | list.txt> \
         --output eval_output/infer --azimuth 30 --elevation 15 --radius 0
     python -m gcd_tpu_torch.infer --device cpu --config_path configs/smoke_kubric_tiny.yaml ...
+    # one clip's sampling split over N processes (one a card, or gloo with --device cpu)
+    python -m gcd_tpu_torch.infer ... --coordinator host:port --num_processes N \
+        --process_id i --mesh_data D [--mesh_fsdp F] [--mesh_tensor TP]
 
 Each input (a .png image, repeated to the clip's frames, or an .npz clip of
 `frames` (T, H, W, 3), uint8 or float in [0, 1]) becomes one batch
@@ -20,8 +23,14 @@ The noise of sample s of input i comes from a torch.Generator seeded with
 eval_utils.sample_seed(--seed, i, s); JAX's `fold_in` of the reference has
 no torch counterpart, so the samples are not the JAX entry's. On the CUDA
 card in bf16, unless `--device cpu` asks for the CPU (fp32); without CUDA
-and without that flag it raises. The reference's mesh options (multi-chip
-serving) are not accepted. `main(argv)` returns what summary.json holds.
+and without that flag it raises. With `--coordinator` the processes split
+each clip's sampling over the mesh `--mesh_data` x `--mesh_fsdp` x
+`--mesh_tensor` (their product must be `--num_processes`; eval_utils.py,
+engine/serving.py): every process reads the same inputs and samples the
+same clips, process 0 alone computes the metrics and writes the files.
+`--shard i/n` splits the inputs over independent launches, which is
+another thing. `main(argv)` returns what summary.json holds (None on the
+other processes).
 """
 
 from __future__ import annotations
@@ -30,12 +39,13 @@ import argparse
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 from gcd_tpu_torch import eval_utils
 from gcd_tpu_torch.engine.bundle import construct_batch
+from gcd_tpu_torch.parallel import distributed
 from gcd_tpu_torch.utils.metrics import sample_diversity
 
 
@@ -75,11 +85,14 @@ def get_parser() -> argparse.ArgumentParser:
                    help="i/n example sharding across separate launches")
     p.add_argument("--device", type=str, default=None,
                    help="'cpu' to run on the CPU (fp32); default: the CUDA card (bf16)")
+    eval_utils.add_mesh_arguments(p)
     return p
 
 
-def process_example(bundle, sampler, args, input_fp: str, out_dp: str, index: int) -> Dict:
-    """Sample one input `--num_samples` times and write its files."""
+def process_example(bundle, sampler, args, input_fp: str, out_dp: str, index: int
+                    ) -> Optional[Dict]:
+    """Sample one input `--num_samples` times and write its files (process
+    0; the others sample with it and return None)."""
     input_rgb = eval_utils.load_image_or_video(
         input_fp, args.num_frames, args.frame_offset, args.frame_stride, center_crop=True,
         frame_width=args.frame_width, frame_height=args.frame_height)
@@ -94,6 +107,8 @@ def process_example(bundle, sampler, args, input_fp: str, out_dp: str, index: in
         samples.append(out["sampled_video"])
         sample_s.append(time.perf_counter() - t0)
         print(f"  sample {s}: {sample_s[-1]:.1f}s", flush=True)
+    if not distributed.is_main():
+        return None
 
     base = os.path.splitext(os.path.basename(input_fp))[0]
     cond_vid = out["cond_video"]
@@ -112,21 +127,35 @@ def process_example(bundle, sampler, args, input_fp: str, out_dp: str, index: in
     return metrics
 
 
-def main(argv=None) -> Dict:
+def main(argv=None) -> Optional[Dict]:
     args = get_parser().parse_args(argv)
+    owns_group = eval_utils.join_mesh(args, "gcd_tpu_torch.infer")
+    try:
+        return _main(args)
+    finally:
+        if owns_group:
+            distributed.shutdown()
+
+
+def _main(args) -> Optional[Dict]:
     bundle = eval_utils.load_bundle(args.config_path, args.model_path, args)
-    sampler = eval_utils.make_sampler(bundle, decoding_t=args.decoding_t)
+    sampler = eval_utils.make_sampler(bundle, decoding_t=args.decoding_t,
+                                      mesh_data=args.mesh_data, mesh_fsdp=args.mesh_fsdp,
+                                      mesh_tensor=args.mesh_tensor)
 
     inputs = eval_utils.resolve_input_paths(args.input)
     shard_i, shard_n = map(int, args.shard.split("/"))
     inputs = inputs[shard_i::shard_n]
-    print(f"Processing {len(inputs)} inputs (shard {args.shard})...", flush=True)
-
-    os.makedirs(args.output, exist_ok=True)
+    main_process = distributed.is_main()
+    if main_process:
+        print(f"Processing {len(inputs)} inputs (shard {args.shard})...", flush=True)
+        os.makedirs(args.output, exist_ok=True)
     all_metrics = []
     for i, fp in enumerate(inputs):
         print(f"[{i + 1}/{len(inputs)}] {fp}", flush=True)
         all_metrics.append(process_example(bundle, sampler, args, fp, args.output, i))
+    if not main_process:
+        return None
 
     summary = {"num_examples": len(all_metrics),
                "mean_diversity": float(np.mean([m["diversity_std"] for m in all_metrics]))

@@ -21,7 +21,9 @@ from gcd_tpu_torch.parallel.tensor import copy_to_tensor_group, row_parallel_out
 
 class GroupNorm32(nn.Module):
     """GroupNorm(32) in fp32 with an optional fused SiLU: K4 on CUDA
-    (ops/fused_norm.py)."""
+    (ops/fused_norm.py). Given a `stats_group` (a time_stack block's frame
+    group, parallel/frames.py), x is this rank's share of the positions
+    and the statistics are summed over the group's ranks."""
 
     def __init__(self, channels: int, eps: float = 1e-5, silu: bool = False,
                  num_groups: int = 32):
@@ -30,9 +32,9 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.eps, self.silu, self.num_groups = eps, silu, num_groups
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats_group=None) -> torch.Tensor:
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
-                          self.silu)
+                          self.silu, stats_group)
 
 
 class LayerNormFp32(nn.LayerNorm):

@@ -9,6 +9,11 @@ Every other conv is a plain cuDNN conv2d / conv3d; the JAX package's XLA
 conv rewrites (ops/subpixel.py, ops/temporal_conv.py, ops/spatial_conv.py)
 are TPU-only and not ported. Images are (N, C, H, W), videos
 (B, C, T, H, W).
+
+Under a frame group (parallel/frames.py) a VideoResBlock holds T / F frames
+of its videos: the spatial ResBlock runs on them, and its `time_stack` on
+all T frames at 1 / F of the positions (frames_to_rows before it,
+rows_to_frames after it), its GroupNorm statistics summed over the group.
 """
 
 from __future__ import annotations
@@ -22,6 +27,12 @@ from torch import nn
 from gcd_tpu_torch.models.layers import AlphaBlender, GroupNorm32
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
 from gcd_tpu_torch.ops.fused_gn_conv import gn_silu_conv3x3, supported
+from gcd_tpu_torch.parallel.frames import (
+    current_frame_group,
+    frames_to_rows,
+    local_frames,
+    rows_to_frames,
+)
 
 
 class Upsample(nn.Module):
@@ -71,9 +82,11 @@ class ResBlock(nn.Module):
             # to_empty and load_state_dict's copy_ all keep a weight's strides.
             c.weight.data = c.weight.data.contiguous(memory_format=torch.channels_last)
 
-    def _norm_conv(self, layers: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    def _norm_conv(self, layers: nn.Sequential, x: torch.Tensor, stats_group=None
+                   ) -> torch.Tensor:
         """layers[-1](layers[0](x)): K7 for a 2D 3x3 chain under the switch
-        where it takes the shape, else GroupNorm32 then the conv."""
+        where it takes the shape, else GroupNorm32 (its statistics summed
+        over `stats_group`, if any) then the conv."""
         norm, conv = layers[0], layers[-1]
         if (x.dim() == 4 and kernel_enabled("fused_gn_conv")
                 and supported(x, conv.weight, norm.num_groups)):
@@ -82,17 +95,18 @@ class ResBlock(nn.Module):
             weight = conv.weight.contiguous(memory_format=torch.channels_last)
             return gn_silu_conv3x3(x, norm.weight, norm.bias, weight, conv.bias,
                                    norm.num_groups, norm.eps, norm.silu)
-        return conv(norm(x))
+        return conv(norm(x, stats_group))
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        """x (N, C, H, W) with emb (N, E), or x (B, C, T, H, W) with emb (B, T, E)."""
-        h = self._norm_conv(self.in_layers, x)
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, stats_group=None) -> torch.Tensor:
+        """x (N, C, H, W) with emb (N, E), or x (B, C, T, H, W) with emb (B, T, E);
+        a video's GroupNorm statistics summed over `stats_group`, if any."""
+        h = self._norm_conv(self.in_layers, x, stats_group)
         emb_out = self.emb_layers(emb)
         if x.dim() == 5:
             emb_out = emb_out.transpose(1, 2)  # (B, C, T)
         emb_out = emb_out.reshape(*emb_out.shape, *([1] * (h.dim() - emb_out.dim())))
         h = h + emb_out.to(h.dtype)
-        h = self._norm_conv(self.out_layers, h)
+        h = self._norm_conv(self.out_layers, h, stats_group)
         return self.skip_connection(x) + h
 
     def fused_convs(self):
@@ -106,7 +120,9 @@ class ResBlock(nn.Module):
 
 class VideoResBlock(ResBlock):
     """Spatial ResBlock + (3,1,1) time-mixing ResBlock `time_stack`, merged
-    by an AlphaBlender. x (B*T, C, H, W), emb (B*T, E), indicator (B, T)."""
+    by an AlphaBlender. x (B*T, C, H, W), emb (B*T, E), indicator (B, T);
+    under a frame group x holds this rank's T / F frames of each video and
+    the indicator its columns, while emb covers all T."""
 
     def __init__(self, channels: int, emb_channels: int,
                  out_channels: Optional[int] = None,
@@ -123,11 +139,18 @@ class VideoResBlock(ResBlock):
                 image_only_indicator: torch.Tensor, num_video_frames: int
                 ) -> torch.Tensor:
         t = num_video_frames
-        x = super().forward(x, emb)
+        fg = current_frame_group()
+        x = super().forward(x, local_frames(emb, t, fg))
         bt, c, h, w = x.shape
-        b = bt // t
-        x_mix = x.reshape(b, t, c, h, w).transpose(1, 2)  # (B, C, T, H, W)
-        x_vid = self.time_stack(x_mix, emb.reshape(b, t, -1))
+        b = emb.shape[0] // t
+        x_mix = x.reshape(b, bt // b, c, h, w).transpose(1, 2)  # (B, C, T or T/F, H, W)
+        rows = frames_to_rows(x, fg)  # all T frames of the rank's share of the positions
+        x_rows = rows.reshape(b, t, c, *rows.shape[2:]).transpose(1, 2)
+        x_vid = self.time_stack(x_rows, emb.reshape(b, t, -1),
+                                None if fg is None else fg.group)
+        if fg is not None:
+            x_vid = rows_to_frames(x_vid.transpose(1, 2).reshape(b * t, c, *rows.shape[2:]),
+                                   fg, (h, w)).reshape(b, bt // b, c, h, w).transpose(1, 2)
         alpha = self.time_mixer.get_alpha(image_only_indicator)
         if alpha.dim():
             alpha = alpha[:, None, :, None, None]

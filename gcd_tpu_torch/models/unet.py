@@ -16,12 +16,18 @@ the blocks gcd_tpu/models/unet.py wraps in nn.remat): only the block's
 inputs are kept, and its forward runs again in the backward. That recompute
 runs on PyTorch's autograd thread, where the caller's kernel switches are
 not set, so it re-enters the switches the forward saw (`context_fn`) and
-takes the same kernels.
+takes the same kernels, and the frame group the forward ran under.
+
+Under a frame group (parallel/frames.py `frame_sharding`) every input still
+covers all T frames of its B videos; the network runs on this rank's T / F
+frames of each (x's rows, the indicator's columns, the per-frame
+conditioning) and returns their rows, (B*T/F, out_channels, H, W). The
+embedding and the context reach the blocks whole, for the temporal layers.
 """
 
 from __future__ import annotations
 
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import List, Optional, Sequence, Union
 
 import torch
@@ -33,6 +39,15 @@ from gcd_tpu_torch.models.resblock import Downsample, Upsample, VideoResBlock
 from gcd_tpu_torch.models.video_attention import SpatialVideoTransformer
 from gcd_tpu_torch.ops.basic import timestep_embedding
 from gcd_tpu_torch.ops.dispatch import current_flags, kernel_flags
+from gcd_tpu_torch.parallel.frames import current_frame_group, frame_sharding, local_frames
+
+
+@contextmanager
+def _recompute_context(flags: dict, fg):
+    """The kernel switches and the frame group of a rematerialised block's
+    forward, entered where its recompute runs."""
+    with kernel_flags(**flags), frame_sharding(fg):
+        yield
 
 
 class VideoUNet(nn.Module):
@@ -137,9 +152,9 @@ class VideoUNet(nn.Module):
     def _remat(self, block: nn.Module, *args) -> torch.Tensor:
         if not (self.use_checkpoint and torch.is_grad_enabled()):
             return block(*args)
-        flags = current_flags()
+        flags, fg = current_flags(), current_frame_group()
         return checkpoint(block, *args, use_reentrant=False,
-                          context_fn=lambda: (nullcontext(), kernel_flags(**flags)))
+                          context_fn=lambda: (nullcontext(), _recompute_context(flags, fg)))
 
     def _run(self, layers: nn.ModuleList, h, emb, context, t, ioi):
         for layer in layers:
@@ -166,6 +181,9 @@ class VideoUNet(nn.Module):
         ioi = image_only_indicator
         if ioi is None:
             ioi = torch.zeros(x.shape[0] // t, t, device=x.device)
+        fg = current_frame_group()
+        if fg is not None:  # this rank's frames
+            x, ioi = local_frames(x, t, fg), ioi[:, fg.frame_slice]
         context = context.to(dtype)
 
         h = x.to(dtype)

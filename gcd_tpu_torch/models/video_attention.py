@@ -4,6 +4,14 @@ VideoTransformerBlock attends over the T frames at every spatial position
 with tokens kept in the (B*T, S, C) layout (K2 for self-attention);
 SpatialVideoTransformer pairs each spatial BasicTransformerBlock with one,
 plus the learned frame-position embedding and the AlphaBlender merge.
+
+Under a frame group (parallel/frames.py) a SpatialVideoTransformer holds
+T / F frames of its videos: the spatial blocks run on them, and each
+temporal block's input, `tokens + emb` formed with the rows' global frame
+indices, is re-laid to all T frames at 1 / F of the positions
+(frames_to_rows) and its output back (rows_to_frames); the temporal
+blocks' per-video context is frame 0's row of the conditioning, which
+covers every frame.
 """
 
 from __future__ import annotations
@@ -25,6 +33,12 @@ from gcd_tpu_torch.models.layers import (
     LayerNormFp32,
 )
 from gcd_tpu_torch.ops.basic import timestep_embedding
+from gcd_tpu_torch.parallel.frames import (
+    current_frame_group,
+    frames_to_rows,
+    local_frames,
+    rows_to_frames,
+)
 
 
 class VideoTransformerBlock(nn.Module):
@@ -66,7 +80,9 @@ class VideoTransformerBlock(nn.Module):
 class SpatialVideoTransformer(nn.Module):
     """Spatial transformer with an interleaved temporal stack
     (use_linear=True, use_spatial_context=True as in GCD's UNet).
-    x (B*T, C, H, W), context (B*T, L, Ck), indicator (B, T)."""
+    x (B*T, C, H, W), context (B*T, L, Ck), indicator (B, T); under a
+    frame group x holds this rank's T / F frames of each video and the
+    indicator its columns, while context covers all T."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, ff_in: bool = False,
@@ -94,11 +110,15 @@ class SpatialVideoTransformer(nn.Module):
                 image_only_indicator: torch.Tensor) -> torch.Tensor:
         bt, c, h, w = x.shape
         t = timesteps
+        fg = current_frame_group()
+        first, frames = (0, t) if fg is None else (fg.offset, fg.local)
         time_context = context[::t]  # one context row per video (frame 0)
+        context = local_frames(context, t, fg)
 
         tokens = self.proj_in(self.norm(x).reshape(bt, c, h * w).transpose(1, 2))
 
-        frame_idx = torch.arange(t, dtype=torch.float32, device=x.device).repeat(bt // t)
+        frame_idx = torch.arange(first, first + frames, dtype=torch.float32,
+                                 device=x.device).repeat(bt // frames)
         t_emb = timestep_embedding(frame_idx, c, self.max_time_embed_period).to(x.dtype)
         emb = self.time_pos_embed(t_emb)[:, None, :]  # (B*T, 1, C)
 
@@ -107,8 +127,9 @@ class SpatialVideoTransformer(nn.Module):
             alpha = alpha.reshape(-1)[:, None, None]
         for block, time_block in zip(self.transformer_blocks, self.time_stack):
             tokens = block(tokens, context=context)
-            mixed = time_block(tokens + emb, context=time_context, timesteps=t)
-            tokens = self.time_mixer(tokens, mixed, alpha)
+            mixed = time_block(frames_to_rows(tokens + emb, fg), context=time_context,
+                               timesteps=t)
+            tokens = self.time_mixer(tokens, rows_to_frames(mixed, fg), alpha)
 
         out = self.proj_out(tokens).transpose(1, 2).reshape(bt, c, h, w)
         return out + x

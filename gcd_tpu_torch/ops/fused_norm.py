@@ -29,6 +29,14 @@ plain version for CPU tensors, or under `kernel_flags(fused_gn=False)` /
 raises. `group_norm`'s gradient is that of `group_norm_plain`, recomputed
 from the saved x, weight and bias (ops/recompute.py; gcd_tpu's fused_norm
 `_bwd`); K5 runs inside its forward only.
+
+With a `stats_group` (a process group), x is one rank's share of the
+positions of every sample, and the statistics are those of the samples
+whole: K5's sums (`group_stats`) are summed over the group in one
+all-reduce, then K4's split-path apply normalises with them
+(`group_norm_from_sums`), as GSPMD all-reduces the (s1, s2) of
+gcd_tpu/ops/fused_norm.py:143-160 for a sharded operand. Without one,
+`group_norm` and its plain version are the one-rank code.
 """
 
 from __future__ import annotations
@@ -39,9 +47,12 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+import torch.distributed as dist
+
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
 from gcd_tpu_torch.ops.recompute import plain_gradient
+from gcd_tpu_torch.parallel.frames import all_reduce_sums
 
 # Largest group normalised in one pass (96 KB of bf16 in one block's shared
 # memory); must equal FUSED_MAX in csrc/fused_norm.cu.
@@ -130,15 +141,38 @@ def cl_one_pass(n: int, c: int, p: int) -> bool:
 
 
 def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                     num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+                     num_groups: int, eps: float, silu: bool, stats_group=None) -> torch.Tensor:
     """GroupNorm over dim 1 with fp32 one-pass statistics, the variance
     clamped at 0 (gcd_tpu/ops/fused_norm.py:_reference_groupnorm), optional
-    fused SiLU in fp32, result in x.dtype."""
+    fused SiLU in fp32, result in x.dtype. With `stats_group`, the
+    statistics are `group_stats_plain`'s sums summed over the group."""
+    if stats_group is not None:
+        s1, s2 = all_reduce_sums(*group_stats_plain(x, num_groups), stats_group)
+        count = x[0].numel() // num_groups * dist.get_world_size(stats_group)
+        return group_norm_from_sums_plain(x, weight, bias, num_groups, eps, silu, s1, s2, count)
     n, c = x.shape[:2]
     xf = x.float().reshape(n, num_groups, c // num_groups, -1)
     cnt = xf.shape[2] * xf.shape[3]
     mean = xf.sum(dim=(2, 3), keepdim=True) / cnt
     var = (xf * xf).sum(dim=(2, 3), keepdim=True) / cnt - mean * mean
+    return _normalise(x, xf, mean, var, weight, bias, num_groups, eps, silu)
+
+
+def group_norm_from_sums_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                               num_groups: int, eps: float, silu: bool, s1: torch.Tensor,
+                               s2: torch.Tensor, count: int) -> torch.Tensor:
+    """GroupNorm(+SiLU) of x with the statistics of (N, G) fp32 sums (sum x,
+    sum x^2) over `count` values a group, which may hold more than x's."""
+    n, c = x.shape[:2]
+    xf = x.float().reshape(n, num_groups, c // num_groups, -1)
+    mean = (s1 / count)[..., None, None]
+    var = (s2 / count)[..., None, None] - mean * mean
+    return _normalise(x, xf, mean, var, weight, bias, num_groups, eps, silu)
+
+
+def _normalise(x, xf, mean, var, weight, bias, num_groups, eps, silu) -> torch.Tensor:
+    """(xf - mean) * (inv * gamma) + beta, the optional SiLU, in fp32, then
+    x's shape and dtype; xf is x as (N, G, C / G, -1) fp32."""
     inv = torch.rsqrt(var.clamp_min(0.0) + eps)
     w = weight.float().reshape(1, num_groups, -1, 1)
     b = bias.float().reshape(1, num_groups, -1, 1)
@@ -224,34 +258,76 @@ def group_stats(x: torch.Tensor, num_groups: int) -> Tuple[torch.Tensor, torch.T
     return s1, s2
 
 
+def scale_shift(s1: torch.Tensor, s2: torch.Tensor, count: int, weight: torch.Tensor,
+                bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """(N, C, 2) fp32: per (sample, channel) the GroupNorm's (scale, shift)
+    from (N, G) sums over `count` values a group."""
+    c = weight.shape[0]
+    g = s1.shape[1]
+    mean = s1 / count
+    inv = torch.rsqrt((s2 / count - mean * mean).clamp_min(0.0) + eps)
+    scale = inv.repeat_interleave(c // g, 1) * weight.float()
+    shift = bias.float() - mean.repeat_interleave(c // g, 1) * scale
+    return torch.stack((scale, shift), dim=-1)
+
+
 def group_scale_shift_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                             num_groups: int, eps: float) -> torch.Tensor:
     """(N, C, 2) fp32: per (sample, channel) the GroupNorm's (scale, shift),
     normalised x = x * scale + shift, from `group_stats_plain`'s sums. K5's
     last block per sample writes this table for K7 (csrc/fused_norm.cu)."""
-    n, c = x.shape[:2]
-    s1, s2 = group_stats_plain(x, num_groups)
-    count = x[0].numel() // num_groups
-    mean = s1 / count
-    inv = torch.rsqrt((s2 / count - mean * mean).clamp_min(0.0) + eps)
-    scale = inv.repeat_interleave(c // num_groups, 1) * weight.float()
-    shift = bias.float() - mean.repeat_interleave(c // num_groups, 1) * scale
-    return torch.stack((scale, shift), dim=-1)
+    return scale_shift(*group_stats_plain(x, num_groups), x[0].numel() // num_groups, weight,
+                       bias, eps)
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+               num_groups: int, eps: float, silu: bool, stats_group=None) -> torch.Tensor:
     """GroupNorm(+SiLU) over dim 1; K4 on CUDA (bf16 x, weight and bias).
-    The result has x's memory layout."""
-    args = dict(num_groups=num_groups, eps=eps, silu=silu)
+    The result has x's memory layout. With `stats_group`, the statistics
+    are summed over the group's ranks (module docstring)."""
+    args = dict(num_groups=num_groups, eps=eps, silu=silu, stats_group=stats_group)
     return plain_gradient(partial(_group_norm_forward, **args),
                           partial(group_norm_plain, **args), x, weight, bias)
 
 
-def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                        num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+def group_norm_from_sums(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         num_groups: int, eps: float, silu: bool, s1: torch.Tensor,
+                         s2: torch.Tensor, count: int) -> torch.Tensor:
+    """GroupNorm(+SiLU) of x with the statistics of the (N, G) fp32 sums
+    s1, s2 over `count` values a group; K4's split-path apply on CUDA: the
+    (scale, shift) table pass on a channels-last x, the apply kernel over
+    the sums (rescaled to x's own count) on a channels-first one."""
     if x.device.type == "cpu" or not kernel_enabled("fused_gn"):
-        return group_norm_plain(x, weight, bias, num_groups, eps, silu)
+        return group_norm_from_sums_plain(x, weight, bias, num_groups, eps, silu, s1, s2, count)
+    lay = _layout(x, num_groups, "group_norm_from_sums")
+    c = lay[1]
+    _native.check_cuda_operand("weight", weight, torch.bfloat16, (c,), align=2)
+    _native.check_cuda_operand("bias", bias, torch.bfloat16, (c,), align=2)
+    out = torch.empty_like(x)
+    ptrs = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr())
+    if len(lay) == 3:
+        n, c, p = lay
+        work = cl_stats_work(n, c, p, num_groups, x)
+        table = scale_shift(s1, s2, count, weight, bias, eps)
+        _native.launch("gcd_group_norm_cl", *ptrs, work, None, table.data_ptr(), n, c, p,
+                       num_groups, float(eps), 0, int(silu))
+    else:
+        share = (x[0].numel() // num_groups) / count
+        s1, s2 = (s1 * share).contiguous(), (s2 * share).contiguous()
+        _native.launch("gcd_group_norm", *ptrs, s1.data_ptr(), s2.data_ptr(), *lay, num_groups,
+                       float(eps), int(silu), STATS_CHUNK)
+    group_norm.launches += 1
+    return out
+
+
+def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                        num_groups: int, eps: float, silu: bool, stats_group) -> torch.Tensor:
+    if x.device.type == "cpu" or not kernel_enabled("fused_gn"):
+        return group_norm_plain(x, weight, bias, num_groups, eps, silu, stats_group)
+    if stats_group is not None:  # K5 on the rank's share, the sums summed, K4's apply
+        s1, s2 = all_reduce_sums(*group_stats(x, num_groups), stats_group)
+        count = x[0].numel() // num_groups * dist.get_world_size(stats_group)
+        return group_norm_from_sums(x, weight, bias, num_groups, eps, silu, s1, s2, count)
     lay = _layout(x, num_groups, "group_norm")
     c = lay[1]
     _native.check_cuda_operand("weight", weight, torch.bfloat16, (c,), align=2)

@@ -49,6 +49,18 @@ def check_mesh(num_processes: int, fsdp: int, tensor: int) -> None:
                          f"{fsdp} x --mesh_tensor {tensor}")
 
 
+def check_sampling_mesh(num_processes: int, data: int, fsdp: int, tensor: int) -> None:
+    """Raise unless the sampling mesh data x fsdp x tensor (the inference
+    entries' --mesh_* flags, each at least 1) is the process count."""
+    if min(data, fsdp, tensor) < 1:
+        raise ValueError(f"--mesh_data {data} / --mesh_fsdp {fsdp} / --mesh_tensor {tensor} "
+                         "must be >= 1")
+    if data * fsdp * tensor != num_processes:
+        raise ValueError(f"the mesh --mesh_data {data} x --mesh_fsdp {fsdp} x --mesh_tensor "
+                         f"{tensor} = {data * fsdp * tensor} processes, but --num_processes "
+                         f"is {num_processes}")
+
+
 def check_batch(batch_size: int, blocks: int) -> None:
     """Raise unless the global batch splits over `blocks` = data x fsdp."""
     if batch_size % blocks:

@@ -37,6 +37,11 @@ Where the port's placement departs from JAX's, and why:
     features of a column cut, A on the input features of a row cut), so
     the merged weight is the rank's share of the merged full weight.
 The numbers are the same either way.
+
+Sampling (engine/serving.py) uses the same mesh: the batch group of this
+process's tensor coordinate all-gathers the denoised rows, and the frame
+groups (`frame_groups`, parallel/frames.py's row rule) re-lay a video
+block's activations where its frames meet.
 """
 
 from __future__ import annotations
@@ -277,8 +282,32 @@ class Mesh:
                 if coord == self.coords["tensor"]:
                     self.batch_group = group
 
+        self._frame_groups = None
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
+
+    def frame_groups(self) -> Dict[Tuple[int, int], object]:
+        """{(F, video block): process group} of this process's frame groups:
+        for every split of the data x fsdp batch ranks into V video blocks of
+        F > 1 frame ranks (V a divisor of data x fsdp), the group of the F
+        batch ranks of each video block at this process's tensor
+        coordinate, in frame-block order. Made on the first call; every
+        process creates every group, in the same order, so every process
+        must make that call."""
+        if self._frame_groups is None:
+            self._frame_groups = {}
+            blocks = self.batch_count
+            for f in range(2, blocks + 1):
+                if blocks % f:
+                    continue
+                for video_block in range(blocks // f):
+                    for coord in range(self.tensor):
+                        ranks = [(video_block * f + i) * self.tensor + coord for i in range(f)]
+                        group = dist.new_group(ranks)
+                        if self.rank in ranks:
+                            self._frame_groups[(f, video_block)] = group
+        return self._frame_groups
 
     @property
     def batch_count(self) -> int:

@@ -4,6 +4,9 @@
         --model_path <run>/checkpoints/step_N --input eval/list/kubric_test20.txt \
         --output eval_output/test --generate_controls
     python -m gcd_tpu_torch.test --device cpu --config_path configs/smoke_kubric_tiny.yaml ...
+    # one clip's sampling split over N processes (one a card, or gloo with --device cpu)
+    python -m gcd_tpu_torch.test ... --coordinator host:port --num_processes N \
+        --process_id i --mesh_data D [--mesh_fsdp F] [--mesh_tensor TP]
 
 Each scene of `--input` (a list file of scene paths, or comma-separated
 Kubric scene indices / ParallelDomain scene names) gets `--samples_per_scene`
@@ -27,10 +30,16 @@ arrays, and `summary_metrics.json` with the means, every example, and the
 tags that failed. An example that fails is reported with its traceback
 and the loop goes on.
 
-The reference's galleries and its mesh options are not ported. On the CUDA
-card in bf16, unless `--device cpu` asks for the CPU (fp32); without CUDA
-and without that flag it raises. `main(argv)` returns, per model, what
-summary_metrics.json holds.
+The reference's galleries are not ported. On the CUDA card in bf16, unless
+`--device cpu` asks for the CPU (fp32); without CUDA and without that flag
+it raises. With `--coordinator` the processes split each clip's sampling
+over the mesh `--mesh_data` x `--mesh_fsdp` x `--mesh_tensor` (their
+product must be `--num_processes`; eval_utils.py, engine/serving.py): every
+process renders the same examples and samples the same clips, process 0
+alone computes the metrics and writes the files. `--shard i/n` splits the
+scenes over independent launches, which is another thing. `main(argv)`
+returns, per model, what summary_metrics.json holds (an empty list on the
+other processes).
 """
 
 from __future__ import annotations
@@ -40,12 +49,13 @@ import json
 import os
 import time
 import traceback
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from gcd_tpu_torch import eval_utils
 from gcd_tpu_torch.data.loader import collate_fn
+from gcd_tpu_torch.parallel import distributed
 from gcd_tpu_torch.utils.config import get_by_path, instantiate_from_config
 from gcd_tpu_torch.utils.metrics import clip_metrics, miou, rgb_to_class_ids, sample_diversity
 
@@ -87,6 +97,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard", type=str, default="0/1")
     p.add_argument("--device", type=str, default=None,
                    help="'cpu' to run on the CPU (fp32); default: the CUDA card (bf16)")
+    eval_utils.add_mesh_arguments(p)
     return p
 
 
@@ -184,8 +195,9 @@ def render_example(dset, scene, control) -> Tuple[Dict, float]:
 
 
 def process_example(sampler, args, dset, batch: Dict, render_s: float, scene, control,
-                    example_index: int, out_dp: str, tag: str) -> Dict:
-    """Sample one rendered example, compute its metrics, write its files."""
+                    example_index: int, out_dp: str, tag: str) -> Optional[Dict]:
+    """Sample one rendered example, compute its metrics, write its files
+    (process 0; the others sample with it and return None)."""
     gt = (batch["jpg"] + 1.0) / 2.0
     reproject = (batch["reproject"] + 1.0) / 2.0 if "reproject" in batch else None
     samples, sample_s = [], []
@@ -195,6 +207,8 @@ def process_example(sampler, args, dset, batch: Dict, render_s: float, scene, co
         samples.append(out["sampled_video"])
         sample_s.append(time.perf_counter() - t0)
         print(f"  sample {s}: {sample_s[-1]:.1f}s", flush=True)
+    if not distributed.is_main():
+        return None
 
     t0 = time.perf_counter()
     frame_metrics, _ = clip_metrics(samples, gt, reproject)
@@ -229,7 +243,7 @@ def process_example(sampler, args, dset, batch: Dict, render_s: float, scene, co
 
 def output_dirs(output: str, bundles) -> List[str]:
     """One directory a model, by its short name; a repeated name gets _1,
-    _2, ... so that two models' files never collide."""
+    _2, ... so that two models' files never collide. Made by process 0."""
     dps, seen = [], {}
     for b in bundles:
         name = b.model_name
@@ -239,12 +253,22 @@ def output_dirs(output: str, bundles) -> List[str]:
         else:
             seen[name] = 0
         dps.append(os.path.join(output, name))
-        os.makedirs(dps[-1], exist_ok=True)
+        if distributed.is_main():
+            os.makedirs(dps[-1], exist_ok=True)
     return dps
 
 
 def main(argv=None) -> List[Dict]:
     args = get_parser().parse_args(argv)
+    owns_group = eval_utils.join_mesh(args, "gcd_tpu_torch.test")
+    try:
+        return _main(args)
+    finally:
+        if owns_group:
+            distributed.shutdown()
+
+
+def _main(args) -> List[Dict]:
     # The pool: every model sees every example, rendered once.
     config_paths = [c for c in args.config_path.split(",") if c]
     model_paths = [m for m in args.model_path.split(",") if m] or [""]
@@ -253,7 +277,9 @@ def main(argv=None) -> List[Dict]:
     if len(config_paths) != len(model_paths):
         raise ValueError("need one --config_path per --model_path (or a single shared one)")
     bundles = [eval_utils.load_bundle(cp, mp, args) for cp, mp in zip(config_paths, model_paths)]
-    samplers = [eval_utils.make_sampler(b, decoding_t=args.decoding_t) for b in bundles]
+    samplers = [eval_utils.make_sampler(b, decoding_t=args.decoding_t, mesh_data=args.mesh_data,
+                                        mesh_fsdp=args.mesh_fsdp, mesh_tensor=args.mesh_tensor)
+                for b in bundles]
 
     scenes = parse_scene_list(args.input)
     shard_i, shard_n = map(int, args.shard.split("/"))
@@ -293,11 +319,14 @@ def main(argv=None) -> List[Dict]:
                     print(f"  [{bundle.model_name}] failed: {tag}", flush=True)
                     failed[bi].append(tag)
                     continue
-                all_metrics[bi].append(m)
-                print(f"  [{bundle.model_name}] PSNR {m['psnr']:.2f} dB SSIM {m['ssim']:.3f}",
-                      flush=True)
+                if m is not None:
+                    all_metrics[bi].append(m)
+                    print(f"  [{bundle.model_name}] PSNR {m['psnr']:.2f} dB SSIM "
+                          f"{m['ssim']:.3f}", flush=True)
             n_ex += 1
 
+    if not distributed.is_main():
+        return []
     results = []
     for bi, bundle in enumerate(bundles):
         ms = all_metrics[bi]
