@@ -65,6 +65,18 @@ without the final `ok` line):
                    batches (from phase 4's site counts); wall time per
                    batch, served frames/s, peak memory; then one batch timed
                    with K7 on and off, frames within 2e-2.
+  export         - the exported sampler (engine/export.py): each gcd:: op's
+                   fake implementation against its kernel on the card
+                   (opcheck's fake-tensor test, K4 / K5 on channels-last
+                   and channels_last_3d); export_sampler on a fresh engine
+                   (phase 6's seeded weights) and phase 6's first request,
+                   to bytes and back through load_sampler; the artifact on
+                   that request with its generator's noise: frames finite
+                   in [0, 1] within 2e-2 of phase 6's (bit-identical or
+                   not, logged), each kernel's launches a clip phase 6's;
+                   export and load seconds, the artifact's MB, clip wall
+                   seconds beside phase 6's, one step program's device ms
+                   and wall s beside the eager step's.
   7. train       - load_trainer(configs/train_kubric_max90.yaml): random
                    bf16 weights, fp32 masters and Adam; a seeded batch of 2
                    clips of 14 frames at 384x256 (B*T = 28). One step's loss
@@ -389,8 +401,14 @@ SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
 SERVE_MOVES = [(30.0, 10.0, 0.0), (-20.0, 5.0, 0.0), (60.0, -10.0, 0.0), (0.0, 25.0, 0.0)]
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, the seconds since the script started, the
+    fields."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - _T0, 1), **fields}),
+          flush=True)
 
 
 def rel_l2(a, b) -> float:
@@ -438,13 +456,15 @@ def wall_s(fn, reps: int = 3):
 def device_profile(fn, warm: bool = True):
     """(Counter of device ms by kernel name, total device ms) over one call
     of fn under torch.profiler, after one unprofiled call when `warm`;
-    (None, None) if it recorded no device time."""
+    (None, None) if it recorded no device time. Only device activity is
+    recorded: the host ops' events would cost more to gather than a whole
+    clip's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     by_name = Counter()
@@ -1264,6 +1284,133 @@ def serve(smi: str):
     return stats, launches, served(engine, smi, per_batch), launch_model, phase6
 
 
+def op_cases(gen: torch.Generator):
+    """(op, main-path arguments) of each gcd:: op on the card: K1 / K6 / K2
+    at ds1 (B*T = 28), K3 at ds1, K4 at the per-frame site (channels-last)
+    and the time_stack view (channels_last_3d), K5 there, K4's apply from
+    sums, K7 at ds1."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    cl, cl3 = torch.channels_last, torch.channels_last_3d
+    q, k, v, do = (randn(BT, 1536, 320) for _ in range(4))
+    x4 = randn(BT, 320, 32, 48).contiguous(memory_format=cl)
+    x5 = randn(2, 320, T, 32, 48).contiguous(memory_format=cl3)
+    wt, bs = 1.0 + 0.1 * randn(320), 0.1 * randn(320)
+    sums = torch.rand(2, BT, G, generator=gen, device="cuda") * torch.tensor(
+        [1.0, 4.0], device="cuda")[:, None, None] * 480
+    ops = torch.ops.gcd
+    return [
+        (ops.flash_attention.default, (q, k, v, 5, None)),
+        (ops.flash_attention_bwd.default, (q, k, v, do, 5, None)),
+        (ops.temporal_attention.default, (q, k, v, T, 5, None)),
+        (ops.geglu_mlp.default, (randn(BT * 1536, 320), randn(2560, 320) * 0.05, randn(2560),
+                                 randn(320, 1280) * 0.03, randn(320))),
+        (ops.group_norm.default, (x4, wt, bs, G, 1e-5, True, True)),
+        (ops.group_norm.default, (x5, wt, bs, G, 1e-6, False, True)),
+        (ops.group_stats.default, (x5, G)),
+        (ops.group_norm_from_sums.default, (x4, wt, bs, G, 1e-5, True, sums[0], sums[1], 480)),
+        (ops.gn_silu_conv3x3.default, (x4, wt, bs, randn(320, 320, 3, 3).contiguous(
+            memory_format=cl) * 0.02, randn(320), G, 1e-5, True, True)),
+    ]
+
+
+def export_phase(smi: str, phase6: dict) -> dict:
+    """The exported sampler (engine/export.py) at full width: each gcd:: op's
+    fake implementation against its kernel's output on the card
+    (torch.library.opcheck's fake-tensor test); then export_sampler on a
+    fresh load_engine (phase 6's seeded weights) and phase 6's first
+    request, to bytes and back through load_sampler, and the artifact run on
+    that request with its generator's noise: the frames finite in [0, 1],
+    within 2e-2 of phase 6's (bit-identical or not, logged), each kernel's
+    launches a clip phase 6's; export, load and clip seconds beside phase
+    6's, the artifact's MB, and one step program's device ms beside the
+    eager step's. Returns the launches over the artifact's first clip."""
+    from gcd_tpu_torch.engine.build import load_engine
+    from gcd_tpu_torch.engine.export import export_sampler, initial_latents, load_sampler
+    from gcd_tpu_torch.ops import KERNELS
+
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SEED + 80)
+    for op, args in op_cases(gen):
+        torch.library.opcheck(op, args, test_utils="test_faketensor")
+        out = op(*args)
+        log("export_fake", op=str(op), strides=[list(o.stride()) for o in (
+            out if isinstance(out, tuple) else (out,))], card=smi)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    engine = load_engine(CONFIG)
+    engine_s = time.perf_counter() - t0
+    params = engine.state_dict()
+    weight_bytes = sum(p.numel() * p.element_size() for p in engine.parameters())
+    gen = torch.Generator("cuda").manual_seed(SEED + 10)
+    batch = random_batch(gen)
+    t0 = time.perf_counter()
+    blob = export_sampler(engine, params, batch, decoding_t=T)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sample = load_sampler(blob)
+    load_s = time.perf_counter() - t0
+    log("export_artifact", export_seconds=export_s, load_seconds=load_s,
+        artifact_mb=len(blob) / 1e6, weights_mb=weight_bytes / 1e6, engine_seconds=engine_s,
+        programs=sorted(sample.programs), card=smi)
+    if len(blob) >= weight_bytes:
+        raise RuntimeError(f"artifact of {len(blob)} bytes holds the weights ({weight_bytes})")
+
+    clip_s, launches, frames = [], None, None
+    for rep in range(CLIPS + 1):
+        for fn in KERNELS.values():
+            fn.launches = 0
+        gen = torch.Generator("cuda").manual_seed(SEED + 10)
+        batch = random_batch(gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample(params, batch, generator=gen)
+        torch.cuda.synchronize()
+        clip_s.append(time.perf_counter() - t0)
+        if rep == 0:
+            launches = {name: fn.launches for name, fn in KERNELS.items()}
+            frames = out["sampled_video"].cpu()
+    check_frames("export", frames, (T, H, W, 3))
+    same = torch.equal(frames, phase6["frames"])
+    err = rel_l2(frames, phase6["frames"])
+
+    # One step program against the eager step on the same inputs.
+    programs, header = sample.programs, sample.header
+    weights = programs["step"].weights(params)
+    cond = programs["cond"](programs["cond"].weights(params), *[batch[k] for k in header["keys"]])
+    n = len(header["cond_keys"])
+    x = initial_latents(engine.latent_noise(batch["cond_frames"], gen), header["init_scale"])
+    ladder = torch.tensor(header["sigmas"], device="cuda")
+    ioi = batch["image_only_indicator"]
+    c, uc = dict(zip(header["cond_keys"], cond[:n])), dict(zip(header["cond_keys"], cond[n:2 * n]))
+
+    def exported_step():
+        return programs["step"](weights, x, ladder[0], ladder[1], ioi, *cond[:2 * n])
+
+    def eager_step():
+        return engine.sampler.step(engine.sampling_denoiser(ioi), x, ladder[0], ladder[1], c, uc,
+                                   True)
+
+    with torch.no_grad():
+        step_same = torch.equal(exported_step(), eager_step())
+        step_ms = {"exported": device_ms(exported_step, iters=3),
+                   "eager": device_ms(eager_step, iters=3)}
+        step_wall = {"exported": wall_s(exported_step)[1], "eager": wall_s(eager_step)[1]}
+    log("export", bit_identical_to_phase6=same, rel_l2=err, tol=AB_TOL, launches=launches,
+        expected_per_clip=phase6["expected"], clip_seconds=clip_s,
+        phase6_clip_seconds=phase6["clip_s"], step_device_ms=step_ms, step_wall_s=step_wall,
+        step_bit_identical=step_same, phase_seconds=time.perf_counter() - phase_t0, card=smi)
+    del engine, sample, programs, weights, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not err <= AB_TOL or launches != phase6["expected"]:
+        raise RuntimeError(f"export: frames relative L2 {err} (tol {AB_TOL}), launches "
+                           f"{launches}, expected {phase6['expected']}")
+    return launches
+
+
 def post_npz(url: str, arrays: dict, timeout: float = 600.0) -> dict:
     """POST an .npz to `url`; the answer's arrays. A non-200 answer raises."""
     import io
@@ -2008,7 +2155,7 @@ def eval_phase(smi: str, launch_model: dict, logdir: str, work: str) -> dict:
     # the wall time of an evaluation is the host's where it outlasts the
     # device's.
     seconds, device = {"interval": [], "full_cfg": []}, {}
-    for which in ("interval", "full_cfg", "full_cfg", "interval") * 2:
+    for which in ("interval", "full_cfg", "full_cfg", "interval"):
         sampler.guidance_interval = EVAL_INTERVAL if which == "interval" else None
         seconds[which].append(request()[1])
     for which in seconds:
@@ -3260,6 +3407,7 @@ def main() -> int:
     stats, launches, served_launches, launch_model, phase6_clip = serve(smi)
     gc.collect()
     torch.cuda.empty_cache()
+    export_launches = export_phase(smi, phase6_clip)
     train_launches, phase7 = train(smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3291,7 +3439,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": train_launches[name] if name == "flash_bwd" else launches[name],
-         "served_launches": served_launches[name], "train_launches": train_launches[name],
+         "served_launches": served_launches[name], "export_launches": export_launches[name],
+         "train_launches": train_launches[name],
          "entry_launches": entry_launches[name], "eval_launches": eval_launches.get(name, 0),
          "pardom_launches": pardom_launches[name],
          "options_launches": options_launches.get(name, 0),

@@ -31,13 +31,49 @@ VEHICLE_RGB = [[0, 60, 100], [0, 0, 142], [0, 0, 90], [32, 32, 32], [119, 11, 32
 
 
 def _area_downsample(mask: torch.Tensor, out_hw) -> torch.Tensor:
-    """Area (average) downsample of (N, H, W, 1) to (N, h, w, 1) by whole
-    factors; the VAE's 8x grid always divides."""
+    """Area (average) downsample of (N, H, W, C) to (N, h, w, C) where the
+    grid divides; elsewhere the antialiased linear resize of
+    jax.image.resize(..., "linear"), as gcd_tpu/diffusion/loss.py falls
+    back to it."""
     n, h, w, c = mask.shape
     oh, ow = out_hw
     if h % oh or w % ow:
-        raise NotImplementedError(f"area downsample {h}x{w} -> {oh}x{ow}: only whole factors")
+        return linear_resize(mask, (oh, ow))
     return mask.reshape(n, oh, h // oh, ow, w // ow, c).mean(dim=(2, 4))
+
+
+def linear_weights(size_in: int, size_out: int) -> np.ndarray:
+    """(size_in, size_out) float32 weights of an antialiased linear resize
+    along one axis: the weight rule of jax.image.scale_and_translate
+    (compute_weight_mat) with the triangle kernel, scale size_out / size_in
+    and no translation. Downsampling widens the kernel by the inverse
+    scale; each output's weights are normalised to sum to 1, and an output
+    whose sample falls outside the input gets none."""
+    inv_scale = 1.0 / (size_out / size_in)
+    kernel_scale = np.float32(max(inv_scale, 1.0))
+    sample = (np.arange(size_out, dtype=np.float32) + 0.5) * np.float32(inv_scale) - 0.5
+    x = np.abs(sample[None, :] - np.arange(size_in, dtype=np.float32)[:, None]) / kernel_scale
+    weights = np.maximum(np.float32(0.0), 1 - x)
+    total = weights.sum(axis=0, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= size_in - 0.5)
+    return np.where(inside[None, :], weights, 0).astype(np.float32)
+
+
+def linear_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """(N, H, W, C) -> (N, h, w, C): jax.image.resize(x, (N, h, w, C),
+    "linear") with its default antialiasing, as separable fp32 products
+    (an axis of unchanged size is left as it is, as there)."""
+    (h, w), (oh, ow) = x.shape[1:3], out_hw
+    out = x.float()
+    if oh != h:
+        wh = torch.from_numpy(linear_weights(h, oh)).to(x.device)
+        out = torch.einsum("nhwc,hp->npwc", out, wh)
+    if ow != w:
+        ww = torch.from_numpy(linear_weights(w, ow)).to(x.device)
+        out = torch.einsum("nhwc,wq->nhqc", out, ww)
+    return out.to(x.dtype)
 
 
 class StandardDiffusionLoss:

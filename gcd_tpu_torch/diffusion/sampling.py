@@ -1,7 +1,9 @@
 """Euler EDM sampler (port of gcd_tpu/diffusion/sampling.py).
 
-The JAX lax.scan becomes a Python loop over the numpy sigma ladder; the
-initial noise is passed in, and s_churn = 0 draws no per-step noise. With a
+The JAX lax.scan becomes a Python loop over the numpy sigma ladder, each
+iteration one `step` with the step's sigmas as 0-d tensors (the step an
+exported sampler runs, engine/export.py); the initial noise is passed in,
+and s_churn = 0 draws no per-step noise. With a
 `guidance_interval` (lo, hi), the choice between the guided step and the
 plain conditional one is a Python `if` on the step's ladder sigma, known
 before the loop starts: no device sync, nothing like lax.cond.
@@ -57,22 +59,28 @@ class EulerEDMSampler:
         lo, hi = (np.float32(v) for v in self.guidance_interval)
         return [bool(lo <= s <= hi) for s in steps]
 
+    def step(self, denoiser: Callable, x: torch.Tensor, sigma: torch.Tensor,
+             next_sigma: torch.Tensor, cond: Dict, uc: Dict, guided: bool) -> torch.Tensor:
+        """One Euler step of x from `sigma` to `next_sigma`, 0-d fp32 tensors
+        (the loop's and an exported step program's one definition):
+        `denoiser(x, sigma, cond) -> denoised` on the CFG-doubled batch when
+        `guided`, on x's own batch otherwise."""
+        s_in = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+        sig = s_in * sigma
+        if guided:
+            x_in, s_2, c_in = self.guider.prepare_inputs(x, sig, cond, uc)
+            denoised = self.guider(denoiser(x_in, s_2, c_in))
+        else:
+            denoised = denoiser(x, sig, cond)
+        d = (x - denoised) / _append_dims(sig, x.dim())
+        return x + _append_dims(s_in * next_sigma - sig, x.dim()) * d
+
     def __call__(self, denoiser: Callable, x: torch.Tensor, cond: Dict, uc: Dict,
                  num_steps: Optional[int] = None) -> torch.Tensor:
-        """`denoiser(x, sigma, cond) -> denoised` on the CFG-doubled batch at
-        a guided step, on x's own batch at a plain one; x is the initial
-        unit-variance noise."""
+        """`step` over the ladder; x is the initial unit-variance noise."""
         sigmas = self.sigmas(num_steps)
         x = x * float(np.sqrt(1.0 + sigmas[0] ** 2))
-        s_in = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
-        for sigma, next_sigma, guided in zip(sigmas[:-1], sigmas[1:],
-                                             self.guided_steps(num_steps)):
-            sig = s_in * float(sigma)
-            if guided:
-                x_in, s_2, c_in = self.guider.prepare_inputs(x, sig, cond, uc)
-                denoised = self.guider(denoiser(x_in, s_2, c_in))
-            else:
-                denoised = denoiser(x, sig, cond)
-            d = (x - denoised) / _append_dims(sig, x.dim())
-            x = x + _append_dims(s_in * float(next_sigma) - sig, x.dim()) * d
+        ladder = torch.from_numpy(sigmas).to(x.device)
+        for i, guided in enumerate(self.guided_steps(num_steps)):
+            x = self.step(denoiser, x, ladder[i], ladder[i + 1], cond, uc, guided)
         return x

@@ -283,15 +283,24 @@ class DiffusionEngine(nn.Module):
         x = _channels_first(noise).float()
         if image_only_indicator is None:
             image_only_indicator = torch.zeros(x.shape[0] // t, t, device=x.device)
+        return self.sampler(self.sampling_denoiser(image_only_indicator, denoise), x, c, uc,
+                            num_steps=num_steps)
+
+    def sampling_denoiser(self, image_only_indicator: torch.Tensor,
+                          denoise: Optional[Callable] = None) -> Callable:
+        """The sampler's `denoiser(x, sigma, cond)` over `denoise` (the
+        signature of `self.denoise`, which it defaults to), for the videos
+        whose indicator is (B, T) `image_only_indicator`: it takes both
+        halves' indicators on a guided step, the conditional half's on a
+        plain one (guidance_interval)."""
+        t = self.sampler.guider.num_frames
         ioi2 = torch.cat([image_only_indicator, image_only_indicator])  # uc | c
         denoise = denoise or self.denoise
 
         def denoiser_fn(xx, sigma, cond):
-            # The indicator of the incoming batch: both halves on a guided
-            # step, the conditional half on a plain one (guidance_interval).
             return denoise(xx, sigma, cond, ioi2[-(xx.shape[0] // t):])
 
-        return self.sampler(denoiser_fn, x, c, uc, num_steps=num_steps)
+        return denoiser_fn
 
     @torch.no_grad()
     def sample_video_from_cond(self, c: Dict, uc: Dict, noise: torch.Tensor,

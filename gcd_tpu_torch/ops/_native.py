@@ -19,6 +19,7 @@ with dlopen/dlsym in the libcuda.so.1 that the CUDA runtime has loaded
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -128,34 +129,40 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+                _entries[name] = fn
             lib.gcd_error_string.argtypes = [ctypes.c_int]
             lib.gcd_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
 
 
-def current_stream() -> Tuple[int, int]:
-    """(device index, raw stream) of the current CUDA stream:
-    torch.cuda.current_stream().cuda_stream without building a Stream object
-    (about 10 us a call on the H100 machine's host)."""
-    device = torch._C._cuda_getDevice()
-    return device, torch._C._cuda_getCurrentRawStream(device)
+_entries: dict = {}
 
 
 def launch(name: str, *args) -> None:
-    """Call one C entry point on the current CUDA stream; raise if the
-    launch was refused."""
-    lib = library()
-    code = getattr(lib, name)(*args, current_stream()[1])
+    """Call one C entry point on the current CUDA stream (its raw handle:
+    torch.cuda.current_stream() builds a Stream object, about 10 us a call
+    on the H100 machine's host); raise if the launch was refused."""
+    entry = _entries.get(name) or getattr(library(), name)
+    code = entry(*args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
     if code != 0:
-        msg = lib.gcd_error_string(code).decode()
+        msg = library().gcd_error_string(code).decode()
         raise RuntimeError(f"{name} failed to launch: CUDA error {code} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype,
                        shape: Tuple[int, ...], align: int = 16) -> None:
     """Raise unless `t` is a contiguous CUDA tensor of the given dtype and
     shape whose data pointer is `align`-byte aligned."""
+    if (t.is_cuda and t.dtype == dtype and t.shape == shape and t.is_contiguous()
+            and not t.data_ptr() % align):
+        return
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -179,11 +186,15 @@ def stream_scratch(tag: str, numel: int, dtype: torch.dtype, zeroed: bool = Fals
     kernels start; another stream gets its own buffer. It grows to the
     largest size asked for. With `zeroed` it is zero when made, and the
     kernels that use it must leave it zero (K5's tickets)."""
-    key = (tag, *current_stream())
+    device = torch._C._cuda_getDevice()
+    key = (tag, device, torch._C._cuda_getCurrentRawStream(device))
+    buf = _scratch.get(key)
+    if buf is not None and buf.numel() >= numel and buf.dtype == dtype:
+        return buf
     with _scratch_lock:
         buf = _scratch.get(key)
         if buf is None or buf.numel() < numel or buf.dtype != dtype:
             make = torch.zeros if zeroed else torch.empty
-            buf = make(numel, dtype=dtype, device=torch.device("cuda", key[1]))
+            buf = make(numel, dtype=dtype, device=torch.device("cuda", device))
             _scratch[key] = buf
     return buf

@@ -18,9 +18,11 @@ before dQ = dS K and dK = dS^T Q, fp32 accumulation, results in the input
 dtype. Its gradient is that of exact attention whichever forward ran, as in
 the JAX package.
 
-Each wrapper takes its plain version for CPU tensors, or under
-`kernel_flags(flash=False)` / `kernel_flags(flash_bwd=False)`; on a CUDA
-tensor it launches its kernel or raises. The backward's path is the
+Each wrapper calls its op (`gcd::flash_attention`,
+`gcd::flash_attention_bwd`; ops/library.py), whose CPU implementation is
+the plain version and whose CUDA one launches the kernel or raises; under
+`kernel_flags(flash=False)` / `kernel_flags(flash_bwd=False)` it runs the
+plain version. The backward's path is the
 `flash_bwd` switch as it stood at the forward: PyTorch runs a CUDA backward
 on its own thread, where the caller's switches are not set.
 """
@@ -33,6 +35,7 @@ import torch
 
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled, kernel_flags
+from gcd_tpu_torch.ops.library import define
 
 KERNEL_HEAD_DIMS = (64, 128)
 # Rows of K6's query and key tiles; must equal TR in csrc/flash_attention_bwd.cu.
@@ -89,10 +92,8 @@ def flash_attention_bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tens
     return back(dq, sq, q3.dtype), back(dk, skv, k3.dtype), back(dv, skv, v3.dtype)
 
 
-def _flash_forward(q3, k3, v3, heads: int, scale: Optional[float]) -> torch.Tensor:
-    """K1 on CUDA, the plain version on the CPU or under flash=False."""
-    if q3.device.type == "cpu" or not kernel_enabled("flash"):
-        return flash_attention_plain(q3, k3, v3, heads, scale)
+def _flash_cuda(q3, k3, v3, heads: int, scale: Optional[float]) -> torch.Tensor:
+    """K1: `gcd::flash_attention` on CUDA tensors."""
     b, sq, hd = q3.shape
     skv = k3.shape[1]
     if hd % heads or hd // heads not in KERNEL_HEAD_DIMS:
@@ -109,14 +110,20 @@ def _flash_forward(q3, k3, v3, heads: int, scale: Optional[float]) -> torch.Tens
     return out
 
 
-def flash_attention_bwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
-                        do3: torch.Tensor, heads: int, scale: Optional[float] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of self-attention on (B, S, H*D); K6 on CUDA: bf16 q, k,
-    v, do of one shape (Sq = Skv), D in {64, 128}, B and H at most 65535,
-    16-byte aligned."""
-    if q3.device.type == "cpu" or not kernel_enabled("flash_bwd"):
-        return flash_attention_bwd_plain(q3, k3, v3, do3, heads, scale)
+_FLASH = define("flash_attention(Tensor q, Tensor k, Tensor v, int heads, float? scale) "
+                "-> Tensor", _flash_cuda, flash_attention_plain,
+                lambda q3, k3, v3, heads, scale: q3.new_empty(q3.shape))
+
+
+def _flash_forward(q3, k3, v3, heads: int, scale: Optional[float]) -> torch.Tensor:
+    """K1 (`gcd::flash_attention`), or the plain version under flash=False."""
+    if not kernel_enabled("flash"):
+        return flash_attention_plain(q3, k3, v3, heads, scale)
+    return _FLASH(q3, k3, v3, heads, scale)
+
+
+def _flash_bwd_cuda(q3, k3, v3, do3, heads: int, scale: Optional[float]):
+    """K6: `gcd::flash_attention_bwd` on CUDA tensors."""
     b, s, hd = q3.shape
     if hd % heads or hd // heads not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head dim {hd}/{heads} not in "
@@ -134,6 +141,24 @@ def flash_attention_bwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                    stats.data_ptr(), b, s, h, d, _scale(hd, heads, scale))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+_FLASH_BWD = define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor do, int heads, "
+                    "float? scale) -> (Tensor, Tensor, Tensor)", _flash_bwd_cuda,
+                    flash_attention_bwd_plain,
+                    lambda q3, k3, v3, do3, heads, scale: tuple(
+                        z.new_empty(z.shape) for z in (q3, k3, v3)))
+
+
+def flash_attention_bwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                        do3: torch.Tensor, heads: int, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of self-attention on (B, S, H*D); K6
+    (`gcd::flash_attention_bwd`) on CUDA: bf16 q, k, v, do of one shape
+    (Sq = Skv), D in {64, 128}, B and H at most 65535, 16-byte aligned."""
+    if not kernel_enabled("flash_bwd"):
+        return flash_attention_bwd_plain(q3, k3, v3, do3, heads, scale)
+    return _FLASH_BWD(q3, k3, v3, do3, heads, scale)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -25,8 +25,10 @@ kernel takes x in channels_last memory (the layout of the port's
 activations) and the weight in channels_last memory, (F, 3, 3, C) in
 memory, in which the 2D ResBlocks build the routed convs
 (models/resblock.py); it raises on anything else, and its output
-is channels_last. CPU tensors, and CUDA tensors under
-`kernel_flags(fused_gn_conv=False)`, take `gn_silu_conv3x3_plain`.
+is channels_last. The wrapper calls the op `gcd::gn_silu_conv3x3`
+(ops/library.py), whose CPU implementation is `gn_silu_conv3x3_plain`;
+under `kernel_flags(fused_gn_conv=False)` it runs the plain version. The
+`gn_stats` switch is the op's `stats` argument, read at the call.
 
 The gradient is that of the plain chain (gcd_tpu's `_bwd`): the backward
 recomputes GroupNorm + SiLU from the saved x and takes the conv's input and
@@ -37,7 +39,7 @@ not run again (ops/recompute.py).
 from __future__ import annotations
 
 import itertools
-from functools import lru_cache, partial
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -51,6 +53,7 @@ from gcd_tpu_torch.ops.fused_norm import (
     group_scale_shift_plain,
     group_stats,
 )
+from gcd_tpu_torch.ops.library import define
 from gcd_tpu_torch.ops.recompute import plain_gradient
 
 
@@ -125,11 +128,6 @@ def tile_plan(n: int, h: int, w: int, c: int, f: int, sms: int) -> TilePlan:
     return TilePlan(rows, cols, samples, splits)
 
 
-@lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 class _ConvGradient(torch.autograd.Function):
     """conv2d(y, w, padding=1) + b for the backward only: its forward makes
     no product (the output is a zero-stride placeholder of the right shape),
@@ -166,15 +164,14 @@ def gn_silu_conv3x3(x: torch.Tensor, gn_weight: torch.Tensor, gn_bias: torch.Ten
                     conv_weight: torch.Tensor, conv_bias: torch.Tensor,
                     groups: int = 32, eps: float = 1e-5, silu: bool = True) -> torch.Tensor:
     """GroupNorm(groups, eps) (+ SiLU) -> 3x3 same-pad conv; K7 on CUDA."""
-    args = dict(groups=groups, eps=eps, silu=silu)
-    return plain_gradient(partial(_forward, **args), partial(_gradient_chain, **args),
-                          x, gn_weight, gn_bias, conv_weight, conv_bias)
+    return plain_gradient(_forward, _gradient_chain, (x, gn_weight, gn_bias, conv_weight,
+                                                      conv_bias), groups=groups, eps=eps, silu=silu)
 
 
-def _forward(x, gn_weight, gn_bias, conv_weight, conv_bias, groups, eps, silu):
-    if x.device.type == "cpu" or not kernel_enabled("fused_gn_conv"):
-        return gn_silu_conv3x3_plain(x, gn_weight, gn_bias, conv_weight, conv_bias,
-                                     groups, eps, silu)
+def _cuda(x, gn_weight, gn_bias, conv_weight, conv_bias, groups: int, eps: float, silu: bool,
+          stats: bool) -> torch.Tensor:
+    """K7: `gcd::gn_silu_conv3x3` on CUDA tensors; `stats` runs K5 for the
+    statistics (else the plain scale / shift table)."""
     if not supported(x, conv_weight, groups):
         raise ValueError(f"gn_silu_conv3x3: K7 takes (N, C, H, W) with C % {groups}, "
                          f"C % 64 and F % 64 == 0 and a (F, C, 3, 3) weight; got "
@@ -183,7 +180,7 @@ def _forward(x, gn_weight, gn_bias, conv_weight, conv_bias, groups, eps, silu):
     f = conv_weight.shape[0]
     fmt = torch.channels_last
     for name, t in (("x", x), ("conv_weight", conv_weight)):
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16:
+        if not t.is_cuda or t.dtype != torch.bfloat16:
             raise ValueError(f"gn_silu_conv3x3: {name} must be a bf16 CUDA tensor, "
                              f"got {t.dtype} on {t.device}")
         if not t.is_contiguous(memory_format=fmt) or t.data_ptr() % 16:
@@ -192,8 +189,7 @@ def _forward(x, gn_weight, gn_bias, conv_weight, conv_bias, groups, eps, silu):
     _native.check_cuda_operand("gn_weight", gn_weight, torch.bfloat16, (c,), align=2)
     _native.check_cuda_operand("gn_bias", gn_bias, torch.bfloat16, (c,), align=2)
     _native.check_cuda_operand("conv_bias", conv_bias, torch.bfloat16, (f,), align=2)
-    plan = tile_plan(n, h, w, c, f, _sm_count(x.device.index or 0))
-    stats = kernel_enabled("gn_stats")
+    plan = tile_plan(n, h, w, c, f, _native.sm_count(x.get_device()))
     # One fp32 scratch: K5's group sums (s1, s2) and the scale / shift table,
     # K7's split-K partial sums; each part a multiple of 16 bytes. K5's
     # tickets and block partials are its per-stream scratch.
@@ -216,6 +212,24 @@ def _forward(x, gn_weight, gn_bias, conv_weight, conv_bias, groups, eps, silu):
         group_stats.launches += 1
     gn_silu_conv3x3.launches += 1
     return out
+
+
+_GN_CONV = define("gn_silu_conv3x3(Tensor x, Tensor gn_weight, Tensor gn_bias, "
+                  "Tensor conv_weight, Tensor conv_bias, int groups, float eps, bool silu, "
+                  "bool stats) -> Tensor", _cuda,
+                  lambda x, gw, gb, cw, cb, groups, eps, silu, stats: gn_silu_conv3x3_plain(
+                      x, gw, gb, cw, cb, groups, eps, silu),
+                  lambda x, gw, gb, cw, *args: torch.empty(
+                      (x.shape[0], cw.shape[0], *x.shape[2:]), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last))
+
+
+def _forward(x, gn_weight, gn_bias, conv_weight, conv_bias, groups, eps, silu):
+    if not kernel_enabled("fused_gn_conv"):
+        return gn_silu_conv3x3_plain(x, gn_weight, gn_bias, conv_weight, conv_bias,
+                                     groups, eps, silu)
+    return _GN_CONV(x, gn_weight, gn_bias, conv_weight, conv_bias, groups, eps, silu,
+                    kernel_enabled("gn_stats"))
 
 
 gn_silu_conv3x3.launches = 0

@@ -14,9 +14,9 @@ is added in fp32 before the one rounding. The CUDA kernels
 kernel reads with b2 in its epilogue. No atomics: two calls agree bit for
 bit.
 
-`geglu_mlp` takes the plain version for CPU tensors, or when
-`kernel_flags(fused_mlp=False)` is set; on a CUDA tensor it launches the
-kernels or raises. Its gradient is that of the plain version (the same erf
+`geglu_mlp` calls the op `gcd::geglu_mlp` (ops/library.py): the plain
+version on CPU tensors, the kernels or an error on CUDA ones; under
+`kernel_flags(fused_mlp=False)` it runs the plain version. Its gradient is that of the plain version (the same erf
 GELU), recomputed from the saved inputs (ops/recompute.py; gcd_tpu's
 fused_mlp `_bwd`).
 """
@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
+from gcd_tpu_torch.ops.library import define
 from gcd_tpu_torch.ops.recompute import plain_gradient
 
 
@@ -72,13 +73,12 @@ def check_shape(m: int, c: int, inner: int, c_out: int) -> None:
 def geglu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """GEGLU MLP; K3 on CUDA (bf16; C and C_out multiples of 8, I of 64)."""
-    return plain_gradient(_geglu_forward, geglu_mlp_plain, x, w1, b1, w2, b2)
+    return plain_gradient(_geglu_forward, geglu_mlp_plain, (x, w1, b1, w2, b2))
 
 
-def _geglu_forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu" or not kernel_enabled("fused_mlp"):
-        return geglu_mlp_plain(x, w1, b1, w2, b2)
+def _geglu_cuda(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """K3: `gcd::geglu_mlp` on CUDA tensors."""
     c = x.shape[-1]
     c_out, inner = w2.shape
     lead = x.shape[:-1]
@@ -92,12 +92,24 @@ def _geglu_forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     _native.check_cuda_operand("b2", b2, torch.bfloat16, (c_out,), align=4)
     h = _native.stream_scratch("geglu_h", m * inner, torch.bfloat16)
     out = torch.empty((m, c_out), dtype=x.dtype, device=x.device)
-    bn = down_tile(m, c_out, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    bn = down_tile(m, c_out, _native.sm_count(x.get_device()))
     _native.launch("gcd_geglu_mlp", x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                    w2.data_ptr(), b2.data_ptr(), h.data_ptr(), out.data_ptr(),
                    m, c, inner, c_out, bn)
     geglu_mlp.launches += 1
     return out.reshape(*lead, c_out)
+
+
+_GEGLU = define("geglu_mlp(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
+                _geglu_cuda, geglu_mlp_plain,
+                lambda x, w1, b1, w2, b2: x.new_empty((*x.shape[:-1], w2.shape[0])))
+
+
+def _geglu_forward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    if not kernel_enabled("fused_mlp"):
+        return geglu_mlp_plain(x, w1, b1, w2, b2)
+    return _GEGLU(x, w1, b1, w2, b2)
 
 
 geglu_mlp.launches = 0

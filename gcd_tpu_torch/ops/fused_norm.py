@@ -23,10 +23,13 @@ samples, a span of ceil(P / ONEPASS_CLUSTER) pixels within ONEPASS_BYTES;
 the UNet's per-frame sites). Everything else takes K5 first and K4's apply
 pass after it; on a channels-last tensor that is one C call, K5 writing the
 (scale, shift) table that the apply pass reads, both kept per stream with
-K5's scratch. `uses_split_path` is the rule. Each wrapper takes its
-plain version for CPU tensors, or under `kernel_flags(fused_gn=False)` /
-`kernel_flags(gn_stats=False)`; on a CUDA tensor it launches its kernel or
-raises. `group_norm`'s gradient is that of `group_norm_plain`, recomputed
+K5's scratch. `uses_split_path` is the rule. Each wrapper calls its op
+(`gcd::group_norm`, `gcd::group_stats`, `gcd::group_norm_from_sums`;
+ops/library.py): the plain version on CPU tensors, the kernel or an error
+on CUDA ones; under `kernel_flags(fused_gn=False)` /
+`kernel_flags(gn_stats=False)` it runs the plain version. The output keeps
+x's layout on CUDA (the fake implementation says so); K4's `gn_stats`
+switch is its op's `stats` argument, read when the wrapper is called. `group_norm`'s gradient is that of `group_norm_plain`, recomputed
 from the saved x, weight and bias (ops/recompute.py; gcd_tpu's fused_norm
 `_bwd`); K5 runs inside its forward only.
 
@@ -42,7 +45,7 @@ gcd_tpu/ops/fused_norm.py:143-160 for a sharded operand. Without one,
 from __future__ import annotations
 
 import math
-from functools import partial
+from functools import lru_cache
 from typing import NamedTuple, Tuple
 
 import torch
@@ -51,6 +54,7 @@ import torch.distributed as dist
 
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
+from gcd_tpu_torch.ops.library import define
 from gcd_tpu_torch.ops.recompute import plain_gradient
 from gcd_tpu_torch.parallel.frames import all_reduce_sums
 
@@ -95,6 +99,7 @@ class ClStatsPlan(NamedTuple):
     blocks: int
 
 
+@lru_cache(maxsize=None)
 def cl_stats_plan(n: int, c: int, p: int) -> ClStatsPlan:
     """csrc/fused_norm.cu's cl_plan."""
     vpr = c // 8
@@ -126,9 +131,10 @@ def cl_stats_work(n: int, c: int, p: int, groups: int, x: torch.Tensor) -> int:
     TICKETS zero tickets (each call leaves them zero) then the cluster
     partials, kept per stream. Raises on a shape or tensor the kernel does
     not take."""
+    plan = cl_stats_plan(n, c, p) if c % 8 == 0 else None
     _cl_check("group_stats: channels-last K5", n if n > TICKETS else 0, c, groups,
-              cl_stats_plan(n, c, p).threads if c % 8 == 0 else 0, x)
-    words = TICKETS + 2 * n * cl_stats_plan(n, c, p).clusters * groups
+              plan.threads if plan else 0, x)
+    words = TICKETS + 2 * n * plan.clusters * groups
     return _native.stream_scratch("gn_stats_work", words, torch.int32, zeroed=True).data_ptr()
 
 
@@ -188,9 +194,12 @@ def group_stats_plain(x: torch.Tensor, num_groups: int) -> Tuple[torch.Tensor, t
     return xf.sum(dim=-1), (xf * xf).sum(dim=-1)
 
 
+_CHANNELS_LAST = {4: torch.channels_last, 5: torch.channels_last_3d}
+
+
 def _channels_last(x: torch.Tensor) -> bool:
-    fmt = {4: torch.channels_last, 5: torch.channels_last_3d}.get(x.dim())
-    return fmt is not None and not x.is_contiguous() and x.is_contiguous(memory_format=fmt)
+    fmt = _CHANNELS_LAST.get(x.dim())
+    return fmt is not None and x.is_contiguous(memory_format=fmt) and not x.is_contiguous()
 
 
 def uses_split_path(x: torch.Tensor, num_groups: int) -> bool:
@@ -198,14 +207,14 @@ def uses_split_path(x: torch.Tensor, num_groups: int) -> bool:
     included: the rule reads the shape and layout only) runs K5 before K4."""
     if _channels_last(x):
         return not cl_one_pass(x.shape[0], x.shape[1], math.prod(x.shape[2:]))
-    return x[0].numel() // num_groups > FUSED_MAX_VALUES
+    return x.numel() // x.shape[0] // num_groups > FUSED_MAX_VALUES
 
 
 def _layout(x: torch.Tensor, num_groups: int, who: str) -> Tuple[int, ...]:
     """Check a CUDA operand. Channels-last: (N, C, P) with P the pixel
     count. Otherwise (N, C, F, L, sample stride, frame stride), x read as
     (N, C, F, L) with channel stride L."""
-    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+    if not x.is_cuda or x.dtype != torch.bfloat16:
         raise ValueError(f"{who}: expected a bf16 CUDA tensor, got {x.dtype} on {x.device}")
     if x.dim() < 3 or x.shape[1] % num_groups:
         raise ValueError(f"{who}: expected (N, C, ...) with C divisible by "
@@ -234,28 +243,40 @@ def _layout(x: torch.Tensor, num_groups: int, who: str) -> Tuple[int, ...]:
     return n, c, f, l, s_n, s_f
 
 
-def group_stats(x: torch.Tensor, num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-(sample, group) sum and sum of squares, fp32 (N, G) each; K5 on
-    CUDA (bf16): one launch on a channels-last tensor, two on a
-    channels-first one."""
-    if x.device.type == "cpu" or not kernel_enabled("gn_stats"):
-        return group_stats_plain(x, num_groups)
+def _group_stats_cuda(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """K5: `gcd::group_stats` on CUDA tensors, (2, N, G) fp32 sums: one
+    launch on a channels-last tensor, two on a channels-first one."""
     lay = _layout(x, num_groups, "group_stats")
     n, c = lay[:2]
-    # One allocation: the sums, then (channels-first) the block partials.
-    parts = 0 if len(lay) == 3 else lay[2] * -(-(c // num_groups) * lay[3] // STATS_CHUNK)
-    buf = torch.empty(2 * n * num_groups * (1 + parts), dtype=torch.float32, device=x.device)
-    sums = buf[:2 * n * num_groups].view(2, n, num_groups)
-    s1, s2 = sums[0], sums[1]
+    sums = torch.empty((2, n, num_groups), dtype=torch.float32, device=x.device)
+    s1 = sums.data_ptr()
+    s2 = s1 + 4 * n * num_groups
     if len(lay) == 3:
         work = cl_stats_work(n, c, lay[2], num_groups, x)
-        _native.launch("gcd_group_stats_cl", x.data_ptr(), work, s1.data_ptr(), s2.data_ptr(),
-                       *lay, num_groups, None, None, None, 0.0)
-    else:
-        _native.launch("gcd_group_stats", x.data_ptr(), buf[2 * n * num_groups:].data_ptr(),
-                       s1.data_ptr(), s2.data_ptr(), *lay, num_groups, STATS_CHUNK)
+        _native.launch("gcd_group_stats_cl", x.data_ptr(), work, s1, s2, *lay, num_groups, None,
+                       None, None, 0.0)
+    else:  # the block partials first
+        parts = torch.empty(2 * n * num_groups * lay[2] * -(-(c // num_groups) * lay[3]
+                                                             // STATS_CHUNK),
+                            dtype=torch.float32, device=x.device)
+        _native.launch("gcd_group_stats", x.data_ptr(), parts.data_ptr(), s1, s2, *lay,
+                       num_groups, STATS_CHUNK)
     group_stats.launches += 1
-    return s1, s2
+    return sums
+
+
+_GROUP_STATS = define("group_stats(Tensor x, int groups) -> Tensor", _group_stats_cuda,
+                      lambda x, groups: torch.stack(group_stats_plain(x, groups)),
+                      lambda x, groups: x.new_empty((2, x.shape[0], groups),
+                                                    dtype=torch.float32))
+
+
+def group_stats(x: torch.Tensor, num_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(sample, group) sum and sum of squares, fp32 (N, G) each; K5
+    (`gcd::group_stats`) on CUDA (bf16)."""
+    if not kernel_enabled("gn_stats"):
+        return group_stats_plain(x, num_groups)
+    return _GROUP_STATS(x, num_groups).unbind(0)
 
 
 def scale_shift(s1: torch.Tensor, s2: torch.Tensor, count: int, weight: torch.Tensor,
@@ -285,20 +306,14 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """GroupNorm(+SiLU) over dim 1; K4 on CUDA (bf16 x, weight and bias).
     The result has x's memory layout. With `stats_group`, the statistics
     are summed over the group's ranks (module docstring)."""
-    args = dict(num_groups=num_groups, eps=eps, silu=silu, stats_group=stats_group)
-    return plain_gradient(partial(_group_norm_forward, **args),
-                          partial(group_norm_plain, **args), x, weight, bias)
+    return plain_gradient(_group_norm_forward, group_norm_plain, (x, weight, bias),
+                          num_groups=num_groups, eps=eps, silu=silu, stats_group=stats_group)
 
 
-def group_norm_from_sums(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                         num_groups: int, eps: float, silu: bool, s1: torch.Tensor,
-                         s2: torch.Tensor, count: int) -> torch.Tensor:
-    """GroupNorm(+SiLU) of x with the statistics of the (N, G) fp32 sums
-    s1, s2 over `count` values a group; K4's split-path apply on CUDA: the
-    (scale, shift) table pass on a channels-last x, the apply kernel over
-    the sums (rescaled to x's own count) on a channels-first one."""
-    if x.device.type == "cpu" or not kernel_enabled("fused_gn"):
-        return group_norm_from_sums_plain(x, weight, bias, num_groups, eps, silu, s1, s2, count)
+def _from_sums_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    num_groups: int, eps: float, silu: bool, s1: torch.Tensor,
+                    s2: torch.Tensor, count: int) -> torch.Tensor:
+    """K4's split-path apply: `gcd::group_norm_from_sums` on CUDA tensors."""
     lay = _layout(x, num_groups, "group_norm_from_sums")
     c = lay[1]
     _native.check_cuda_operand("weight", weight, torch.bfloat16, (c,), align=2)
@@ -312,7 +327,7 @@ def group_norm_from_sums(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
         _native.launch("gcd_group_norm_cl", *ptrs, work, None, table.data_ptr(), n, c, p,
                        num_groups, float(eps), 0, int(silu))
     else:
-        share = (x[0].numel() // num_groups) / count
+        share = (x.numel() // x.shape[0] // num_groups) / count
         s1, s2 = (s1 * share).contiguous(), (s2 * share).contiguous()
         _native.launch("gcd_group_norm", *ptrs, s1.data_ptr(), s2.data_ptr(), *lay, num_groups,
                        float(eps), int(silu), STATS_CHUNK)
@@ -320,14 +335,29 @@ def group_norm_from_sums(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
     return out
 
 
-def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                        num_groups: int, eps: float, silu: bool, stats_group) -> torch.Tensor:
-    if x.device.type == "cpu" or not kernel_enabled("fused_gn"):
-        return group_norm_plain(x, weight, bias, num_groups, eps, silu, stats_group)
-    if stats_group is not None:  # K5 on the rank's share, the sums summed, K4's apply
-        s1, s2 = all_reduce_sums(*group_stats(x, num_groups), stats_group)
-        count = x[0].numel() // num_groups * dist.get_world_size(stats_group)
-        return group_norm_from_sums(x, weight, bias, num_groups, eps, silu, s1, s2, count)
+_FROM_SUMS = define("group_norm_from_sums(Tensor x, Tensor weight, Tensor bias, int groups, "
+                    "float eps, bool silu, Tensor s1, Tensor s2, int count) -> Tensor",
+                    _from_sums_cuda, group_norm_from_sums_plain,
+                    lambda x, *args: torch.empty_like(x))
+
+
+def group_norm_from_sums(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         num_groups: int, eps: float, silu: bool, s1: torch.Tensor,
+                         s2: torch.Tensor, count: int) -> torch.Tensor:
+    """GroupNorm(+SiLU) of x with the statistics of the (N, G) fp32 sums
+    s1, s2 over `count` values a group; K4's split-path apply on CUDA
+    (`gcd::group_norm_from_sums`): the (scale, shift) table pass on a
+    channels-last x, the apply kernel over the sums (rescaled to x's own
+    count) on a channels-first one."""
+    if not kernel_enabled("fused_gn"):
+        return group_norm_from_sums_plain(x, weight, bias, num_groups, eps, silu, s1, s2, count)
+    return _FROM_SUMS(x, weight, bias, num_groups, eps, silu, s1, s2, count)
+
+
+def _group_norm_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     num_groups: int, eps: float, silu: bool, stats: bool) -> torch.Tensor:
+    """K4: `gcd::group_norm` on CUDA tensors; `stats` runs K5 where the site
+    takes the split path (else the plain statistics)."""
     lay = _layout(x, num_groups, "group_norm")
     c = lay[1]
     _native.check_cuda_operand("weight", weight, torch.bfloat16, (c,), align=2)
@@ -346,7 +376,6 @@ def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
             # K5 writes the (N, C) (scale, shift) table, then the apply pass
             # reads it; the table and K5's sums are kept per stream.
             work = cl_stats_work(n, c, p, num_groups, x)
-            stats = kernel_enabled("gn_stats")
             if stats:
                 buf = _native.stream_scratch("gn_table", 2 * n * (c + num_groups),
                                              torch.float32)
@@ -360,12 +389,32 @@ def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     else:
         s1 = s2 = None
         if uses_split_path(x, num_groups):
-            s1, s2 = group_stats(x, num_groups)
-        _native.launch("gcd_group_norm", *ptrs, None if s1 is None else s1.data_ptr(),
-                       None if s2 is None else s2.data_ptr(), *lay, num_groups,
-                       float(eps), int(silu), STATS_CHUNK)
+            sums = (_group_stats_cuda(x, num_groups) if stats
+                    else torch.stack(group_stats_plain(x, num_groups)))
+            s1 = sums.data_ptr()
+            s2 = s1 + 4 * sums.shape[1] * sums.shape[2]
+        _native.launch("gcd_group_norm", *ptrs, s1, s2, *lay, num_groups, float(eps), int(silu),
+                       STATS_CHUNK)
     group_norm.launches += 1
     return out
+
+
+_GROUP_NORM = define("group_norm(Tensor x, Tensor weight, Tensor bias, int groups, float eps, "
+                     "bool silu, bool stats) -> Tensor", _group_norm_cuda,
+                     lambda x, weight, bias, groups, eps, silu, stats: group_norm_plain(
+                         x, weight, bias, groups, eps, silu),
+                     lambda x, *args: torch.empty_like(x))
+
+
+def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                        num_groups: int, eps: float, silu: bool, stats_group) -> torch.Tensor:
+    if not kernel_enabled("fused_gn"):
+        return group_norm_plain(x, weight, bias, num_groups, eps, silu, stats_group)
+    if stats_group is not None:  # K5 on the rank's share, the sums summed, K4's apply
+        s1, s2 = all_reduce_sums(*group_stats(x, num_groups), stats_group)
+        count = x[0].numel() // num_groups * dist.get_world_size(stats_group)
+        return group_norm_from_sums(x, weight, bias, num_groups, eps, silu, s1, s2, count)
+    return _GROUP_NORM(x, weight, bias, num_groups, eps, silu, kernel_enabled("gn_stats"))
 
 
 group_stats.launches = 0

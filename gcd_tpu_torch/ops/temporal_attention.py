@@ -7,9 +7,9 @@ T frames, per head. The CUDA kernel is csrc/temporal_attention.cu;
 (B, S, H, T, D), fp32 logits and softmax, unnormalised P cast to the input
 dtype for PV and division after PV.
 
-`temporal_attention` takes the plain version for CPU tensors, or when
-`kernel_flags(tattn=False)` is set; on a CUDA tensor it launches the kernel
-or raises. The kernel takes T <= 16 frames and a head size D that is a
+`temporal_attention` calls the op `gcd::temporal_attention`
+(ops/library.py): the plain version on CPU tensors, the kernel or an error
+on CUDA ones; under `kernel_flags(tattn=False)` it runs the plain version. The kernel takes T <= 16 frames and a head size D that is a
 multiple of 16 up to 128 (`kernel_head_dim`), and the wrapper raises on a
 CUDA tensor outside that domain. Its gradient is that of the plain
 version, recomputed from the saved q, k, v (ops/recompute.py; gcd_tpu's
@@ -18,13 +18,13 @@ version, recomputed from the saved q, k, v (ops/recompute.py; gcd_tpu's
 
 from __future__ import annotations
 
-from functools import partial
 from typing import Optional
 
 import torch
 
 from gcd_tpu_torch.ops import _native
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
+from gcd_tpu_torch.ops.library import define
 from gcd_tpu_torch.ops.recompute import plain_gradient
 
 MAX_FRAMES = 16
@@ -62,15 +62,13 @@ def temporal_attention(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        scale: Optional[float] = None) -> torch.Tensor:
     """Frame-axis attention on (B*T, S, H*D) tokens; K2 on CUDA (bf16,
     T <= 16, D a multiple of 16 up to 128)."""
-    args = dict(timesteps=timesteps, heads=heads, scale=scale)
-    return plain_gradient(partial(_temporal_forward, **args),
-                          partial(temporal_attention_plain, **args), q3, k3, v3)
+    return plain_gradient(_temporal_forward, temporal_attention_plain, (q3, k3, v3),
+                          timesteps=timesteps, heads=heads, scale=scale)
 
 
-def _temporal_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
-                      timesteps: int, heads: int, scale: Optional[float]) -> torch.Tensor:
-    if q3.device.type == "cpu" or not kernel_enabled("tattn"):
-        return temporal_attention_plain(q3, k3, v3, timesteps, heads, scale)
+def _temporal_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                   timesteps: int, heads: int, scale: Optional[float]) -> torch.Tensor:
+    """K2: `gcd::temporal_attention` on CUDA tensors."""
     bt, s, c = q3.shape
     t = timesteps
     if bt % t or c % heads:
@@ -88,6 +86,18 @@ def _temporal_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                    v3.data_ptr(), out.data_ptr(), bt, t, s, c, heads, scale)
     temporal_attention.launches += 1
     return out
+
+
+_TATTN = define("temporal_attention(Tensor q, Tensor k, Tensor v, int timesteps, int heads, "
+                "float? scale) -> Tensor", _temporal_cuda, temporal_attention_plain,
+                lambda q3, k3, v3, timesteps, heads, scale: q3.new_empty(q3.shape))
+
+
+def _temporal_forward(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                      timesteps: int, heads: int, scale: Optional[float]) -> torch.Tensor:
+    if not kernel_enabled("tattn"):
+        return temporal_attention_plain(q3, k3, v3, timesteps, heads, scale)
+    return _TATTN(q3, k3, v3, timesteps, heads, scale)
 
 
 temporal_attention.launches = 0

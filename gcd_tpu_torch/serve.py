@@ -14,8 +14,9 @@ by engine/server.py. GET /healthz reports the counters.
 
 The engine is built on the card (the CPU only with --device cpu), with the
 checkpoint's weights, or seeded random weights without --model_path, and
-warmed up on a batch of --max_batch clips before the port opens. There is no
-exported-artifact mode: the kernels' ctypes launches do not trace.
+warmed up on a batch of --max_batch clips before the port opens. It has no
+exported-artifact mode (scripts/serve.py's --artifact): an artifact of
+gcd_tpu_torch.export_artifact is loaded with engine/export.py load_sampler.
 """
 
 from __future__ import annotations

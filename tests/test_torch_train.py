@@ -1,6 +1,7 @@
 """The port's training pieces on the CPU against the JAX package: the
 flash-attention backward (K6's plain version), the gradients of the K2 / K3
-/ K4 autograd Functions, StandardDiffusionLoss, the sampled first-stage
+/ K4 autograd Functions, StandardDiffusionLoss (and its mask downsample
+where the latent grid does not divide), the sampled first-stage
 encoding, the conditioning dropout, remat's recompute, and the optimizer
 mapping.
 
@@ -25,6 +26,7 @@ from gcd_tpu.ops.flash_attention import flash_attention_bwd as j_flash_bwd
 from gcd_tpu.ops.fused_mlp import geglu_mlp as j_geglu
 from gcd_tpu.ops.temporal_attention import temporal_attention as j_temporal
 from gcd_tpu.utils.config import instantiate_from_config as j_instantiate
+from gcd_tpu_torch.diffusion.loss import _area_downsample
 from gcd_tpu_torch.engine.build import load_engine
 from gcd_tpu_torch.engine.trainer import load_trainer, optimizer_from_config
 from gcd_tpu_torch.models.layers import GroupNorm32
@@ -256,6 +258,18 @@ def test_focal_fraction_and_pd_masks_are_live():
     plain = instantiate_from_config(_loss_config(False))
     assert not torch.allclose(loss.get_loss(out, _t(x), w, batch, 0),
                               plain.get_loss(out, _t(x), w, batch, 0))
+
+
+@pytest.mark.parametrize("hw,out_hw", [((36, 52), (4, 6)), ((30, 40), (4, 5)),
+                                       ((17, 24), (3, 3))])
+def test_area_downsample_fallback_matches_jax_resize(hw, out_hw):
+    """Where the grid does not divide, _area_downsample is
+    jax.image.resize(..., "linear") with its antialiasing, within 1e-6."""
+    mask = np.random.default_rng(sum(hw)).uniform(size=(2, *hw, 1)).astype(np.float32)
+    ref = np.asarray(jax.image.resize(jnp.asarray(mask), (2, *out_hw, 1), method="linear"))
+    out = _area_downsample(torch.from_numpy(mask), out_hw).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
