@@ -26,7 +26,9 @@ without the final `ok` line):
                    3x3 conv (its 14 UNet shapes at N = 28, and at N = 56,
                    the served batch; K1, K2 and K3 likewise at B*T = 28
                    and 56, K1 also at D = 128 and K2 also at D = 16, 80
-                   and 128 at ds2's width); K4 / K5
+                   and 128 at ds2's width; K4 / K5 also at the served
+                   batch's GroupNorm sites, the conditioner's and the
+                   UNet's N doubled); K4 / K5
                    also on channels-first copies of those shapes; K1, K2,
                    K3, K7 and K4 / K5 also at the shapes and GroupNorm
                    sites of a B*T = 14 UNet evaluation (a plain step of
@@ -76,7 +78,16 @@ without the final `ok` line):
                    not, logged), each kernel's launches a clip phase 6's;
                    export and load seconds, the artifact's MB, clip wall
                    seconds beside phase 6's, one step program's device ms
-                   and wall s beside the eager step's.
+                   and wall s beside the eager step's. Then the served
+                   artifact: the same engine exported for the served batch
+                   (two of the served requests' arrays) to a file, booted
+                   as gcd_tpu_torch.serve --artifact boots it (serve.py
+                   load_artifact) behind the HTTP handler, the served
+                   phase's four requests with their seeds: frames within
+                   2e-2 of the eager server's (bit-identical or not,
+                   logged), each kernel's launches the eager server's;
+                   served frames/s beside the eager server's, export and
+                   load seconds.
   7. train       - load_trainer(configs/train_kubric_max90.yaml): random
                    bf16 weights, fp32 masters and Adam; a seeded batch of 2
                    clips of 14 frames at 384x256 (B*T = 28). One step's loss
@@ -131,6 +142,9 @@ without the final `ok` line):
                    steps) and 14 (plain steps), its frames within 2e-2 of
                    the same request with every kernel off, and its time
                    against full CFG (wall time in turns, and device time).
+                   The test entry's default galleries (rich1, rich2, rich3,
+                   rich5, rich6: galleries.py) of both examples: each
+                   layout's .npz of 17 canvases of its grid and its .png.
   9. pardom      - the ParallelDomain configs, after phase 8's run is freed:
                    a synthetic root in a temporary directory (1 scene of
                    the dataset's 50 frames, 19 views x 640 x 480 points a
@@ -154,7 +168,9 @@ without the final `ok` line):
                    of shape (14, 256, 384, 3), each kernel's launches equal
                    to phase 6's per clip; load_model_bundle on
                    pretrained/pardom_gradual_semantic.yaml builds the same
-                   weights.
+                   weights. One depth frame written into the root (1-80 m)
+                   and visualised: every colour a row of the plasma table,
+                   nearer brighter, the processed frame in [-1, 1].
  10. options     - the training options, after phase 9 frees its run:
                    (a) load_trainer(configs/train_kubric_max90.yaml) with
                    ft_strategy time_lora, EMA, a LambdaLinearScheduler
@@ -211,7 +227,15 @@ without the final `ok` line):
                    phase 6's first request (its batch and its generator's
                    noise): frames bit-identical to phase 6's, each kernel's
                    launches phase 6's per clip, the clip's wall s beside
-                   phase 6's. (b) the kernels at the shapes a rank of a
+                   phase 6's; then the mesh server (engine/server.py's
+                   SamplerServer over the sharded sampler, the batches
+                   broadcast) in that group behind the HTTP handler, on the
+                   served phase's requests and seeds: frames bit-identical
+                   to the served phase's, launches equal; and every
+                   rank-local shape of the served meshes (one card, data 2,
+                   data 2 x fsdp 2, fsdp 2 x tensor 2: UNet rows,
+                   conditioner frames, decode chunks) among the shapes
+                   phase 4 and the (b) phases hold. (b) the kernels at the shapes a rank of a
                    4-rank mesh sees at one clip (V = 2 video blocks x F = 2
                    frame blocks; the 2-rank mesh's B*T = 14 is phase 4's
                    plain step): K1, K3, K7 and the per-frame K4 / K5 sites
@@ -231,8 +255,15 @@ without the final `ok` line):
                    sample's frames within 2e-2 of one card's; clip wall s
                    (clips 2-3), UNet and NCCL device ms of one evaluation
                    and NCCL device ms of one clip on process 0 (profiled),
-                   peak memory a card; on one card it prints that it did
-                   not run.
+                   peak memory a card; then python -m gcd_tpu_torch.serve
+                   in one process and in four at data 2 x fsdp 2 and
+                   fsdp 2 x tensor 2 (the weights sharded over fsdp): the
+                   served requests at once, each within 2e-2 of the one
+                   process's, every process exiting 0 after SIGINT to
+                   process 0; served frames/s, each batch's wall s, peak
+                   memory a card, process 0's decode split against whole
+                   and the NCCL device ms of a profiled batch; on one card
+                   it prints that it did not run.
 Then the kernel JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 
@@ -240,7 +271,7 @@ Then the kernel JSON line, the nvidia-smi line, and last
 
 runs phase 2 and the mesh phase's and the sharded phase's (c) alone (a
 machine of four cards); `--sampling-cards` runs phase 2 and the sharded
-phase's (c) alone.
+phase's (c) alone (the infer entry's runs and the served runs).
 """
 
 from __future__ import annotations
@@ -397,6 +428,7 @@ SHARD_CHILD = "import sys, chip_smoke; chip_smoke.sharded_entry_child(sys.argv[1
 SERVE_BATCH = 2   # clips per served batch
 SERVE_REQUESTS = 4
 SERVE_TOL = 2e-2  # relative L2, a request served alone vs in its batch
+SERVE_STAGGER_S = 0.5  # between the served requests' POSTs: the same batches every run
 # (azimuth, elevation, radius) of the served requests' camera moves.
 SERVE_MOVES = [(30.0, 10.0, 0.0), (-20.0, 5.0, 0.0), (60.0, -10.0, 0.0), (0.0, 25.0, 0.0)]
 
@@ -1053,6 +1085,11 @@ def serve(smi: str):
             gn_checked[(shape, memory_layout(view), eps, silu)] += 0
     for site in gn_unet14:  # the plain steps' sites: 0 launches per clip
         gn_checked[site] += 0
+    # The served batch's sites (the conditioner's and the UNet's N doubled):
+    # 0 launches per clip.
+    for stage in ("cond", "unet"):
+        for (shape, *rest) in gn_calls[stage]:
+            gn_checked[((shape[0] * SERVE_BATCH, *shape[1:]), *rest)] += 0
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     stats = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -1315,7 +1352,7 @@ def op_cases(gen: torch.Generator):
     ]
 
 
-def export_phase(smi: str, phase6: dict) -> dict:
+def export_phase(smi: str, phase6: dict, served_run: dict) -> tuple:
     """The exported sampler (engine/export.py) at full width: each gcd:: op's
     fake implementation against its kernel's output on the card
     (torch.library.opcheck's fake-tensor test); then export_sampler on a
@@ -1325,7 +1362,9 @@ def export_phase(smi: str, phase6: dict) -> dict:
     within 2e-2 of phase 6's (bit-identical or not, logged), each kernel's
     launches a clip phase 6's; export, load and clip seconds beside phase
     6's, the artifact's MB, and one step program's device ms beside the
-    eager step's. Returns the launches over the artifact's first clip."""
+    eager step's; then `served_artifact` on the same engine. Returns the
+    launches over the artifact's first clip and over the served
+    artifact's requests."""
     from gcd_tpu_torch.engine.build import load_engine
     from gcd_tpu_torch.engine.export import export_sampler, initial_latents, load_sampler
     from gcd_tpu_torch.ops import KERNELS
@@ -1402,13 +1441,68 @@ def export_phase(smi: str, phase6: dict) -> dict:
         expected_per_clip=phase6["expected"], clip_seconds=clip_s,
         phase6_clip_seconds=phase6["clip_s"], step_device_ms=step_ms, step_wall_s=step_wall,
         step_bit_identical=step_same, phase_seconds=time.perf_counter() - phase_t0, card=smi)
-    del engine, sample, programs, weights, params
+    del sample, programs, weights, cond, x
     gc.collect()
     torch.cuda.empty_cache()
     if not err <= AB_TOL or launches != phase6["expected"]:
         raise RuntimeError(f"export: frames relative L2 {err} (tol {AB_TOL}), launches "
                            f"{launches}, expected {phase6['expected']}")
-    return launches
+    artifact_launches = served_artifact(engine, params, smi, served_run)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, artifact_launches
+
+
+def served_artifact(engine, params: dict, smi: str, served_run: dict) -> dict:
+    """The export phase's served part: the engine exported for the served
+    batch (SERVE_BATCH of the served requests' arrays) to a file, booted as
+    gcd_tpu_torch.serve --artifact boots it (serve.py load_artifact), and
+    the served phase's four requests with their seeds through the HTTP
+    handler: frames within SERVE_TOL of the eager server's (bit-identical
+    or not, logged), each kernel's launches the eager server's. Returns the
+    launches over the four requests."""
+    from gcd_tpu_torch.engine.export import export_sampler
+    from gcd_tpu_torch.engine.server import _concat_requests
+    from gcd_tpu_torch.serve import load_artifact
+
+    t_phase = time.perf_counter()
+    requests = served_run["requests"]
+    pair = _concat_requests([{k: v for k, v in r.items() if k != "seed"}
+                             for r in requests[:SERVE_BATCH]], SERVE_BATCH)
+    batch = {k: torch.as_tensor(v, dtype=torch.float32, device="cuda")
+             for k, v in pair.items()}
+    work = tempfile.mkdtemp(prefix="gcd_artifact_")
+    try:
+        path = os.path.join(work, "served.gcdexp")
+        t0 = time.perf_counter()
+        blob = export_sampler(engine, params, batch, decoding_t=T)
+        export_s = time.perf_counter() - t0
+        with open(path, "wb") as f:
+            f.write(blob)
+        t0 = time.perf_counter()
+        fn, check = load_artifact(path, params, SERVE_BATCH, T, (H, W))
+        load_s = time.perf_counter() - t0
+        run = serve_requests(fn, requests, check)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    errs = [rel_l2(torch.from_numpy(g), torch.from_numpy(w))
+            for g, w in zip(run["frames"], served_run["frames"])]
+    same = all(np.array_equal(g, w) for g, w in zip(run["frames"], served_run["frames"]))
+    log("served_artifact", bit_identical_to_served=same, rel_l2=errs, tol=SERVE_TOL,
+        launches=run["launches"], served_launches=served_run["launches"],
+        served_frames_per_s=SERVE_REQUESTS * T / run["wall_s"],
+        eager_served_frames_per_s=served_run["frames_per_s"], export_seconds=export_s,
+        load_seconds=load_s, artifact_mb=len(blob) / 1e6, counts=run["counts"],
+        peak_mem_bytes=run["peak_mem_bytes"], seconds=time.perf_counter() - t_phase, card=smi)
+    for f in run["frames"]:
+        check_frames("served artifact", torch.from_numpy(f), (T, H, W, 3))
+    if not all(e <= SERVE_TOL for e in errs) or run["launches"] != served_run["launches"] \
+            or run["counts"] != (SERVE_REQUESTS // SERVE_BATCH, SERVE_REQUESTS):
+        raise RuntimeError(f"served artifact: frames {errs} (tol {SERVE_TOL}), launches "
+                           f"{run['launches']} against {served_run['launches']}, counts "
+                           f"{run['counts']}")
+    return run["launches"]
 
 
 def post_npz(url: str, arrays: dict, timeout: float = 600.0) -> dict:
@@ -1428,30 +1522,83 @@ def post_npz(url: str, arrays: dict, timeout: float = 600.0) -> dict:
         return {k: out[k] for k in out.files}
 
 
-def served(engine, smi: str, per_batch: dict) -> dict:
-    """The served phase: four concurrent HTTP requests through
-    SamplerServer(max_batch=2) on the engine of phases 3-6, then request 0
-    alone, then one batch timed with K7 on and off. Returns the launches of
-    the two batches. `per_batch` is the expected launches per served batch
-    (one UNet pass of 25 evaluations)."""
-    import json as json_
+def serve_requests(fn, requests: list, check=None, mesh_device=None) -> dict:
+    """`requests` (POST bodies) sent concurrently, SERVE_STAGGER_S apart, to
+    the HTTP handler of gcd_tpu_torch.serve over SamplerServer(fn,
+    max_batch=SERVE_BATCH) on 127.0.0.1; then GET /healthz. The stagger
+    makes them arrive in order, so every run forms the same batches (a
+    request's frames depend on its batch-mates in the last bits). Returns
+    the answers' frames, the wall seconds of the requests, the kernels'
+    launches over them, the peak memory, the health report and the
+    server's counters."""
     import threading
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
     from http.server import ThreadingHTTPServer
 
-    import numpy as np
-
-    from gcd_tpu_torch.engine.bundle import ModelBundle, camera_metadata, construct_batch
-    from gcd_tpu_torch.engine.server import (SamplerServer, _concat_requests,
-                                             make_engine_sample_fn)
-    from gcd_tpu_torch.ops import KERNELS, _native, kernel_flags
+    from gcd_tpu_torch.engine.server import SamplerServer
+    from gcd_tpu_torch.ops import KERNELS
     from gcd_tpu_torch.serve import make_handler
+
+    srv = SamplerServer(fn, T, max_batch=SERVE_BATCH, max_wait_ms=2000.0, check=check,
+                        mesh_device=mesh_device).start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv, T))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        for kernel in KERNELS.values():
+            kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        def post(i):
+            time.sleep(i * SERVE_STAGGER_S)
+            return post_npz(f"{url}/sample", requests[i])
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(requests)) as pool:
+            outs = list(pool.map(post, range(len(requests))))
+        wall = time.perf_counter() - t0
+        launches = {name: kernel.launches for name, kernel in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated()
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+    return {"frames": [o["sampled_video"] for o in outs], "wall_s": wall, "launches": launches,
+            "peak_mem_bytes": peak, "healthz": health,
+            "counts": (srv.batches_run, srv.requests_served)}
+
+
+def served_requests(engine) -> list:
+    """The served phase's four requests: random clips and SERVE_MOVES'
+    camera moves through construct_batch, each with its seed."""
+    from gcd_tpu_torch.engine.bundle import ModelBundle, camera_metadata, construct_batch
     from gcd_tpu_torch.utils.config import load_config
 
     cfg = load_config(CONFIG)
     bundle = ModelBundle(engine=engine, train_config=None, test_config=cfg, model_name="random",
                          **camera_metadata(None, cfg))
+    rng = np.random.default_rng(SEED + 30)
+    requests = []
+    for i, (az, el, radius) in enumerate(SERVE_MOVES[:SERVE_REQUESTS]):
+        clip = construct_batch(rng.uniform(size=(T, H, W, 3)).astype(np.float32), az, el,
+                               radius, T, 5, 127, 0.02, False, bundle, rng=rng)
+        clip.pop("num_video_frames")
+        requests.append(dict(clip, seed=np.int64(SEED + 40 + i)))
+    return requests
+
+
+def served(engine, smi: str, per_batch: dict) -> dict:
+    """The served phase: four concurrent HTTP requests through
+    SamplerServer(max_batch=2) on the engine of phases 3-6, then request 0
+    alone, then one batch timed with K7 on and off. Returns the requests,
+    their frames, the launches of the two batches and the served frames/s.
+    `per_batch` is the expected launches per served batch (one UNet pass
+    of 25 evaluations)."""
+    from gcd_tpu_torch.engine.server import _concat_requests, make_engine_sample_fn
+    from gcd_tpu_torch.ops import KERNELS, _native, kernel_flags
+
     sample_fn = make_engine_sample_fn(engine, SERVE_BATCH, T, decoding_t=T)
     batch_s = []
 
@@ -1467,42 +1614,15 @@ def served(engine, smi: str, per_batch: dict) -> dict:
     timed(engine.example_batch((H, W), T, SERVE_BATCH), [0] * SERVE_BATCH)  # warm-up
     warm_s = time.perf_counter() - t0
     batch_s.clear()
-    rng = np.random.default_rng(SEED + 30)
-    requests = []
-    for i, (az, el, radius) in enumerate(SERVE_MOVES[:SERVE_REQUESTS]):
-        clip = construct_batch(rng.uniform(size=(T, H, W, 3)).astype(np.float32), az, el,
-                               radius, T, 5, 127, 0.02, False, bundle, rng=rng)
-        clip.pop("num_video_frames")
-        requests.append(dict(clip, seed=np.int64(SEED + 40 + i)))
-
-    srv = SamplerServer(timed, T, max_batch=SERVE_BATCH, max_wait_ms=2000.0).start()
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv, T))
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{httpd.server_address[1]}"
-    try:
-        for fn in KERNELS.values():
-            fn.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(SERVE_REQUESTS) as pool:
-            outs = list(pool.map(lambda r: post_npz(f"{url}/sample", r), requests))
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in KERNELS.items()}
-        peak = torch.cuda.max_memory_allocated()
-        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
-            health = json_.loads(resp.read())
-        counts = (srv.batches_run, srv.requests_served)
-        lone = post_npz(f"{url}/sample", requests[0])
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        srv.stop()
+    requests = served_requests(engine)
+    run = serve_requests(timed, requests)
+    wall, launches, peak, health, counts = (run["wall_s"], run["launches"],
+                                            run["peak_mem_bytes"], run["healthz"], run["counts"])
+    frames = run["frames"]
+    lone = serve_requests(timed, requests[:1])["frames"][0]
     batches = SERVE_REQUESTS // SERVE_BATCH
     expected = {name: batches * n for name, n in per_batch.items()}
-    frames = [o["sampled_video"] for o in outs]
-    lone_err = float(np.linalg.norm(lone["sampled_video"] - frames[0])
-                     / np.linalg.norm(frames[0]))
+    lone_err = float(np.linalg.norm(lone - frames[0]) / np.linalg.norm(frames[0]))
 
     # What the default costs end to end: the first batch again, straight
     # through make_engine_sample_fn, with K7 on and off (on, off, off, on).
@@ -1549,7 +1669,8 @@ def served(engine, smi: str, per_batch: dict) -> dict:
         raise RuntimeError(f"request 0 alone vs batched: {lone_err} > {SERVE_TOL}")
     if launches != expected:
         raise RuntimeError(f"served launches {launches}, expected {expected}")
-    return launches
+    return {"requests": requests, "frames": frames, "launches": launches,
+            "frames_per_s": SERVE_REQUESTS * T / wall, "batch_s": batch_s[:batches]}
 
 
 def train(smi: str) -> dict:
@@ -1999,6 +2120,33 @@ def check_frames(what: str, frames, shape) -> None:
                            f"shape {shape}")
 
 
+# The test entry's default galleries at EVAL_SAMPLES samples: layout suffix ->
+# (rows, columns) of panels.
+GALLERY_GRID = {"gal": (2, 2), "io": (1, 2), "err": (2, 3), "div": (2, 2), "proj": (2, 2)}
+
+
+def check_galleries(smi: str, out: str, tags: list, seconds: list) -> None:
+    """The test entry's default galleries of each example `tag` in `out`:
+    each layout's `.npz` of T + 3 uint8 canvases of its grid of (H + 40,
+    W) panels, and its `.png` strip."""
+    from gcd_tpu_torch.data.png import read_png
+    from gcd_tpu_torch.galleries import BAND
+
+    shapes = {}
+    for tag in tags:
+        for suffix, (rows, cols) in GALLERY_GRID.items():
+            with np.load(os.path.join(out, f"{tag}_{suffix}.npz")) as z:
+                frames = z["frames"]
+            want = (T + 3, rows * (H + BAND), cols * W, 3)
+            png = read_png(os.path.join(out, f"{tag}_{suffix}.png"))
+            shapes[f"{tag}_{suffix}"] = list(frames.shape)
+            if frames.shape != want or frames.dtype != np.uint8 or png.shape[0] != want[1] \
+                    or not frames.any():
+                raise RuntimeError(f"eval galleries: {tag}_{suffix} {frames.shape} "
+                                   f"{frames.dtype}, png {png.shape}; expected {want} uint8")
+    log("eval_galleries", shapes=shapes, seconds_an_example=seconds, card=smi)
+
+
 def eval_phase(smi: str, launch_model: dict, logdir: str, work: str) -> dict:
     """The eval phase, on phase 8's run directory: the test entry on its
     step_4 checkpoint, the infer entry on an .npz clip and a PNG, and a
@@ -2069,6 +2217,7 @@ def eval_phase(smi: str, launch_model: dict, logdir: str, work: str) -> dict:
         check_frames("eval test", f, (T, H, W, 3))
     if launches != {k: clips * n for k, n in per_clip.items()}:
         raise RuntimeError(f"eval test: launches {launches}, expected {clips} x {per_clip}")
+    check_galleries(smi, res["output"], tags, [ex["seconds"]["galleries"] for ex in examples])
     del frames
     gc.collect()
     torch.cuda.empty_cache()
@@ -2201,6 +2350,41 @@ def class_pixel_share(jpg: np.ndarray) -> float:
     return float(near.mean())
 
 
+def pardom_depth(smi: str, scene: str) -> None:
+    """One depth frame in the PD root (the dataset's layout:
+    depth/<camera>/<time>.npz of metres, 1-80 m, written here: the
+    synthetic root has none), read and visualised as the PD pipeline reads
+    a modality (data/common.py): before the resize every pixel's colour is
+    a row of the plasma table, nearer is brighter; after it the frame is
+    (1, H, W, 3) in [-1, 1]."""
+    from gcd_tpu_torch.data.common import (get_pardom_camera_dn, load_pardom_frame,
+                                           load_pardom_video_vis_frames,
+                                           visualize_pardom_frame)
+    from gcd_tpu_torch.utils.draw import colormap
+
+    camera = get_pardom_camera_dn("ego", 1)
+    rows = np.linspace(1.0, 80.0, PD_FRAME_HW[0], dtype=np.float32)
+    depth = np.broadcast_to(rows[:, None], PD_FRAME_HW) + np.random.default_rng(
+        SEED + 60).uniform(0.0, 0.5, PD_FRAME_HW).astype(np.float32)
+    os.makedirs(os.path.join(scene, "depth", camera), exist_ok=True)
+    np.savez(os.path.join(scene, "depth", camera, f"{5:018d}.npz"), data=depth)
+    t0 = time.perf_counter()
+    vis = visualize_pardom_frame(load_pardom_frame(scene, "depth", camera, 0), "depth", camera,
+                                 None)
+    vis_s = time.perf_counter() - t0
+    table = colormap("plasma", np.arange(256)).astype(np.float32)
+    colours = np.unique(vis.reshape(-1, 3), axis=0)
+    in_table = bool((colours[:, None] == table[None]).all(-1).any(-1).all())
+    frames = load_pardom_video_vis_frames(scene, "depth", "ego", 1, None, [0], False, W, H)
+    log("pardom_depth", vis_shape=list(vis.shape), in_plasma_table=in_table,
+        near_luminance=float(vis[0].mean()), far_luminance=float(vis[-1].mean()),
+        frames_shape=list(frames.shape), seconds=vis_s, card=smi)
+    if vis.shape != PD_FRAME_HW + (3,) or not in_table or not vis[0].mean() > vis[-1].mean() \
+            or frames.shape != (1, H, W, 3) or not (np.abs(frames) <= 1.0).all():
+        raise RuntimeError(f"pardom depth: {vis.shape}, in the plasma table {in_table}, "
+                           f"frames {frames.shape}")
+
+
 def pardom_phase(smi: str, phase6: dict, phase7: dict) -> dict:
     """Phase 9. Returns the kernel launches over its training run and its
     clip."""
@@ -2297,6 +2481,7 @@ def pardom_phase(smi: str, phase6: dict, phase7: dict) -> dict:
             raise RuntimeError(f"pardom: PNG {frame.shape}, example {example['jpg'].shape}")
         if not share > 0.0:
             raise RuntimeError("pardom: no target pixel in a person or vehicle colour")
+        pardom_depth(smi, scene)
 
         # load_trainer builds the training config on the card; the entry,
         # which builds its own, must train the same parameters.
@@ -3092,9 +3277,88 @@ def time_stack_cases(gen: torch.Generator, gn_unet: Counter):
                blocks, wt, bs, eps, silu)
 
 
-def sharded_phase(smi: str, phase6: dict) -> dict:
+def held_shapes() -> set:
+    """(what, rows a call, tensor ranks, frame blocks) of the shapes the
+    kernel phases hold against the plain versions: phase 4's UNet
+    evaluations at B*T = 14 (the plain step), 28 and 56 (the served batch:
+    K1-K3 and K7 cases, K4 / K5 at its GroupNorm sites), its conditioner
+    pass at T and 2T frames (K4 / K5 at the served batch's sites) and its
+    decode of T frames; the mesh phase's (b) at B*T = 28 with heads and
+    inner columns / TP; the sharded phase's (b) at T / SHARD_F rows with K2
+    on all T frames of 1 / SHARD_F of the positions."""
+    held = {("unet", n, 1, 1) for n in (T, BT, SERVE_BATCH * BT)}
+    held |= {("unet", BT, tp, 1) for tp in MESH_TP}
+    held.add(("unet", T // SHARD_F, 1, SHARD_F))
+    held |= {("conditioner", n, 1, 1) for n in (T, SERVE_BATCH * T)}
+    held.add(("decode", T, 1, 1))
+    return held
+
+
+def served_mesh_shapes(data: int, fsdp: int, tensor: int, clips: int = SERVE_BATCH,
+                       decoding_t: int = T) -> set:
+    """The kernels' rank-local shapes, as held_shapes names them, when a
+    served batch of `clips` clips runs on a data x fsdp x tensor mesh: each
+    rank's UNet rows by the row rule (parallel/frames.py sample_rows on the
+    CFG-doubled videos and the flagship's planes), its conditioner's frames
+    and its decode chunks (engine/serving.py)."""
+    from gcd_tpu_torch.engine.serving import block_items, unet_planes
+    from gcd_tpu_torch.parallel.frames import sample_rows
+
+    ranks = data * fsdp
+    planes = unet_planes(HL, WL, len(LEVELS) - 1)
+    out = set()
+    for coord in range(ranks):
+        plan = sample_rows(ranks, 2 * clips, T, coord, planes)
+        rows = (plan.video_stop - plan.video_start) * (plan.frame_stop - plan.frame_start)
+        out.add(("unet", rows, tensor, plan.frame_blocks if plan.frame_split else 1))
+        videos = clips if ranks == 1 or clips == 1 else len(block_items(clips, ranks, coord))
+        out.add(("conditioner", videos * T, 1, 1))
+        out.add(("decode", decoding_t, 1, 1))  # chunk by chunk, on every rank
+    return out
+
+
+# The served meshes: an NCCL group of one (the sharded phase's (a)) and the
+# four-card meshes of the infer entry's sharded runs (SHARD_MESHES).
+SERVED_MESHES = {"one": (1, 1, 1), "data2": (2, 1, 1), "data2_fsdp2": (2, 2, 1),
+                 "fsdp2_tensor2": (1, 2, 2)}
+
+
+def served_mesh(smi: str, engine, served_run: dict) -> dict:
+    """Sharded (a)'s mesh server, inside a process group of one: the
+    engine's sharded sampler behind SamplerServer, which broadcasts each
+    batch to the group (engine/server.py), and the HTTP handler, on the
+    served phase's requests and seeds: frames bit-identical to the served
+    phase's, launches equal; and every rank-local shape of SERVED_MESHES
+    among held_shapes. Returns the launches over the requests."""
+    from gcd_tpu_torch.engine.server import batch_check, make_engine_sample_fn, sample_keys
+    from gcd_tpu_torch.parallel.mesh import create_mesh
+
+    t0 = time.perf_counter()
+    fn = make_engine_sample_fn(engine, SERVE_BATCH, T, decoding_t=T,
+                               mesh=create_mesh(1, 1, 1, "cuda"))
+    run = serve_requests(fn, served_run["requests"],
+                         batch_check(sample_keys(engine), SERVE_BATCH, T, (H, W)),
+                         mesh_device=torch.device("cuda", torch.cuda.current_device()))
+    mesh_same = [np.array_equal(g, w) for g, w in zip(run["frames"], served_run["frames"])]
+    shapes = {name: sorted(served_mesh_shapes(*mesh)) for name, mesh in SERVED_MESHES.items()}
+    unheld = sorted({sh for v in shapes.values() for sh in v} - held_shapes())
+    log("sharded_mesh_server", bit_identical_to_served=mesh_same, launches=run["launches"],
+        served_launches=served_run["launches"], counts=run["counts"],
+        served_frames_per_s=SERVE_REQUESTS * T / run["wall_s"],
+        eager_served_frames_per_s=served_run["frames_per_s"],
+        seconds=time.perf_counter() - t0, rank_local_shapes=shapes, unheld=unheld, card=smi)
+    if not all(mesh_same) or run["launches"] != served_run["launches"] or unheld \
+            or run["counts"] != (SERVE_REQUESTS // SERVE_BATCH, SERVE_REQUESTS):
+        raise RuntimeError(f"sharded (a) mesh server: bit-identical {mesh_same}, launches "
+                           f"{run['launches']} against {served_run['launches']}, counts "
+                           f"{run['counts']}, shapes not held {unheld}")
+    return run["launches"]
+
+
+def sharded_phase(smi: str, phase6: dict, served_run: dict) -> tuple:
     """The sharded-sampling phase's (a) and (b), and (c) or the line saying
-    why it did not run. Returns the kernel launches over (a)'s clip."""
+    why it did not run. Returns the kernel launches over (a)'s clip and
+    over its mesh server's requests."""
     import socket
 
     from gcd_tpu_torch.engine.build import load_engine
@@ -3132,6 +3396,7 @@ def sharded_phase(smi: str, phase6: dict) -> dict:
             if rep == 0:
                 launches = {name: fn.launches for name, fn in KERNELS.items()}
                 same = torch.equal(frames.cpu(), phase6["frames"])
+        mesh_launches = served_mesh(smi, engine, served_run)
     finally:
         distributed.shutdown()
     log("sharded_one_card", bit_identical_to_phase6=same, launches=launches,
@@ -3217,11 +3482,13 @@ def sharded_phase(smi: str, phase6: dict) -> dict:
     # (c) across cards.
     if torch.cuda.device_count() >= MESH_CARDS:
         sharded_cards(smi)
+        served_cards(smi)
     else:
-        log("sharded_cards", ran=False, reason=f"{torch.cuda.device_count()} card(s); the "
-            f"four-process runs need {MESH_CARDS} (python3 chip_smoke.py --mesh-cards on a "
-            "machine of four)", card=smi)
-    return launches
+        for what in ("sharded_cards", "served_cards"):
+            log(what, ran=False, reason=f"{torch.cuda.device_count()} card(s); the "
+                f"four-process runs need {MESH_CARDS} (python3 chip_smoke.py --sampling-cards "
+                "on a machine of four)", card=smi)
+    return launches, mesh_launches
 
 
 def sharded_entry_child(argv) -> None:
@@ -3359,6 +3626,182 @@ def sharded_cards(smi: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# The served runs across cards (sharded (c)): python -m gcd_tpu_torch.serve in
+# one process, then in four at each of SERVE_CARD_MESHES; the served
+# requests twice, the second round's one batch profiled on every process.
+SERVE_CARD_MESHES = {"data2_fsdp2": ["--mesh_data", "2", "--mesh_fsdp", "2"],
+                     "fsdp2_tensor2": ["--mesh_fsdp", "2", "--mesh_tensor", "2"]}
+SERVE_CHILD = "import sys, chip_smoke; chip_smoke.served_entry_child(sys.argv[1:])"
+# Calls of a served process's sample_fn: the warm-up, round one's two
+# batches, then the profiled batch.
+SERVE_PROFILED_CALL = 4
+
+
+def served_entry_child(argv) -> None:
+    """One process of the served runs across cards: gcd_tpu_torch.serve with
+    `argv`, its sample_fn timed a call and its SERVE_PROFILED_CALL-th call
+    profiled (NCCL against other device ms), and on that call its split
+    decode timed by CUDA events beside the whole decode of the same latents
+    (process 0); prints its results on one line after the stop."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gcd_tpu_torch import serve
+    from gcd_tpu_torch.engine import server, serving
+    from gcd_tpu_torch.parallel import distributed
+
+    state = {"calls": 0, "call_s": [], "batch_device_ms": None, "decode_ms": None}
+
+    def events(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    split_decode = serving.split_decode
+
+    def timed_split_decode(engine, mesh, decoding_t):
+        decode = split_decode(engine, mesh, decoding_t)
+
+        def wrapped(z):
+            if state["calls"] != SERVE_PROFILED_CALL:
+                return decode(z)
+            out, split_ms = events(lambda: decode(z))
+            whole_ms = None
+            if distributed.is_main():
+                _, whole_ms = events(lambda: engine.decode_first_stage(
+                    z, decoding_t or engine.en_and_decode_n_samples_a_time))
+            state["decode_ms"] = {"split": split_ms, "whole": whole_ms}
+            return out
+
+        return wrapped
+
+    make = server.make_engine_sample_fn
+
+    def making(*args, **kwargs):
+        fn = make(*args, **kwargs)
+
+        def wrapped(batch, seeds):
+            state["calls"] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if state["calls"] != SERVE_PROFILED_CALL:
+                out = fn(batch, seeds)
+            else:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = fn(batch, seeds)
+                    torch.cuda.synchronize()
+                by = Counter()
+                for ev in prof.key_averages():
+                    if ev.device_type == torch.autograd.DeviceType.CUDA:
+                        by["nccl" if "nccl" in ev.key.lower() else "other"] += \
+                            ev.self_device_time_total / 1e3
+                state["batch_device_ms"] = dict(by)
+            torch.cuda.synchronize()
+            state["call_s"].append(time.perf_counter() - t0)
+            return out
+
+        return wrapped
+
+    serving.split_decode = timed_split_decode
+    server.make_engine_sample_fn = making
+    serve.main(argv)
+    print("SERVE_RESULT " + json.dumps({**state,
+                                        "peak_mem_bytes": torch.cuda.max_memory_allocated()}),
+          flush=True)
+
+
+def served_cards(smi: str) -> None:
+    """Sharded (c), served: python -m gcd_tpu_torch.serve (the flagship's
+    seeded random weights, max_batch SERVE_BATCH, decoding_t T) in one
+    process, then in four processes (NCCL, one a card) at each of
+    SERVE_CARD_MESHES; the served phase's four requests at once, then two
+    more (one batch, profiled), then SIGINT to process 0. Gates: every
+    request's frames within SERVE_TOL of the one-process server's, every
+    process exits 0 after the stop. Logs served frames/s, the wall s of
+    each sample_fn call, peak memory a card, process 0's decode split
+    against whole (CUDA-event ms) and each process's NCCL device ms in the
+    profiled batch."""
+    import signal
+    import socket
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    requests = served_requests(None)
+
+    def run(name, mesh):
+        nproc = 1
+        for _, n in zip(mesh[::2], mesh[1::2]):
+            nproc *= int(n)
+        http = free_port()
+        args = ["--config_path", CONFIG, "--max_batch", str(SERVE_BATCH), "--decoding_t",
+                str(T), "--port", str(http), "--max_wait_ms", "2000", *mesh]
+        group = (["--coordinator", f"127.0.0.1:{free_port()}", "--num_processes", str(nproc)]
+                 if nproc > 1 else [])
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", SERVE_CHILD, *args, *group,
+                                   *(["--process_id", str(pid)] if group else [])], cwd=REPO,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for pid in range(nproc)]
+        try:
+            url = f"http://127.0.0.1:{http}"
+            while True:
+                try:
+                    with urllib.request.urlopen(f"{url}/healthz", timeout=5):
+                        break
+                except OSError:
+                    if any(p.poll() is not None for p in procs) or \
+                            time.perf_counter() - t0 > 900:
+                        raise RuntimeError(f"served (c) {name}: the server did not start")
+                    time.sleep(1.0)
+            up_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            with ThreadPoolExecutor(len(requests)) as pool:
+                outs = list(pool.map(lambda r: post_npz(f"{url}/sample", r), requests))
+            wall = time.perf_counter() - t1
+            with ThreadPoolExecutor(SERVE_BATCH) as pool:
+                list(pool.map(lambda r: post_npz(f"{url}/sample", r), requests[:SERVE_BATCH]))
+            procs[0].send_signal(signal.SIGINT)
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        except Exception as e:
+            for p in procs:
+                p.kill()
+            tails = [p.communicate()[0][-2000:] for p in procs]
+            raise RuntimeError(f"served (c) {name}: {e}; the processes' output: {tails}") from e
+        finally:
+            for p in procs:
+                p.kill()
+        for p, o in zip(procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"served (c) {name}: exit {p.returncode}: {o[-3000:]}")
+        res = [json.loads(o.split("SERVE_RESULT ", 1)[1].splitlines()[0]) for o in logs]
+        log("served_run", run=name, processes=nproc, mesh=mesh, startup_seconds=up_s,
+            requests_wall_s=wall, served_frames_per_s=SERVE_REQUESTS * T / wall,
+            sample_fn_seconds=res[0]["call_s"],
+            batch_device_ms=[r["batch_device_ms"] for r in res],
+            decode_ms_process0=res[0]["decode_ms"],
+            peak_mem_bytes_per_card=[r["peak_mem_bytes"] for r in res],
+            row_rule=[ln for ln in logs[0].splitlines() if ln.startswith("Sampling over")],
+            exit_codes=[p.returncode for p in procs], seconds=time.perf_counter() - t0,
+            card=smi)
+        return [o["sampled_video"] for o in outs]
+
+    ref = run("one", [])
+    for name, mesh in SERVE_CARD_MESHES.items():
+        got = run(name, mesh)
+        rel = [rel_l2(torch.from_numpy(g), torch.from_numpy(r)) for g, r in zip(got, ref)]
+        log("served_cards", ran=True, run=name, against="one", frames_rel_l2=rel,
+            tol=SERVE_TOL, card=smi)
+        if not all(r <= SERVE_TOL for r in rel):
+            raise RuntimeError(f"served (c) {name} against one card: {rel} > {SERVE_TOL}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3396,18 +3839,21 @@ def main() -> int:
             return 1
         mesh_cards(smi)
         sharded_cards(smi)
+        served_cards(smi)
         return 0
     if "--sampling-cards" in sys.argv[1:]:
         if torch.cuda.device_count() < MESH_CARDS:
             print(f"chip_smoke --sampling-cards: needs {MESH_CARDS} cards", file=sys.stderr)
             return 1
         sharded_cards(smi)
+        served_cards(smi)
         return 0
 
-    stats, launches, served_launches, launch_model, phase6_clip = serve(smi)
+    stats, launches, served_run, launch_model, phase6_clip = serve(smi)
+    served_launches = served_run["launches"]
     gc.collect()
     torch.cuda.empty_cache()
-    export_launches = export_phase(smi, phase6_clip)
+    export_launches, artifact_launches = export_phase(smi, phase6_clip, served_run)
     train_launches, phase7 = train(smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3430,7 +3876,7 @@ def main() -> int:
     mesh_launches = mesh_phase(smi, phase7)
     gc.collect()
     torch.cuda.empty_cache()
-    sharded_launches = sharded_phase(smi, phase6_clip)
+    sharded_launches, served_mesh_launches = sharded_phase(smi, phase6_clip, served_run)
 
     # `launches`: the sample_video requests for K1-K5 and K7, the Adam steps
     # for K6 (which only training runs); `served_launches`: the served phase's
@@ -3440,6 +3886,8 @@ def main() -> int:
          "replaces": SOURCES[name][1],
          "launches": train_launches[name] if name == "flash_bwd" else launches[name],
          "served_launches": served_launches[name], "export_launches": export_launches[name],
+         "served_artifact_launches": artifact_launches[name],
+         "served_mesh_launches": served_mesh_launches[name],
          "train_launches": train_launches[name],
          "entry_launches": entry_launches[name], "eval_launches": eval_launches.get(name, 0),
          "pardom_launches": pardom_launches[name],

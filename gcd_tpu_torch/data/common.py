@@ -6,7 +6,8 @@ PyTorch's bilinear interpolation on a CPU tensor (align_corners=False, no
 antialiasing), which computes what cv2.resize(..., INTER_LINEAR) does, and
 PD frames are read by the port's own PNG reader (data/png.py): the card's
 machine has no cv2 and no matplotlib (so motion's HSV colours are computed
-here, and the `depth` and `instance` visualisations are not ported).
+here, and depth's `plasma` colours come from utils/draw.py's copy of
+matplotlib's table; the `instance` visualisation is not ported).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from gcd_tpu_torch.data.png import read_png
+from gcd_tpu_torch.utils.draw import colormap
 
 logger = logging.getLogger("gcd_tpu_torch.data")
 
@@ -172,12 +174,15 @@ def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
 
 
 def visualize_pardom_frame(frame, modality: str, camera: str, ontology) -> np.ndarray:
-    """A PD modality as (H, W, 3) float32 in [0, 1]: rgb, semantic, surface
-    and motion. `depth` needs matplotlib's plasma table and `instance` an
-    instance colour map that the ontology does not build: both raise."""
+    """A PD modality as (H, W, 3) float32 in [0, 1]: depth (exp(-d / 12)
+    normalised to [0, 1], in matplotlib's plasma colours), rgb, semantic,
+    surface and motion. `instance` needs an instance colour map that the
+    ontology does not build: it raises."""
     if "depth" in modality:
-        raise NotImplementedError(f"{modality}: the depth visualisation (matplotlib's "
-                                  "plasma colour table) is not ported")
+        depth_vis = np.exp(-frame / 12.0)
+        dmin, dmax = depth_vis.min(), depth_vis.max()
+        depth_vis = (depth_vis - dmin) / (dmax - dmin + 1e-7)
+        return colormap("plasma", depth_vis).astype(np.float32)
     if "instance" in modality:
         raise NotImplementedError(f"{modality}: the instance visualisation needs an "
                                   "instance_id_rgb_map, which no ontology builds")

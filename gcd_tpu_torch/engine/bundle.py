@@ -129,13 +129,14 @@ def training_checkpoint_weights(model_path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_model_bundle(config_path: str, model_path: Optional[str] = None,
-                      support_ema: bool = False, num_steps: int = 25, num_frames: int = 14,
+                      support_ema: bool = False, num_steps: Optional[int] = 25,
+                      num_frames: int = 14,
                       max_scale: float = 1.5, min_scale: float = 1.0,
                       device: Optional[Union[str, torch.device]] = None,
                       dtype: torch.dtype = torch.bfloat16, guidance_interval=None,
                       verbose: bool = False) -> ModelBundle:
     """The engine of an inference config after the reference's config
-    surgery (sampler steps, the guider's frame count and scales, EMA use,
+    surgery (sampler steps, unless `num_steps` is None, the guider's frame count and scales, EMA use,
     and the sampler's `guidance_interval` (lo, hi) when given), with a
     released checkpoint's or a training run's weights (the EMA shadows with
     `support_ema`; LoRA adapters of a `time_lora` run merged into their base
@@ -146,7 +147,8 @@ def load_model_bundle(config_path: str, model_path: Optional[str] = None,
     set_by_path(test_config, "model.params.ckpt_path", model_path)
     set_by_path(test_config, "model.params.use_ema", bool(support_ema))
     set_by_path(test_config, "model.params.ckpt_has_ema", bool(support_ema))
-    set_by_path(test_config, "model.params.sampler_config.params.num_steps", int(num_steps))
+    if num_steps is not None:
+        set_by_path(test_config, "model.params.sampler_config.params.num_steps", int(num_steps))
     set_by_path(test_config, GUIDER + ".num_frames", int(num_frames))
     set_by_path(test_config, GUIDER + ".max_scale", float(max_scale))
     set_by_path(test_config, GUIDER + ".min_scale", float(min_scale))

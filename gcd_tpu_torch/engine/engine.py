@@ -7,8 +7,9 @@ the reference-layout YAML (configs/*.yaml). `sample_video(batch)` is the JAX
 engine's `sample_video`: conditioner (c and uc), CFG-doubled Euler-EDM
 sampling, then chunked decode; `sample_video_from_cond` is the part after
 the conditioner. `sample_video` and `sample_latents` take a `denoise` in
-place of the engine's own one-card `denoise` (engine/serving.py splits the
-UNet evaluation over a mesh). `loss(batch, global_step)` is the JAX engine's `loss`: the
+place of the engine's own one-card `denoise`, and `sample_video` a
+`condition` and a `decode` (engine/serving.py splits the three over a
+mesh). `loss(batch, global_step)` is the JAX engine's `loss`: the
 sampled first-stage encoding without grad, the conditioner in training mode,
 then StandardDiffusionLoss, on the random numbers `draw` makes;
 `trainable_parameter_names` is its `trainable_mask` by parameter name;
@@ -315,7 +316,8 @@ class DiffusionEngine(nn.Module):
     def sample_video(self, batch: Dict, generator: Optional[torch.Generator] = None,
                      noise: Optional[torch.Tensor] = None, num_steps: Optional[int] = None,
                      decoding_t: Optional[int] = None, return_latents: bool = False,
-                     denoise: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+                     denoise: Optional[Callable] = None, condition: Optional[Callable] = None,
+                     decode: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """Novel-view video from raw frames and a camera move.
 
         `batch` is the JAX package's (engine.py example_batch): "cond_frames"
@@ -323,18 +325,24 @@ class DiffusionEngine(nn.Module):
         "fps_id", "motion_bucket_id" (B*T,), "scaled_relative_angles"
         (B*T, 3), "image_only_indicator" (B, T), optionally "jpg". The latent
         noise is `noise` (B*T, H/8, W/8, 4), or drawn from `generator`
-        (`latent_noise`). `denoise` as sample_latents takes it.
+        (`latent_noise`). `denoise` as sample_latents takes it;
+        `condition(batch) -> (c, uc)` and `decode(z) -> frames` in place of
+        the conditioner's get_unconditional_conditioning and of
+        decode_first_stage (engine/serving.py splits all three over a mesh).
         Returns {"cond_video", "sampled_video"[, "gt_video", "sampled_z"]},
         frames (B*T, H, W, 3) in [0, 1], fp32."""
-        c, uc = self.get_unconditional_conditioning(batch, UC_ZERO_KEYS)
+        if condition is None:
+            c, uc = self.get_unconditional_conditioning(batch, UC_ZERO_KEYS)
+        else:
+            c, uc = condition(batch)
         frames = batch["cond_frames"]
         if noise is None:
             noise = self.latent_noise(frames, generator)
         z = self.sample_latents(c, uc, noise, num_steps, batch["image_only_indicator"],
                                 denoise)
+        decoded = self.decode_first_stage(z, decoding_t) if decode is None else decode(z)
         out = {"cond_video": _unit_interval(frames),
-               "sampled_video": _unit_interval(
-                   self.decode_first_stage(z, decoding_t)).permute(0, 2, 3, 1)}
+               "sampled_video": _unit_interval(decoded).permute(0, 2, 3, 1)}
         if return_latents:
             out["sampled_z"] = z.permute(0, 2, 3, 1)
         if "jpg" in batch:

@@ -277,6 +277,19 @@ class _Loaded:
         return out[0] if len(out) == 1 else out
 
 
+def baked_batch(blob: bytes) -> Tuple[int, int, int, int]:
+    """(B, T, H, W), the clips, frames and frame size an artifact was
+    exported for, read from its header alone."""
+    with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+        header = json.loads(zf.read("header.json"))
+    if header.get("format") != FORMAT:
+        raise ValueError(f"not a {FORMAT} artifact: {header.get('format')!r}")
+    keys, inputs = header["keys"], header["programs"]["cond"]["inputs"]
+    b, t = inputs[keys.index("image_only_indicator")]["shape"]
+    _, h, w, _ = inputs[keys.index("cond_frames")]["shape"]
+    return b, t, h, w
+
+
 def load_sampler(blob: bytes) -> Callable:
     """Deserialise an export_sampler artifact into
     sample(params, arrays, generator=None, noise=None) -> dict, the outputs

@@ -156,10 +156,12 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 
 def fully_shard_unet(unet: torch.nn.Module, placements: Dict[str, Placement], mesh: Mesh,
-                     dtype: torch.dtype) -> None:
+                     dtype: torch.dtype, masters: bool = True) -> None:
     """FSDP2 on the UNet's blocks and root over the mesh's fsdp axis: each
-    parameter with an fsdp dimension becomes an fp32 shard on it, the
-    others are ignored (kept as they are)."""
+    parameter with an fsdp dimension becomes a shard on it, gathered in
+    `dtype` for the forward; the others are ignored (kept as they are). The
+    shards are fp32, the trainer's masters, or with `masters=False` (a
+    sampling engine, forward only) keep the parameters' own dtype."""
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
     from torch.distributed.tensor import Shard
 
@@ -171,7 +173,7 @@ def fully_shard_unet(unet: torch.nn.Module, placements: Dict[str, Placement], me
                 # FSDP2 takes contiguous parameters only: the K7 convs'
                 # channels_last weights are relaid out after the gather
                 # (models/resblock.py).
-                p.data = p.data.float().contiguous()
+                p.data = (p.data.float() if masters else p.data).contiguous()
                 dims[id(p)] = dim
     ignored = {p for p in unet.parameters() if id(p) not in dims}
     # A VideoResBlock returns a reshaped view; the UNet applies no in-place

@@ -124,6 +124,20 @@ def write_video_and_frames(out_dp: str, name: str, video01: np.ndarray, fps: int
             write_png(os.path.join(frames_dp, f"{i:04d}.png"), frame)
 
 
+def quick_pca(latent: np.ndarray, k: int = 3) -> np.ndarray:
+    """(T, H, W, C) latents -> (T, H, W, k) in [0, 1]: their first k
+    principal components, each stretched between its 2nd and 98th
+    percentile (scripts/eval_utils.py quick_pca)."""
+    t, h, w, c = latent.shape
+    flat = latent.reshape(-1, c).astype(np.float64)
+    flat = flat - flat.mean(axis=0)
+    _, _, vt = np.linalg.svd(flat, full_matrices=False)
+    proj = flat @ vt[:k].T
+    lo, hi = np.percentile(proj, 2, axis=0), np.percentile(proj, 98, axis=0)
+    proj = (proj - lo) / np.maximum(hi - lo, 1e-8)
+    return np.clip(proj.reshape(t, h, w, k), 0.0, 1.0).astype(np.float32)
+
+
 def sample_seed(seed: int, *path: int) -> int:
     """The noise seed of the sample at `path` (input, sample) of a run
     seeded with `seed`: a numpy SeedSequence of them all."""
@@ -181,9 +195,11 @@ def make_sampler(bundle: ModelBundle, decoding_t: int = 14, return_latents: bool
     host arrays: the numpy batch moved to the engine's device, the latent
     noise from a torch.Generator there seeded with `seed`. In a process
     group, the clip's sampling is split over the mesh data x fsdp x tensor
-    of the group's processes (engine/serving.py; every process gets the
-    outputs); process 0 prints the mesh and the row rule's split of each
-    UNet batch."""
+    of the group's processes (engine/serving.py: the conditioner, the UNet
+    evaluations and the decode; with mesh_tensor > 1 the UNet is cut over
+    tensor and its weights sharded over fsdp, as JAX's make_sampler places
+    them; every process gets the outputs); process 0 prints the mesh and
+    the row rule's split of each UNet batch."""
     engine = bundle.engine
     device = next(engine.parameters()).device
 

@@ -25,18 +25,21 @@ visible and occluded variants split by the baseline's holes (and the share
 of pixels it covers), the samples' diversity, and mIoU for a semantic
 (`segm`) output. Written per model under
 `--output`/{model name}: `{tag}_out{s}.npz` / `.png` (eval_utils), the
-per-example `{tag}_metrics.json` with the per-frame (samples, frames)
-arrays, and `summary_metrics.json` with the means, every example, and the
-tags that failed. An example that fails is reported with its traceback
-and the loop goes on.
+`--galleries` layouts of galleries.py (default rich1, rich2, rich3, rich5
+and rich6; `all` for rich1-rich7; rich4 shows the samples' latents, which
+the sampler returns) as `{tag}_{suffix}.npz` / `.png`, the per-example
+`{tag}_metrics.json` with the per-frame (samples, frames) arrays, and
+`summary_metrics.json` with the means, every example, and the tags that
+failed. An example that fails is reported with its traceback and the loop
+goes on.
 
-The reference's galleries are not ported. On the CUDA card in bf16, unless
+On the CUDA card in bf16, unless
 `--device cpu` asks for the CPU (fp32); without CUDA and without that flag
 it raises. With `--coordinator` the processes split each clip's sampling
 over the mesh `--mesh_data` x `--mesh_fsdp` x `--mesh_tensor` (their
 product must be `--num_processes`; eval_utils.py, engine/serving.py): every
 process renders the same examples and samples the same clips, process 0
-alone computes the metrics and writes the files. `--shard i/n` splits the
+alone computes the metrics, builds the galleries and writes the files. `--shard i/n` splits the
 scenes over independent launches, which is another thing. `main(argv)`
 returns, per model, what summary_metrics.json holds (an empty list on the
 other processes).
@@ -53,7 +56,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from gcd_tpu_torch import eval_utils
+from gcd_tpu_torch import eval_utils, galleries
 from gcd_tpu_torch.data.loader import collate_fn
 from gcd_tpu_torch.parallel import distributed
 from gcd_tpu_torch.utils.config import get_by_path, instantiate_from_config
@@ -74,6 +77,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_path", type=str, default="",
                    help="checkpoint; comma-separate to evaluate a pool of models on "
                         "identical examples")
+    p.add_argument("--galleries", type=str, default=",".join(galleries.DEFAULT_LAYOUTS),
+                   help="comma list of gallery layouts (rich1..rich7 or 'all'); see "
+                        "gcd_tpu_torch/galleries.py")
     p.add_argument("--input", type=str, required=True,
                    help="scene list txt (eval/list/kubric_test*.txt) or comma-separated "
                         "scene indices")
@@ -195,23 +201,27 @@ def render_example(dset, scene, control) -> Tuple[Dict, float]:
 
 
 def process_example(sampler, args, dset, batch: Dict, render_s: float, scene, control,
-                    example_index: int, out_dp: str, tag: str) -> Optional[Dict]:
-    """Sample one rendered example, compute its metrics, write its files
-    (process 0; the others sample with it and return None)."""
+                    example_index: int, out_dp: str, tag: str, model_name: str = "random",
+                    enabled: tuple = galleries.DEFAULT_LAYOUTS) -> Optional[Dict]:
+    """Sample one rendered example, compute its metrics, build its
+    galleries, write its files (process 0; the others sample with it and
+    return None)."""
     gt = (batch["jpg"] + 1.0) / 2.0
     reproject = (batch["reproject"] + 1.0) / 2.0 if "reproject" in batch else None
-    samples, sample_s = [], []
+    samples, latents, sample_s = [], [], []
     for s in range(args.num_samples):
         t0 = time.perf_counter()
         out = sampler(batch, eval_utils.sample_seed(args.seed, example_index, s))
         samples.append(out["sampled_video"])
+        if "sampled_z" in out:
+            latents.append(out["sampled_z"])
         sample_s.append(time.perf_counter() - t0)
         print(f"  sample {s}: {sample_s[-1]:.1f}s", flush=True)
     if not distributed.is_main():
         return None
 
     t0 = time.perf_counter()
-    frame_metrics, _ = clip_metrics(samples, gt, reproject)
+    frame_metrics, uncertainty = clip_metrics(samples, gt, reproject)
     metrics = {"psnr": float(np.nanmean(frame_metrics["frame_psnr"])),
                "ssim": float(np.nanmean(frame_metrics["frame_ssim"])),
                "diversity_std": sample_diversity(samples)}
@@ -230,8 +240,15 @@ def process_example(sampler, args, dset, batch: Dict, render_s: float, scene, co
     metrics_s = time.perf_counter() - t0
     metrics["scene"] = str(scene)
     metrics["control"] = control
-    metrics["seconds"] = {"render": render_s, "samples": sample_s,
-                          "metrics": metrics_s}
+
+    t0 = time.perf_counter()
+    vis = galleries.create_visualizations(
+        out["cond_video"], gt, samples, frame_metrics, uncertainty=uncertainty,
+        reproject_rgb=reproject, pred_samples_latent=latents or None, model_name=model_name,
+        target_title=f"Target ({galleries.controls_friendly_title(control)})", enable=enabled)
+    galleries.save_visualizations(vis, out_dp, tag, frame_rate=int(control.get("frame_rate", 8)))
+    metrics["seconds"] = {"render": render_s, "samples": sample_s, "metrics": metrics_s,
+                          "galleries": time.perf_counter() - t0}
 
     for s, sample in enumerate(samples):
         eval_utils.write_video_and_frames(out_dp, f"{tag}_out{s}", sample)
@@ -276,9 +293,11 @@ def _main(args) -> List[Dict]:
         config_paths = config_paths * len(model_paths)
     if len(config_paths) != len(model_paths):
         raise ValueError("need one --config_path per --model_path (or a single shared one)")
+    enabled = galleries.parse_layouts(args.galleries)
     bundles = [eval_utils.load_bundle(cp, mp, args) for cp, mp in zip(config_paths, model_paths)]
-    samplers = [eval_utils.make_sampler(b, decoding_t=args.decoding_t, mesh_data=args.mesh_data,
-                                        mesh_fsdp=args.mesh_fsdp, mesh_tensor=args.mesh_tensor)
+    samplers = [eval_utils.make_sampler(b, decoding_t=args.decoding_t, return_latents=True,
+                                        mesh_data=args.mesh_data, mesh_fsdp=args.mesh_fsdp,
+                                        mesh_tensor=args.mesh_tensor)
                 for b in bundles]
 
     scenes = parse_scene_list(args.input)
@@ -313,7 +332,7 @@ def _main(args) -> List[Dict]:
             for bi, (bundle, sampler) in enumerate(zip(bundles, samplers)):
                 try:
                     m = process_example(sampler, args, dset, batch, render_s, scene, control,
-                                        n_ex, out_dps[bi], tag)
+                                        n_ex, out_dps[bi], tag, bundle.model_name, enabled)
                 except Exception:  # report it, go on with the next model
                     traceback.print_exc()
                     print(f"  [{bundle.model_name}] failed: {tag}", flush=True)

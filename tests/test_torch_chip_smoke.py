@@ -3,7 +3,9 @@ which decides whether a blend factor's exactly-zero gradient at a step was
 made by bf16 rounding (then the step may pass) or not (then it fails), K5's
 expected launches from recorded GroupNorm sites (`split_calls`), the
 training-entry phase's launch, state, image-log and CSV checks, and the
-eval phase's frame check, sample recorder and guidance-interval split.
+eval phase's frame check, sample recorder and guidance-interval split, and
+the sharded phase's list of the served meshes' rank-local shapes against
+the shapes the kernel phases hold.
 
 A tiny rematerialised block blends x with x + scale * linear(x) in bf16,
 as the UNet's VideoResBlock and SpatialVideoTransformer do.
@@ -279,3 +281,24 @@ def test_eval_interval_guides_13_of_the_flagship_steps():
     assert len(guided) == 25 and sum(guided) == 13
     assert guided == [False] * 7 + [True] * 13 + [False] * 5
     assert round(float(sigmas[0]), 1) == 98.3 and round(float(sigmas[-1]), 3) == 0.339
+
+
+def test_served_mesh_shapes_are_held():
+    """Every rank-local shape of the served meshes (the served pair on one
+    card: 56 UNet rows, 28 conditioner frames; data 2: 28 rows, 14 frames;
+    data 2 x fsdp 2: 14 rows, one video, F = 1; fsdp 2 x tensor 2: 28 rows
+    TP-local; a decode chunk of 14 frames) is among the held cases."""
+    shapes = {name: chip_smoke.served_mesh_shapes(*mesh)
+              for name, mesh in chip_smoke.SERVED_MESHES.items()}
+    assert shapes["one"] == {("unet", 56, 1, 1), ("conditioner", 28, 1, 1),
+                             ("decode", 14, 1, 1)}
+    assert shapes["data2"] == {("unet", 28, 1, 1), ("conditioner", 14, 1, 1),
+                               ("decode", 14, 1, 1)}
+    assert ("unet", 14, 1, 1) in shapes["data2_fsdp2"]
+    assert ("unet", 28, 2, 1) in shapes["fsdp2_tensor2"]
+    held = chip_smoke.held_shapes()
+    assert all(v <= held for v in shapes.values())
+    # Not held: tensor 4 on one batch rank (56 rows TP-local), a decode chunk
+    # of 7 frames.
+    assert not chip_smoke.served_mesh_shapes(1, 1, 4) <= held
+    assert not chip_smoke.served_mesh_shapes(2, 1, 1, decoding_t=7) <= held

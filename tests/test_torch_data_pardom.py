@@ -289,7 +289,9 @@ def _ontology(root):
 
 def test_frame_visualisations_match_jax(root, tmp_path):
     """segm (packed ids through the ontology), motion (HSV colours) and
-    surface frames of a surround camera, as the JAX package reads them."""
+    surface frames of a surround camera, as the JAX package reads them, and
+    a depth frame's plasma colours as JAX's visualize_pardom_frame makes
+    them (instance raises)."""
     scene = str(tmp_path / "scene_000000")
     rng = np.random.default_rng(3)
     for t in (4, 6):
@@ -312,9 +314,12 @@ def test_frame_visualisations_match_jax(root, tmp_path):
     raw = common.load_pardom_frame(scene, "semantic_segmentation_2d", "camera5", 4)
     assert np.array_equal(raw, jcommon.load_pardom_frame(scene, "semantic_segmentation_2d",
                                                          "camera5", 4))
-    for modality in ("depth", "instance_segmentation_2d"):
-        with pytest.raises(NotImplementedError, match="not ported|no ontology"):
-            common.visualize_pardom_frame(raw, modality, "camera5", ontology)
+    depth = rng.uniform(0.5, 80.0, (24, 40)).astype(np.float32)
+    got = common.visualize_pardom_frame(depth, "depth", "camera5", ontology)
+    want = jcommon.visualize_pardom_frame(depth, "depth", "camera5", ontology)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    with pytest.raises(NotImplementedError, match="no ontology"):
+        common.visualize_pardom_frame(raw, "instance_segmentation_2d", "camera5", ontology)
 
 
 def test_hsv_to_rgb_is_matplotlib_s():

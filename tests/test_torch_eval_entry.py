@@ -92,8 +92,12 @@ def test_test_entry_metrics_match_jax(config, recorded, tmp_path):
                                "--output", out, *SMALL])
     assert len(results) == 1 and results[0]["failed"] == []
     model_dp = os.path.join(out, "random")
-    assert sorted(os.listdir(model_dp)) == ["0_sample_00_metrics.json", "0_sample_00_out0.npz",
-                                            "0_sample_00_out0.png", "summary_metrics.json"]
+    # The default galleries: rich5 needs two samples; the rest are written.
+    galleries = [f"0_sample_00_{g}.{ext}" for g in ("err", "gal", "io", "proj")
+                 for ext in ("npz", "png")]
+    assert sorted(os.listdir(model_dp)) == sorted(
+        galleries + ["0_sample_00_metrics.json", "0_sample_00_out0.npz",
+                     "0_sample_00_out0.png", "summary_metrics.json"])
     with open(os.path.join(model_dp, "summary_metrics.json")) as f:
         summary = json.load(f)
     assert set(SCALARS) <= set(summary["summary"]) and len(summary["examples"]) == 1

@@ -1,5 +1,6 @@
 """The port's serving path on the CPU: the request batcher
-(engine/server.py), the HTTP front end (serve.py), the request batch a
+(engine/server.py), the HTTP front end (serve.py) over the engine and over
+an exported sampler (--artifact, with its refusals), the request batch a
 client builds (engine/bundle.py) against scripts/eval_utils.py, and
 released-checkpoint loading with the EMA overlay (io/checkpoint.py) against
 gcd_tpu/io/convert.py.
@@ -16,7 +17,9 @@ import json
 import struct
 import threading
 import types
+import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from http.server import ThreadingHTTPServer
 
 import numpy as np
@@ -32,6 +35,9 @@ from gcd_tpu_torch.io.checkpoint import (
     read_safetensors,
 )
 from gcd_tpu_torch.ops import current_flags, kernel_flags
+from gcd_tpu_torch.engine.export import export_sampler
+from gcd_tpu_torch.serve import load_artifact
+from gcd_tpu_torch.serve import main as serve_main
 from gcd_tpu_torch.serve import make_handler
 from scripts import eval_utils
 from tests.torch_port_helpers import TINY_CONFIG, rel_l2
@@ -47,8 +53,12 @@ def _clip(bundle, seed, azimuth):
 
 @pytest.fixture(scope="module")
 def bundle():
-    return load_model_bundle(TINY_CONFIG, None, num_steps=2, num_frames=T, device="cpu",
-                             dtype=torch.float32)
+    # Frozen, as serve.py freezes it: on the CPU a convolution's algorithm
+    # depends on whether its weight requires grad (engine/export.py's tests).
+    b = load_model_bundle(TINY_CONFIG, None, num_steps=2, num_frames=T, device="cpu",
+                          dtype=torch.float32)
+    b.engine.requires_grad_(False)
+    return b
 
 
 @pytest.fixture(scope="module")
@@ -234,3 +244,81 @@ def test_checkpoint_with_ema_overlay(bundle, tmp_path, fmt):
         assert sorted(loaded.unexpected_keys) == sorted(k for k in sd if k.startswith("model_ema."))
         for k in live:
             assert torch.equal(got[k], live[k] + 1.0 if use_ema and k in unet else live[k]), k
+
+
+@pytest.fixture(scope="module")
+def artifact(bundle, tmp_path_factory):
+    """The engine exported for the served batch: two clips of the requests'
+    arrays, 2 steps, a clip a decode chunk."""
+    engine = bundle.engine
+    pair = _concat_requests([_clip(bundle, i, 10.0 * i) for i in range(2)], 2)
+    batch = {k: v if np.isscalar(v) else torch.from_numpy(np.asarray(v, np.float32))
+             for k, v in pair.items()}
+    path = tmp_path_factory.mktemp("artifact") / "served.gcdexp"
+    path.write_bytes(export_sampler(engine, engine.state_dict(), batch, num_steps=2,
+                                    decoding_t=T))
+    return str(path)
+
+
+def test_artifact_server_serves_the_eager_servers_frames(bundle, server, artifact):
+    """The --artifact server (serve.py load_artifact: the exported sampler
+    with the bundle's weights, each clip's noise from its seed) behind the
+    HTTP handler, against the eager server on the same requests and seeds:
+    bit for bit on the CPU."""
+    fn, check = load_artifact(artifact, bundle.engine.state_dict(), 2, T, (H, W))
+    srv = SamplerServer(fn, T, max_batch=2, max_wait_ms=500, check=check).start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv, T))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/sample"
+    clips = [{k: v for k, v in _clip(bundle, 50 + i, 15.0 * i).items()
+              if k != "num_video_frames"} for i in range(2)]
+    try:
+        def post(i):
+            buf = io.BytesIO()
+            np.savez(buf, seed=np.int64(60 + i), **clips[i])
+            req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                out = np.load(io.BytesIO(resp.read()))
+                return {k: out[k] for k in out.files}
+
+        with ThreadPoolExecutor(2) as pool:
+            got = list(pool.map(post, range(2)))
+        bad = io.BytesIO()
+        np.savez(bad, **{k: v for k, v in clips[0].items() if k != "fps_id"})
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(urllib.request.Request(url, data=bad.getvalue(),
+                                                          method="POST"), timeout=30)
+        assert err.value.code == 500 and b"fps_id" in err.value.read()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+    assert srv.batches_run == 1
+    futs = [server.submit(c, seed=60 + i) for i, c in enumerate(clips)]
+    want = [f.result(timeout=120) for f in futs]
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w) and "sampled_video" in w
+        for k in w:
+            assert np.array_equal(g[k], w[k]), k
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--num_steps", "2"], "bakes them in"),
+    (["--decoding_t", str(T)], "bakes them in"),
+    (["--max_batch", "1"], r"exported for \(B, T, H, W\) = \(2, 3, 32, 48\)"),
+    (["--frame_width", "64"], r"= \(2, 3, 32, 64\)"),
+    (["--mesh_data", "2", "--num_processes", "2", "--coordinator", "127.0.0.1:1"],
+     "no mesh"),
+    (None, "does not exist"),
+])
+def test_artifact_refusals(artifact, tmp_path, capsys, extra, message):
+    import re
+
+    path = str(tmp_path / "missing.gcdexp") if extra is None else artifact
+    argv = ["--device", "cpu", "--config_path", TINY_CONFIG, "--num_frames", str(T),
+            "--frame_width", str(W), "--frame_height", str(H), "--artifact", path,
+            *(extra or [])]
+    with pytest.raises(SystemExit) as exc:
+        serve_main(argv)
+    assert exc.value.code == 2
+    assert re.search(message, capsys.readouterr().err)

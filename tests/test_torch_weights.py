@@ -164,7 +164,10 @@ def _run_no_jax(code: str) -> None:
 def test_port_imports_no_jax():
     """Importing every gcd_tpu_torch module loads neither JAX nor any module
     of the JAX package, nor flax, optax, cv2, imageio, matplotlib, PIL or
-    orbax (the card's machine has none of them)."""
+    orbax (the card's machine has none of them); nor does drawing with the
+    copied colour tables and glyph atlas, whose generator
+    (gcd_tpu_torch/assets/make_assets.py, which needs cv2 and matplotlib)
+    is no module of the package."""
     _run_no_jax(
         "import importlib, pkgutil\n"
         "import gcd_tpu_torch\n"
@@ -187,9 +190,17 @@ def test_port_imports_no_jax():
         "           'gcd_tpu_torch.engine.bundle', 'gcd_tpu_torch.serve',\n"
         "           'gcd_tpu_torch.io.checkpoint'}\n"
         "evaluation = {'gcd_tpu_torch.infer', 'gcd_tpu_torch.test',\n"
-        "              'gcd_tpu_torch.eval_utils', 'gcd_tpu_torch.utils.metrics'}\n"
-        "entries = training | serving | evaluation\n"
-        "assert entries <= set(mods), sorted(entries - set(mods))\n")
+        "              'gcd_tpu_torch.eval_utils', 'gcd_tpu_torch.utils.metrics',\n"
+        "              'gcd_tpu_torch.galleries', 'gcd_tpu_torch.utils.draw'}\n"
+        "sharded = {'gcd_tpu_torch.engine.serving', 'gcd_tpu_torch.engine.export',\n"
+        "           'gcd_tpu_torch.parallel.mesh', 'gcd_tpu_torch.parallel.frames'}\n"
+        "entries = training | serving | evaluation | sharded\n"
+        "assert entries <= set(mods), sorted(entries - set(mods))\n"
+        "assert not any(m.startswith('gcd_tpu_torch.assets') for m in mods), mods\n"
+        "import numpy as np\n"
+        "from gcd_tpu_torch.utils.draw import colormap, draw_text\n"
+        "colormap('plasma', np.linspace(0, 1, 5)); colormap('magma', np.linspace(0, 1, 5))\n"
+        "assert draw_text(np.zeros((40, 60, 3), np.float32), 'Aq', (5, 26)).max() > 0\n")
 
 
 def test_chip_smoke_imports_no_jax():
@@ -201,6 +212,8 @@ def test_chip_smoke_imports_no_jax():
             "gcd_tpu_torch.serve", "gcd_tpu_torch.data.fake",
             "gcd_tpu_torch.data.kubric", "gcd_tpu_torch.train",
             "gcd_tpu_torch.data.pardom", "gcd_tpu_torch.data.png", "gcd_tpu_torch.infer",
-            "gcd_tpu_torch.test", "gcd_tpu_torch.eval_utils"} <= set(mods)
+            "gcd_tpu_torch.test", "gcd_tpu_torch.eval_utils", "gcd_tpu_torch.galleries",
+            "gcd_tpu_torch.utils.draw", "gcd_tpu_torch.engine.serving",
+            "gcd_tpu_torch.engine.export"} <= set(mods)
     _run_no_jax("import importlib, chip_smoke\n"
                 + "".join(f"importlib.import_module({m!r})\n" for m in mods))
