@@ -67,6 +67,30 @@ without the final `ok` line):
                    batches (from phase 4's site counts); wall time per
                    batch, served frames/s, peak memory; then one batch timed
                    with K7 on and off, frames within 2e-2.
+  samplers       - the sgm sampling family on the same engine, the sampler
+                   (and denoiser) swapped in memory: (a) EDMSampler with
+                   churn on part of the ladder, Heun, Euler-ancestral,
+                   DPM++ 2S, DPM++ 2M and LMS (order 4) at 25 steps with
+                   the config's guider; (b) IdentityGuider, VanillaCFG and
+                   DiscreteDenoiser over the DDPM ladder with each of the
+                   EDM, eps, v and dumb scalings, 3 steps. Each clip: frames
+                   finite in [0, 1], its UNet evaluations (a forward hook)
+                   those of the sampler's host plan (25, or 49 for Heun and
+                   DPM++ 2S; 28 rows each, 14 under IdentityGuider), each
+                   kernel's launches the conditioner's and decode's plus
+                   phase 4's per-evaluation counts at those rows, the same
+                   seed twice bit-identical; wall s (both runs), profiled
+                   device ms of the Euler-ancestral, IdentityGuider and
+                   VanillaCFG repeats.
+                   (c) one batch of two requests through SamplerServer with
+                   Euler-ancestral (56 rows), launches counted. (d)
+                   validation_metrics with seeded random LPIPS weights:
+                   val/psnr, val/ssim, val/lpips finite, LPIPS(x, x) = 0,
+                   the card's LPIPS on two frames within 1e-4 of the CPU's
+                   (fp32, TF32 off in both networks), ms of the clip's 28
+                   VGG passes. (e) InceptionV3 (seeded random weights) on
+                   the clip's 14 frames resized to 299: (14, 2048), within
+                   1e-4 of the CPU's on two frames, ms.
   export         - the exported sampler (engine/export.py): each gcd:: op's
                    fake implementation against its kernel on the card
                    (opcheck's fake-tensor test, K4 / K5 on channels-last
@@ -1318,7 +1342,9 @@ def serve(smi: str):
     # times, the launches a clip, and the UNet's GroupNorm and K7 sites.
     phase6 = {"frames": first_frames, "clip_s": clip_s, "expected": expected,
               "gn_unet": gn_calls["unet"], "gn_conv": gn_conv_calls}
-    return stats, launches, served(engine, smi, per_batch), launch_model, phase6
+    served_run = served(engine, smi, per_batch)
+    samplers_launches = samplers_phase(engine, smi, launch_model, per_batch)
+    return stats, launches, served_run, launch_model, phase6, samplers_launches
 
 
 def op_cases(gen: torch.Generator):
@@ -1671,6 +1697,249 @@ def served(engine, smi: str, per_batch: dict) -> dict:
         raise RuntimeError(f"served launches {launches}, expected {expected}")
     return {"requests": requests, "frames": frames, "launches": launches,
             "frames_per_s": SERVE_REQUESTS * T / wall, "batch_s": batch_s[:batches]}
+
+
+# The samplers phase: the sgm sampling family on phase 6's engine. (a) each
+# sampler of SAMPLER_RUNS at the config's 25 steps with its
+# LinearPredictionGuider; (b) the guiders and DiscreteDenoiser's scalings at
+# PLAIN_STEPS steps; (c) one served batch of Euler-ancestral; (d) LPIPS in
+# validation_metrics; (e) InceptionV3's features of a clip.
+SAMPLING = "sgm.modules.diffusionmodules.sampling."
+# (name, extra sampler params); EDMSampler churns the steps of sigma in
+# [0.5, 50] of the 700 ... 0.002 ladder.
+SAMPLER_RUNS = [("EDMSampler", {"s_churn": 5.0, "s_tmin": 0.5, "s_tmax": 50.0}),
+                ("HeunEDMSampler", {}), ("EulerAncestralSampler", {}),
+                ("DPMPP2SAncestralSampler", {}), ("DPMPP2MSampler", {}),
+                ("LinearMultistepSampler", {"order": 4})]
+PLAIN_STEPS = 3
+DDPM_LADDER = {"target": "sgm.modules.diffusionmodules.discretizer.LegacyDDPMDiscretization"}
+SCALINGS = ("EDMScaling", "EpsScaling", "VScaling", "DumbScaling")
+METRIC_TOL = 1e-4  # relative, the card's fp32 (TF32 off) LPIPS / features against the CPU's
+# The runs whose repeat is profiled (device ms): the profiler slows a
+# 25-step clip several-fold, so of (a) only Euler-ancestral, and (b)'s
+# 14-row and 28-row guiders.
+PROFILED_RUNS = ("EulerAncestralSampler", "IdentityGuider", "VanillaCFG")
+
+
+def samplers_phase(engine, smi: str, launch_model: dict, per_batch: dict) -> dict:
+    """The samplers phase on phase 6's engine (its sampler and denoiser
+    swapped in memory, restored after): every clip's frames finite in
+    [0, 1] of (T, H, W, 3), its UNet evaluations (a forward hook on the
+    UNet) those of the sampler's host plan, 25 or 49 in (a), each of 28 rows
+    (CFG) or 14 (IdentityGuider), each kernel's launches the conditioner's
+    and the decode's plus those of each evaluation at its rows (phase 4's
+    per-evaluation counts), and the same seed twice bit-identical; wall s
+    a clip, and profiled device ms of PROFILED_RUNS' repeats. Returns the
+    kernels' launches over the phase's counted runs."""
+    import copy
+
+    from gcd_tpu_torch.engine.server import make_engine_sample_fn
+    from gcd_tpu_torch.models.inception import InceptionV3
+    from gcd_tpu_torch.models.lpips import LPIPS
+    from gcd_tpu_torch.ops import KERNELS
+    from gcd_tpu_torch.utils.config import instantiate_from_config, load_config
+
+    phase_t0 = time.perf_counter()
+    base = load_config(CONFIG)["model"]["params"]["sampler_config"]
+    sampler0, denoiser0 = engine.sampler, engine.denoiser
+    per_eval, outside = launch_model["per_eval"], launch_model["outside_unet"]
+    total = Counter()
+    rows = []
+    hook = engine.model.diffusion_model.register_forward_pre_hook(
+        lambda module, args: rows.append(int(args[0].shape[0])))
+
+    def counted(fn):
+        for kernel in KERNELS.values():
+            kernel.launches = 0
+        rows.clear()
+        out = fn()
+        launches = {name: kernel.launches for name, kernel in KERNELS.items()}
+        total.update(launches)
+        return out, launches, list(rows)
+
+    def expected(evals: list, outside_launches: dict) -> dict:
+        # 56 rows (a served pair) launch as 28 do: phase 6 checks that K4's
+        # split rule splits the same calls at the doubled N.
+        return {name: outside_launches[name] + sum(per_eval[BT if n > T else T][name]
+                                                   for n in evals)
+                for name in KERNELS}
+
+    def clip(label: str, sampler_cfg: dict, steps: int, seed: int, denoiser_cfg=None,
+             want_evals=None) -> None:
+        engine.sampler = instantiate_from_config(copy.deepcopy(sampler_cfg))
+        engine.denoiser = (instantiate_from_config(denoiser_cfg) if denoiser_cfg
+                           else denoiser0)
+        plan = engine.sampler.guided_evaluations(steps)
+        doubled = type(engine.sampler.guider).__name__ != "IdentityGuider"
+        want_rows = [2 * T if g and doubled else T for step in plan for g in step]
+        frames, secs, device = [], [], None
+        for rep in range(2):
+            gen = torch.Generator("cuda").manual_seed(seed)
+            batch = random_batch(gen)
+
+            def run():
+                return engine.sample_video(batch, generator=gen, num_steps=steps,
+                                           decoding_t=T)["sampled_video"]
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if rep == 0:
+                out, launches, got_rows = counted(run)
+            elif label in PROFILED_RUNS:  # the repeat under the profiler: device ms
+                box = {}
+                _, device = device_profile(lambda: box.setdefault("out", run()), warm=False)
+                out = box["out"]
+            else:
+                out = run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            frames.append(out)
+        want = expected(got_rows, outside)
+        same = torch.equal(frames[0], frames[1])
+        log("samplers", run=label, sampler=type(engine.sampler).__name__,
+            guider=type(engine.sampler.guider).__name__,
+            denoiser=type(engine.denoiser).__name__, steps=steps, evaluations=len(got_rows),
+            rows=sorted(Counter(got_rows).items()), clip_seconds=secs,
+            device_ms=device, launches=launches,
+            expected=want, bit_identical=same, frames_std=float(frames[0].std()), card=smi)
+        check_frames(f"samplers {label}", frames[0].cpu().numpy(), (T, H, W, 3))
+        if got_rows != want_rows or (want_evals is not None and len(got_rows) != want_evals):
+            raise RuntimeError(f"samplers {label}: evaluations of {got_rows} rows, the plan's "
+                               f"{want_rows} (expected {want_evals})")
+        if launches != want or not same:
+            raise RuntimeError(f"samplers {label}: launches {launches}, expected {want}; "
+                               f"bit-identical repeat {same}")
+
+    try:
+        # (a) The six samplers at the config's steps.
+        steps = base["params"]["num_steps"]
+        for i, (name, extra) in enumerate(SAMPLER_RUNS):
+            cfg = copy.deepcopy(base)
+            cfg["target"] = SAMPLING + name
+            cfg["params"].update(extra)
+            second = name in ("HeunEDMSampler", "DPMPP2SAncestralSampler")
+            clip(name, cfg, steps, SEED + 50 + i, want_evals=2 * steps - 1 if second else steps)
+            if name == "EDMSampler":
+                churned = sum(p["bump"] > 0 for p in engine.sampler.plan(engine.sampler.sigmas()))
+                if not 0 < churned < steps:
+                    raise RuntimeError(f"EDMSampler churned {churned} of {steps} steps")
+        # (b) The guiders, then DiscreteDenoiser over the DDPM ladder with
+        # each scaling (the sampler over that ladder too).
+        identity = copy.deepcopy(base)
+        identity["params"].pop("guider_config")
+        vanilla = copy.deepcopy(base)
+        vanilla["params"]["guider_config"] = {
+            "target": "sgm.modules.diffusionmodules.guiders.VanillaCFG", "params": {"scale": 1.5}}
+        clip("IdentityGuider", identity, PLAIN_STEPS, SEED + 60, want_evals=PLAIN_STEPS)
+        clip("VanillaCFG", vanilla, PLAIN_STEPS, SEED + 61, want_evals=PLAIN_STEPS)
+        ddpm = copy.deepcopy(base)
+        ddpm["params"]["discretization_config"] = DDPM_LADDER
+        for i, scaling in enumerate(SCALINGS):
+            clip(f"DiscreteDenoiser_{scaling}", ddpm, PLAIN_STEPS, SEED + 62 + i, {
+                "target": "sgm.modules.diffusionmodules.denoiser.DiscreteDenoiser",
+                "params": {"num_idx": 1000, "discretization_config": DDPM_LADDER,
+                           "scaling_config": {
+                               "target": "sgm.modules.diffusionmodules.denoiser_scaling."
+                               + scaling}}}, want_evals=PLAIN_STEPS)
+        engine.denoiser = denoiser0
+
+        # (c) One served batch of two requests, Euler-ancestral.
+        ancestral = copy.deepcopy(base)
+        ancestral["target"] = SAMPLING + "EulerAncestralSampler"
+        engine.sampler = instantiate_from_config(ancestral)
+        fn = make_engine_sample_fn(engine, SERVE_BATCH, T, decoding_t=T)
+        rows.clear()
+        run = serve_requests(fn, served_requests(engine)[:SERVE_BATCH])
+        total.update(run["launches"])
+        want = expected(list(rows), {k: per_batch[k] - steps * per_eval[BT][k] for k in KERNELS})
+        log("samplers_served", sampler="EulerAncestralSampler", requests_wall_s=run["wall_s"],
+            evaluations=len(rows), rows=sorted(Counter(rows).items()),
+            launches=run["launches"], expected=want, counts=run["counts"], card=smi)
+        for f in run["frames"]:
+            check_frames("samplers served", f, (T, H, W, 3))
+        if (run["launches"] != want or rows != [2 * SERVE_BATCH * T] * steps
+                or run["counts"] != (1, SERVE_BATCH)):
+            raise RuntimeError(f"samplers served: launches {run['launches']}, expected {want}, "
+                               f"rows {rows}, counts {run['counts']}")
+    finally:
+        hook.remove()
+        engine.sampler, engine.denoiser = sampler0, denoiser0
+
+    # (d) LPIPS in validation_metrics, seeded random weights (He-scaled
+    # VGG16, positive lins).
+    gen = torch.Generator("cuda").manual_seed(SEED + 70)
+    lpips = LPIPS().cuda().eval()
+    inception = InceptionV3(normalize_input=True).cuda().eval()
+    with torch.no_grad():
+        for net in (lpips, inception):
+            for key, p in net.named_parameters():
+                if key.startswith("lin"):
+                    p.uniform_(0.05, 1.0, generator=gen)
+                elif p.dim() == 4:
+                    p.normal_(0.0, (2.0 / p[0].numel()) ** 0.5, generator=gen)
+                elif key.endswith("bn.weight"):
+                    p.normal_(1.0, 0.1, generator=gen)
+                else:
+                    p.normal_(0.0, 0.05, generator=gen)
+            for key, b in net.named_buffers():
+                if key.endswith("running_var"):
+                    b.uniform_(0.5, 2.0, generator=gen)
+                elif key.endswith("running_mean"):
+                    b.normal_(0.0, 0.1, generator=gen)
+    batch = random_batch(gen, target=True)
+    t0 = time.perf_counter()
+    metrics = engine.validation_metrics(batch, generator=gen, decoding_t=T, lpips=lpips)
+    metrics_s = time.perf_counter() - t0
+    # The clip's frames and its targets, in [-1, 1], NCHW.
+    a = batch["cond_frames_without_noise"].permute(0, 3, 1, 2)
+    b = batch["jpg"].permute(0, 3, 1, 2)
+    lpips_cpu = copy.deepcopy(lpips).cpu()
+    with torch.no_grad():
+        same = lpips(a, a)
+        d_card = lpips(a[:2], b[:2])
+        d_cpu = lpips_cpu(a[:2].cpu(), b[:2].cpu())
+        lpips_ms, lpips_host_ms = cuda_ms(lambda: lpips(a, b), iters=3)
+    lpips_err = float((d_card.cpu() - d_cpu).abs().max() / d_cpu.abs().max())
+    flops = vgg_flops(H, W) * 2 * T
+    log("samplers_lpips", metrics=metrics, metrics_seconds=metrics_s,
+        lpips_x_x=same.tolist(), card_vs_cpu_rel=lpips_err, tol=METRIC_TOL,
+        clip_vgg_passes=2 * T, ms=lpips_ms, host_ms=lpips_host_ms, gflop=flops / 1e9,
+        tflops=flops / lpips_ms / 1e9, bound_ms=1e3 * flops / FP32_FLOPS, card=smi)
+    if not all(math.isfinite(v) for v in metrics.values()) or "val/lpips" not in metrics:
+        raise RuntimeError(f"validation metrics {metrics}")
+    if same.abs().max() != 0 or not lpips_err <= METRIC_TOL:
+        raise RuntimeError(f"LPIPS(x, x) = {same.tolist()}; card vs CPU {lpips_err}")
+
+    # (e) InceptionV3 on the clip's 14 frames in [0, 1], resized to 299.
+    frames = (a + 1.0) / 2.0
+    inception_cpu = copy.deepcopy(inception).cpu()
+    with torch.no_grad():
+        feats = inception(frames)
+        feats_cpu = inception_cpu(frames[:2].cpu())
+        inc_ms, inc_host_ms = cuda_ms(lambda: inception(frames), iters=3)
+    inc_err = rel_l2(feats[:2].cpu(), feats_cpu)
+    log("samplers_inception", shape=list(feats.shape), card_vs_cpu_rel_l2=inc_err,
+        tol=METRIC_TOL, ms=inc_ms, host_ms=inc_host_ms, feature_std=float(feats.std()),
+        phase_seconds=time.perf_counter() - phase_t0, card=smi)
+    if tuple(feats.shape) != (T, 2048) or not torch.isfinite(feats).all() \
+            or not inc_err <= METRIC_TOL:
+        raise RuntimeError(f"InceptionV3 features {tuple(feats.shape)}, card vs CPU {inc_err}")
+    del lpips, inception, lpips_cpu, inception_cpu
+    return dict(total)
+
+
+def vgg_flops(h: int, w: int) -> float:
+    """Multiply-adds x 2 of LPIPS's VGG16 trunk (13 3x3 convs) on one
+    h x w image."""
+    from gcd_tpu_torch.models.lpips import VGG_CONV_IDX, VGG_STAGES
+
+    flops, cin = 0.0, 3
+    for stage, conv_ids in enumerate(VGG_CONV_IDX):
+        for _ in conv_ids:
+            flops += 2.0 * 9 * cin * VGG_STAGES[stage] * h * w
+            cin = VGG_STAGES[stage]
+        h, w = h // 2, w // 2
+    return flops
 
 
 def train(smi: str) -> dict:
@@ -3849,7 +4118,7 @@ def main() -> int:
         served_cards(smi)
         return 0
 
-    stats, launches, served_run, launch_model, phase6_clip = serve(smi)
+    stats, launches, served_run, launch_model, phase6_clip, samplers_launches = serve(smi)
     served_launches = served_run["launches"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -3894,6 +4163,7 @@ def main() -> int:
          "options_launches": options_launches.get(name, 0),
          "mesh_launches": mesh_launches.get(name, 0),
          "sharded_launches": sharded_launches.get(name, 0),
+         "samplers_launches": samplers_launches.get(name, 0),
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]

@@ -1,4 +1,9 @@
-"""Classifier-free guidance (port of gcd_tpu/diffusion/guiders.py)."""
+"""Classifier-free guidance (port of gcd_tpu/diffusion/guiders.py).
+
+A guider's `prepare_inputs(x, s, c, uc)` makes the batch the denoiser
+evaluates and `__call__(out)` turns that evaluation into the denoised x.
+The CFG guiders double the batch as cat([uc, c]), uc first.
+"""
 
 from __future__ import annotations
 
@@ -12,9 +17,37 @@ from gcd_tpu_torch.diffusion.denoiser import _append_dims
 COND_KEYS = ("vector", "crossattn", "concat")
 
 
+def _doubled(x: torch.Tensor, s: torch.Tensor, c: Dict, uc: Dict):
+    cond = {k: torch.cat([uc[k], c[k]], dim=0) if k in COND_KEYS else c[k] for k in c}
+    return torch.cat([x, x], dim=0), torch.cat([s, s], dim=0), cond
+
+
+class IdentityGuider:
+    """No guidance: the conditional batch alone, not doubled."""
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def prepare_inputs(self, x: torch.Tensor, s: torch.Tensor, c: Dict, uc: Dict):
+        return x, s, dict(c)
+
+
+class VanillaCFG:
+    """One CFG scale for every frame: uc + scale * (c - uc)."""
+
+    def __init__(self, scale: float):
+        self.scale = float(scale)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x_u, x_c = x.chunk(2, dim=0)
+        return x_u + self.scale * (x_c - x_u)
+
+    def prepare_inputs(self, x: torch.Tensor, s: torch.Tensor, c: Dict, uc: Dict):
+        return _doubled(x, s, c, uc)
+
+
 class LinearPredictionGuider:
-    """Per-frame CFG: scale linspace(min_scale, max_scale) over the T frames.
-    The doubled batch is cat([uc, c]), uc first."""
+    """Per-frame CFG: scale linspace(min_scale, max_scale) over the T frames."""
 
     def __init__(self, max_scale: float, num_frames: int, min_scale: float = 1.0):
         self.num_frames = int(num_frames)
@@ -30,5 +63,4 @@ class LinearPredictionGuider:
         return out.reshape(x.shape[0] // 2, *x.shape[1:])
 
     def prepare_inputs(self, x: torch.Tensor, s: torch.Tensor, c: Dict, uc: Dict):
-        cond = {k: torch.cat([uc[k], c[k]], dim=0) if k in COND_KEYS else c[k] for k in c}
-        return torch.cat([x, x], dim=0), torch.cat([s, s], dim=0), cond
+        return _doubled(x, s, c, uc)

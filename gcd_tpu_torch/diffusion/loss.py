@@ -22,6 +22,7 @@ import torch
 
 from gcd_tpu_torch.diffusion.denoiser import _append_dims
 from gcd_tpu_torch.utils.config import instantiate_from_config
+from gcd_tpu_torch.utils.resize import resize
 
 # ParallelDomain ontology colours (RGB uint8) of the up-weighted classes.
 PERSON_RGB = [[220, 20, 180], [64, 64, 64], [128, 128, 128], [192, 192, 192],
@@ -38,42 +39,8 @@ def _area_downsample(mask: torch.Tensor, out_hw) -> torch.Tensor:
     n, h, w, c = mask.shape
     oh, ow = out_hw
     if h % oh or w % ow:
-        return linear_resize(mask, (oh, ow))
+        return resize(mask, (oh, ow), "linear")
     return mask.reshape(n, oh, h // oh, ow, w // ow, c).mean(dim=(2, 4))
-
-
-def linear_weights(size_in: int, size_out: int) -> np.ndarray:
-    """(size_in, size_out) float32 weights of an antialiased linear resize
-    along one axis: the weight rule of jax.image.scale_and_translate
-    (compute_weight_mat) with the triangle kernel, scale size_out / size_in
-    and no translation. Downsampling widens the kernel by the inverse
-    scale; each output's weights are normalised to sum to 1, and an output
-    whose sample falls outside the input gets none."""
-    inv_scale = 1.0 / (size_out / size_in)
-    kernel_scale = np.float32(max(inv_scale, 1.0))
-    sample = (np.arange(size_out, dtype=np.float32) + 0.5) * np.float32(inv_scale) - 0.5
-    x = np.abs(sample[None, :] - np.arange(size_in, dtype=np.float32)[:, None]) / kernel_scale
-    weights = np.maximum(np.float32(0.0), 1 - x)
-    total = weights.sum(axis=0, keepdims=True)
-    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                       weights / np.where(total != 0, total, 1), 0)
-    inside = (sample >= -0.5) & (sample <= size_in - 0.5)
-    return np.where(inside[None, :], weights, 0).astype(np.float32)
-
-
-def linear_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """(N, H, W, C) -> (N, h, w, C): jax.image.resize(x, (N, h, w, C),
-    "linear") with its default antialiasing, as separable fp32 products
-    (an axis of unchanged size is left as it is, as there)."""
-    (h, w), (oh, ow) = x.shape[1:3], out_hw
-    out = x.float()
-    if oh != h:
-        wh = torch.from_numpy(linear_weights(h, oh)).to(x.device)
-        out = torch.einsum("nhwc,hp->npwc", out, wh)
-    if ow != w:
-        ww = torch.from_numpy(linear_weights(w, ow)).to(x.device)
-        out = torch.einsum("nhwc,wq->nhqc", out, ww)
-    return out.to(x.dtype)
 
 
 class StandardDiffusionLoss:

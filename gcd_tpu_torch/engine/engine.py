@@ -4,12 +4,13 @@ Holds the conditioner (`conditioner.*`), the VideoUNet
 (`model.diffusion_model`), the denoiser, the sampler, the first-stage VAE
 (`first_stage_model.{encoder,decoder}`) and the training loss, built from
 the reference-layout YAML (configs/*.yaml). `sample_video(batch)` is the JAX
-engine's `sample_video`: conditioner (c and uc), CFG-doubled Euler-EDM
-sampling, then chunked decode; `sample_video_from_cond` is the part after
-the conditioner. `sample_video` and `sample_latents` take a `denoise` in
-place of the engine's own one-card `denoise`, and `sample_video` a
-`condition` and a `decode` (engine/serving.py splits the three over a
-mesh). `loss(batch, global_step)` is the JAX engine's `loss`: the
+engine's `sample_video`: conditioner (c and uc), the config's sampler
+(CFG-doubled 25-step Euler-EDM in GCD's configs; any sampler, guider and
+denoiser of diffusion/), then chunked decode; `sample_video_from_cond` is
+the part after the conditioner. `sample_video` and `sample_latents` take a
+`denoise` in place of the engine's own one-card `denoise`, and
+`sample_video` a `condition` and a `decode` (engine/serving.py splits the
+three over a mesh). `loss(batch, global_step)` is the JAX engine's `loss`: the
 sampled first-stage encoding without grad, the conditioner in training mode,
 then StandardDiffusionLoss, on the random numbers `draw` makes;
 `trainable_parameter_names` is its `trainable_mask` by parameter name;
@@ -254,7 +255,7 @@ class DiffusionEngine(nn.Module):
         (B*T,), cond's rows and the indicator (B, T) of the same B videos.
         `rows` picks the rows the network returns, when it returns only some
         (a frame-sharded UNet, parallel/frames.py)."""
-        t = self.sampler.guider.num_frames
+        t = image_only_indicator.shape[1]
 
         def network(xin, c_noise, cc):
             return self.network_fn(xin, c_noise, cc, t, image_only_indicator)
@@ -268,24 +269,44 @@ class DiffusionEngine(nn.Module):
         bt, h, w, _ = frames.shape
         return torch.randn((bt, h // 8, w // 8, 4), generator=generator, device=frames.device)
 
+    def step_noise(self, noise: torch.Tensor, num_steps: Optional[int] = None,
+                   generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
+        """The sampler's per-step unit Gaussian noise (steps, B*T, 4, h, w),
+        channels-first, drawn from `generator`, for the latent noise `noise`
+        (B*T, h, w, 4); None for a sampler that draws none
+        (`needs_step_noise`)."""
+        if not self.sampler.needs_step_noise:
+            return None
+        bt, h, w, c = noise.shape
+        steps = len(self.sampler.sigmas(num_steps)) - 1
+        return torch.randn((steps, bt, c, h, w), generator=generator, device=noise.device)
+
     @torch.no_grad()
     def sample_latents(self, c: Dict, uc: Dict, noise: torch.Tensor,
                        num_steps: Optional[int] = None,
                        image_only_indicator: Optional[torch.Tensor] = None,
-                       denoise: Optional[Callable] = None) -> torch.Tensor:
+                       denoise: Optional[Callable] = None,
+                       step_noise: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """c / uc: {"crossattn": (B*T, 1, Ck), "vector": (B*T, V),
         "concat": (B*T, h, w, 4)}; noise: (B*T, h, w, 4) unit Gaussian;
-        image_only_indicator (B, T), zeros when None. Returns the sampled
-        latents (B*T, 4, h, w), fp32. `denoise` (the signature of
-        `self.denoise`, which it defaults to) evaluates each step's UNet."""
-        t = self.sampler.guider.num_frames
+        image_only_indicator (B, T), whose T is the clips' frame count
+        (JAX's static_num_frames); when None, zeros of the guider's
+        num_frames, or of one clip of all B*T rows for a guider without
+        one. The per-step noise of a sampler that draws it is `step_noise`,
+        or is drawn from `generator`. Returns the
+        sampled latents (B*T, 4, h, w), fp32. `denoise` (the signature of
+        `self.denoise`, which it defaults to) evaluates the UNet."""
         c = {k: _channels_first(v) for k, v in c.items()}
         uc = {k: _channels_first(v) for k, v in uc.items()}
         x = _channels_first(noise).float()
         if image_only_indicator is None:
+            t = getattr(self.sampler.guider, "num_frames", x.shape[0])
             image_only_indicator = torch.zeros(x.shape[0] // t, t, device=x.device)
+        if step_noise is None:
+            step_noise = self.step_noise(noise, num_steps, generator)
         return self.sampler(self.sampling_denoiser(image_only_indicator, denoise), x, c, uc,
-                            num_steps=num_steps)
+                            num_steps=num_steps, step_noise=step_noise)
 
     def sampling_denoiser(self, image_only_indicator: torch.Tensor,
                           denoise: Optional[Callable] = None) -> Callable:
@@ -294,7 +315,7 @@ class DiffusionEngine(nn.Module):
         whose indicator is (B, T) `image_only_indicator`: it takes both
         halves' indicators on a guided step, the conditional half's on a
         plain one (guidance_interval)."""
-        t = self.sampler.guider.num_frames
+        t = image_only_indicator.shape[1]
         ioi2 = torch.cat([image_only_indicator, image_only_indicator])  # uc | c
         denoise = denoise or self.denoise
 
@@ -317,7 +338,8 @@ class DiffusionEngine(nn.Module):
                      noise: Optional[torch.Tensor] = None, num_steps: Optional[int] = None,
                      decoding_t: Optional[int] = None, return_latents: bool = False,
                      denoise: Optional[Callable] = None, condition: Optional[Callable] = None,
-                     decode: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+                     decode: Optional[Callable] = None,
+                     step_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Novel-view video from raw frames and a camera move.
 
         `batch` is the JAX package's (engine.py example_batch): "cond_frames"
@@ -325,7 +347,9 @@ class DiffusionEngine(nn.Module):
         "fps_id", "motion_bucket_id" (B*T,), "scaled_relative_angles"
         (B*T, 3), "image_only_indicator" (B, T), optionally "jpg". The latent
         noise is `noise` (B*T, H/8, W/8, 4), or drawn from `generator`
-        (`latent_noise`). `denoise` as sample_latents takes it;
+        (`latent_noise`); a sampler's per-step noise is `step_noise`, or
+        drawn from `generator` after the latent noise (`step_noise`).
+        `denoise` as sample_latents takes it;
         `condition(batch) -> (c, uc)` and `decode(z) -> frames` in place of
         the conditioner's get_unconditional_conditioning and of
         decode_first_stage (engine/serving.py splits all three over a mesh).
@@ -339,7 +363,7 @@ class DiffusionEngine(nn.Module):
         if noise is None:
             noise = self.latent_noise(frames, generator)
         z = self.sample_latents(c, uc, noise, num_steps, batch["image_only_indicator"],
-                                denoise)
+                                denoise, step_noise, generator)
         decoded = self.decode_first_stage(z, decoding_t) if decode is None else decode(z)
         out = {"cond_video": _unit_interval(frames),
                "sampled_video": _unit_interval(decoded).permute(0, 2, 3, 1)}
@@ -351,15 +375,24 @@ class DiffusionEngine(nn.Module):
 
     def validation_metrics(self, batch: Dict, generator: Optional[torch.Generator] = None,
                            noise: Optional[torch.Tensor] = None,
-                           decoding_t: Optional[int] = None) -> Dict[str, float]:
+                           decoding_t: Optional[int] = None,
+                           lpips: Optional[nn.Module] = None) -> Dict[str, float]:
         """sample_video on a batch with targets ("jpg"), then the frames'
         mean PSNR and SSIM against them on the host (utils/metrics.py):
-        {"val/psnr", "val/ssim"}. LPIPS, which needs its network's weights,
-        is not computed."""
+        {"val/psnr", "val/ssim"}; with an `lpips` network
+        (models/lpips.py LPIPS, on the frames' device) also "val/lpips",
+        its distance between each frame and its target, in [-1, 1], mean
+        over the frames."""
         from gcd_tpu_torch.utils.metrics import psnr, ssim
 
         out = self.sample_video(batch, generator, noise, decoding_t=decoding_t)
         pred = out["sampled_video"].float().cpu().numpy()
         gt = out["gt_video"].float().cpu().numpy()
-        return {"val/psnr": float(np.mean([psnr(p, g) for p, g in zip(pred, gt)])),
-                "val/ssim": float(np.mean([ssim(p, g) for p, g in zip(pred, gt)]))}
+        metrics = {"val/psnr": float(np.mean([psnr(p, g) for p, g in zip(pred, gt)])),
+                   "val/ssim": float(np.mean([ssim(p, g) for p, g in zip(pred, gt)]))}
+        if lpips is not None:
+            with torch.no_grad():
+                d = lpips(out["sampled_video"].permute(0, 3, 1, 2) * 2.0 - 1.0,
+                          out["gt_video"].permute(0, 3, 1, 2) * 2.0 - 1.0)
+            metrics["val/lpips"] = float(d.mean())
+        return metrics

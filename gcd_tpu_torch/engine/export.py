@@ -48,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gcd_tpu_torch.diffusion.sampling import EulerEDMSampler
 from gcd_tpu_torch.engine.engine import UC_ZERO_KEYS, _channels_first, _unit_interval
 
 FORMAT = "gcd_tpu_torch.sampler/1"
@@ -167,14 +168,20 @@ def export_sampler(engine, params: Dict[str, torch.Tensor], batch: Dict,
     unguided) and the decode, as torch.export programs, with the sigma
     ladder. `params` is the engine's state dict (the programs' weights,
     not stored); the batch's non-array entries are baked in. Returns the
-    artifact's bytes."""
+    artifact's bytes. The step program is EulerEDMSampler's step: any
+    other sampler, and Euler with churn (per-step noise), is refused."""
+    sampler = engine.sampler
+    if type(sampler) is not EulerEDMSampler or sampler.needs_step_noise:
+        raise NotImplementedError(
+            f"export_sampler exports EulerEDMSampler steps without churn; the engine's "
+            f"sampler is {type(sampler).__name__}"
+            + (f" with s_churn={sampler.s_churn}" if sampler.needs_step_noise else ""))
     arrays, static = _split_batch(batch)
     keys = sorted(arrays)
     c, uc = engine.get_unconditional_conditioning(batch, UC_ZERO_KEYS)
     cond_keys = sorted(c)
     cs = [_channels_first(c[k]) for k in cond_keys]
     ucs = [_channels_first(uc[k]) for k in cond_keys]
-    sampler = engine.sampler
     sigmas = sampler.sigmas(num_steps)
     guided = sampler.guided_steps(num_steps)
     scale = float(np.sqrt(1.0 + sigmas[0] ** 2))

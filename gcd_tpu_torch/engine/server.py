@@ -13,9 +13,10 @@ bridges the two:
   * the results are split back per request, moved to the host, and
     delivered through futures; the padded tail is dropped.
 
-Noise: each clip's latent noise comes from a torch.Generator on the card
-seeded with its request's seed, so a request's frames do not depend on its
-batch-mates (the JAX server folds the request keys into one key instead).
+Noise: each clip's latent noise, and then the per-step noise of a sampler
+that draws it, come from a torch.Generator on the card seeded with its
+request's seed, so a request's frames do not depend on its batch-mates
+(the JAX server folds the request keys into one key instead).
 
 Kernel switches are per thread and the worker thread starts with none set:
 `make_engine_sample_fn` captures the caller's `current_flags()` when it is
@@ -366,20 +367,32 @@ def sample_keys(engine) -> List[str]:
 
 
 def seeded_noise(seeds: Sequence[int], num_frames: int, frame_hw: Tuple[int, int],
-                 device: torch.device) -> torch.Tensor:
-    """Each clip's latent noise (T, H/8, W/8, 4) from a torch.Generator on
-    `device` seeded with its seed, stacked: (len(seeds)*T, ...)."""
-    shape = (num_frames, frame_hw[0] // LATENT_DOWNSAMPLE, frame_hw[1] // LATENT_DOWNSAMPLE,
-             LATENT_CHANNELS)
-    return torch.cat([torch.randn(shape, device=device,
-                                  generator=torch.Generator(device).manual_seed(int(s)))
-                      for s in seeds])
+                 device: torch.device, steps: int = 0
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Each clip's noise from a torch.Generator on `device` seeded with its
+    seed: its latent noise (T, H/8, W/8, 4), then, for a sampler that draws
+    noise at each of its `steps` steps, its per-step noise (steps, T, 4,
+    H/8, W/8). Returns the clips' latent noise stacked (len(seeds)*T, ...)
+    and their per-step noise stacked on the row axis (steps, len(seeds)*T,
+    ...), None when `steps` is 0."""
+    h, w = frame_hw[0] // LATENT_DOWNSAMPLE, frame_hw[1] // LATENT_DOWNSAMPLE
+    noise, step_noise = [], []
+    for s in seeds:
+        gen = torch.Generator(device).manual_seed(int(s))
+        noise.append(torch.randn((num_frames, h, w, LATENT_CHANNELS), device=device,
+                                 generator=gen))
+        if steps:
+            step_noise.append(torch.randn((steps, num_frames, LATENT_CHANNELS, h, w),
+                                          device=device, generator=gen))
+    return torch.cat(noise), torch.cat(step_noise, dim=1) if steps else None
 
 
 def _seeded_sample_fn(run: Callable, max_batch: int, num_frames: int,
-                      device: torch.device) -> Callable[[Dict, Sequence[int]], Dict]:
-    """sample_fn(batch, seeds) -> run(arrays, noise): the batch's arrays as
-    fp32 tensors on `device` and each clip's seeded_noise, under the kernel
+                      device: torch.device, steps: int = 0
+                      ) -> Callable[[Dict, Sequence[int]], Dict]:
+    """sample_fn(batch, seeds) -> run(arrays, noise, step_noise): the
+    batch's arrays as fp32 tensors on `device` and each clip's
+    seeded_noise (with its noise for `steps` steps), under the kernel
     switches in force where this is called."""
     flags = current_flags()
 
@@ -388,9 +401,10 @@ def _seeded_sample_fn(run: Callable, max_batch: int, num_frames: int,
             raise ValueError(f"expected {max_batch} seeds, got {len(seeds)}")
         arrays = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
                   for k, v in batch.items() if k != "num_video_frames" and not np.isscalar(v)}
-        noise = seeded_noise(seeds, num_frames, arrays["cond_frames"].shape[1:3], device)
+        noise, step_noise = seeded_noise(seeds, num_frames, arrays["cond_frames"].shape[1:3],
+                                         device, steps)
         with torch.no_grad(), kernel_flags(**flags):
-            return run(arrays, noise)
+            return run(arrays, noise, step_noise)
 
     return sample_fn
 
@@ -401,7 +415,8 @@ def make_engine_sample_fn(engine, max_batch: int, num_frames: int,
     """sample_fn(batch, seeds) for SamplerServer: the engine's sample_video
     on the engine's device, with the kernel switches in force where this is
     called, and each clip's latent noise from its own seeded generator
-    (seeded_noise). With a `mesh` (parallel/mesh.py) it samples through
+    (seeded_noise: the latent noise, then the sampler's per-step noise
+    where it draws any). With a `mesh` (parallel/mesh.py) it samples through
     engine/serving.py's sharded sampler over it, with that noise: every
     process of the mesh must call it with the same batch and seeds
     (SamplerServer on process 0, `follow` on the others). The decoder's
@@ -419,10 +434,13 @@ def make_engine_sample_fn(engine, max_batch: int, num_frames: int,
 
         run = make_sharded_sampler(engine, mesh, num_steps=num_steps, decoding_t=decoding_t)
     else:
-        def run(arrays, noise):
+        def run(arrays, noise, step_noise):
+            extra = {} if step_noise is None else {"step_noise": step_noise}
             return engine.sample_video(arrays, noise=noise, num_steps=num_steps,
-                                       decoding_t=decoding_t)
-    return _seeded_sample_fn(run, max_batch, num_frames, device)
+                                       decoding_t=decoding_t, **extra)
+    sampler = getattr(engine, "sampler", None)
+    steps = len(sampler.sigmas(num_steps)) - 1 if getattr(sampler, "needs_step_noise", 0) else 0
+    return _seeded_sample_fn(run, max_batch, num_frames, device, steps)
 
 
 def make_artifact_sample_fn(sample: Callable, params: Dict[str, torch.Tensor], max_batch: int,
@@ -430,6 +448,6 @@ def make_artifact_sample_fn(sample: Callable, params: Dict[str, torch.Tensor], m
     """sample_fn(batch, seeds) for SamplerServer over an exported sampler
     (engine/export.py load_sampler's `sample`, with the engine's state dict
     `params`): each clip's noise as make_engine_sample_fn draws it, on the
-    artifact's device."""
-    return _seeded_sample_fn(lambda arrays, noise: sample(params, arrays, noise=noise),
+    artifact's device (an exported sampler draws no per-step noise)."""
+    return _seeded_sample_fn(lambda arrays, noise, _: sample(params, arrays, noise=noise),
                              max_batch, num_frames, torch.device(sample.header["device"]))

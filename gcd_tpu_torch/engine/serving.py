@@ -8,10 +8,10 @@ process a card, as JAX's GSPMD program does, over the data x fsdp batch
 ranks:
   * the conditioner: by whole videos, each rank a block of them (with one
     video it runs whole on every rank);
-  * each of the 25 steps' UNet evaluations: by the row rule of
+  * each UNet evaluation of the sampler: by the row rule of
     parallel/frames.py (first whole videos of the CFG-doubled batch, then
     frame blocks of a video); a rank evaluates its rows and the denoised
-    rows are all-gathered, so every rank applies the same Euler update to
+    rows are all-gathered, so every rank applies the same sampler update to
     the same x. Where a frame block meets the rest of its video (the
     temporal layers) its video block re-lays its activations with one
     all-to-all over its frame group; JAX's GSPMD inserts whatever it needs
@@ -23,8 +23,8 @@ ranks:
 A rank's block of videos or chunks is ceil(items / ranks) of them; the
 ranks past the end repeat the last item, so that every all-gather sees
 equal shapes, and the repeats are dropped. The outputs are the same on
-every rank (JAX's `out_shardings=replicate`). The initial noise is process
-0's, broadcast.
+every rank (JAX's `out_shardings=replicate`). The initial noise, and the
+per-step noise of a sampler that draws it, are process 0's, broadcast once.
 
 The weights are placed as JAX's make_sampler places them
 (scripts/eval_utils.py:524-535): replicated without a tensor axis (a bf16
@@ -154,18 +154,21 @@ def unet_planes(h: int, w: int, downsamples: int) -> List[int]:
 
 def make_sharded_sampler(engine, mesh: Mesh, num_steps: Optional[int] = None,
                          decoding_t: Optional[int] = None, return_latents: bool = False,
-                         verbose: bool = False) -> Callable[[Dict, Union[torch.Generator, torch.Tensor, None]], Dict]:
-    """Returns sample(batch, generator_or_noise) -> dict, over `mesh`.
+                         verbose: bool = False) -> Callable[..., Dict]:
+    """Returns sample(batch, generator_or_noise, step_noise=None) -> dict,
+    over `mesh`.
 
     The returned callable takes engine.sample_video's batch and either a
-    torch.Generator (the noise drawn as sample_video draws it) or the noise
-    itself, uses process 0's noise, and runs engine.sample_video with each
-    UNet evaluation split over the mesh's batch ranks. Every process gets
+    torch.Generator (the latent noise, then the sampler's per-step noise
+    where it draws any, drawn as sample_video draws them) or the latent
+    noise itself with the per-step noise in `step_noise`; it uses process
+    0's noise, broadcast once before the loop, and runs engine.sample_video
+    with each UNet evaluation (a Heun or DPM++ 2S step's second one too)
+    split over the mesh's batch ranks. Every process gets
     the same outputs, those of sample_video -- including the sampled
     latents when requested. Every process of the mesh must call it, with
     the same batch. With `verbose`, the mesh and the row rule's split of
     each UNet batch are printed the first time it is seen."""
-    t = engine.sampler.guider.num_frames
     place_weights(engine, mesh)
     groups = mesh.frame_groups()
     ranks, coord = mesh.batch_count, mesh.batch_coordinate
@@ -175,6 +178,7 @@ def make_sharded_sampler(engine, mesh: Mesh, num_steps: Optional[int] = None,
 
     def denoise(x: torch.Tensor, sigma: torch.Tensor, cond: Dict,
                 ioi: torch.Tensor) -> torch.Tensor:
+        t = ioi.shape[1]
         videos = x.shape[0] // t
         planes = unet_planes(*x.shape[2:], downsamples)
         plan = sample_rows(ranks, videos, t, coord, planes)
@@ -204,16 +208,28 @@ def make_sharded_sampler(engine, mesh: Mesh, num_steps: Optional[int] = None,
         return shares.transpose(1, 2).reshape(x.shape[0], *mine.shape[1:])
 
     @torch.no_grad()
-    def sample(batch: Dict, generator_or_noise: Union[torch.Generator, torch.Tensor, None] = None
-               ) -> Dict[str, torch.Tensor]:
+    def sample(batch: Dict, generator_or_noise: Union[torch.Generator, torch.Tensor, None] = None,
+               step_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        device = batch["cond_frames"].device
+
+        def own(t: torch.Tensor) -> torch.Tensor:
+            # A contiguous fp32 copy on the batch's device, to broadcast into.
+            return t.to(device, torch.float32, memory_format=torch.contiguous_format, copy=True)
+
+        generator = None
         if isinstance(generator_or_noise, torch.Tensor):
-            noise = generator_or_noise.to(batch["cond_frames"].device, torch.float32,
-                                          memory_format=torch.contiguous_format, copy=True)
+            noise = own(generator_or_noise)
         else:
-            noise = engine.latent_noise(batch["cond_frames"], generator_or_noise)
+            generator = generator_or_noise
+            noise = engine.latent_noise(batch["cond_frames"], generator)
         dist.broadcast(noise, src=0)
+        if engine.sampler.needs_step_noise:
+            step_noise = own(engine.step_noise(noise, num_steps, generator)
+                             if step_noise is None else step_noise)
+            dist.broadcast(step_noise, src=0)
         return engine.sample_video(batch, noise=noise, num_steps=num_steps,
                                    decoding_t=decoding_t, return_latents=return_latents,
-                                   denoise=denoise, condition=condition, decode=decode)
+                                   denoise=denoise, condition=condition, decode=decode,
+                                   step_noise=step_noise)
 
     return sample

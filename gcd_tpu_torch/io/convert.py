@@ -1,4 +1,5 @@
-"""Weight bridge: flax parameter tree -> torch state dict.
+"""Weight bridge: flax parameter tree -> torch state dict (the main model;
+LPIPS and InceptionV3 by their own functions at the end).
 
 The port's own copy of the JAX package's numpy path translation
 (gcd_tpu/io/convert.py: flax_path_to_torch_key, torch_layout_from_flax,
@@ -140,4 +141,42 @@ def state_dict_from_flax(params: Dict, prefix: str = "") -> Dict[str, torch.Tens
         key, kind = flax_path_to_torch_key(path)
         arr = np.ascontiguousarray(torch_layout_from_flax(np.asarray(leaf), kind))
         out[gcd_clip_rename(prefix + key)] = torch.from_numpy(arr)
+    return out
+
+
+def lpips_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """JAX's LPIPS `params` tree (gcd_tpu/models/lpips.py: net/features_{i}
+    kernel and bias, lin{i}_weight (C,)), as numpy, -> the port's LPIPS
+    state dict (models/lpips.py: net.slice{k}.{i}.weight OIHW / bias,
+    lin{i}.model.1.weight (1, C, 1, 1))."""
+    from gcd_tpu_torch.models.lpips import VGG_CONV_IDX
+
+    out: Dict[str, torch.Tensor] = {}
+    for stage, conv_ids in enumerate(VGG_CONV_IDX):
+        for ci in conv_ids:
+            conv = params["net"][f"features_{ci}"]
+            out[f"net.slice{stage + 1}.{ci}.weight"] = torch.from_numpy(
+                np.array(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)))
+            out[f"net.slice{stage + 1}.{ci}.bias"] = torch.from_numpy(np.array(conv["bias"]))
+    for i in range(len(VGG_CONV_IDX)):
+        w = np.array(params[f"lin{i}_weight"])
+        out[f"lin{i}.model.1.weight"] = torch.from_numpy(w.reshape(1, -1, 1, 1))
+    return out
+
+
+def inception_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX's InceptionV3 variables ({"params", "batch_stats"}, as numpy) ->
+    the port's pytorch-fid-named state dict: conv kernels HWIO -> OIHW, the
+    BatchNorm scale / bias and its batch_stats mean / var as
+    bn.weight / bias / running_mean / running_var. The classifier `fc`,
+    which JAX does not build, is not in it."""
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
+             "var": "running_var"}
+    out: Dict[str, torch.Tensor] = {}
+    for col in ("params", "batch_stats"):
+        for path, leaf in _iter_tree_paths(variables.get(col, {})):
+            arr = np.asarray(leaf)
+            if path[-1] == "kernel":
+                arr = arr.transpose(3, 2, 0, 1)
+            out[".".join(path[:-1] + (names[path[-1]],))] = torch.from_numpy(np.array(arr))
     return out

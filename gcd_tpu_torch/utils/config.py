@@ -54,14 +54,46 @@ REGISTRY = {
         "gcd_tpu_torch.models.embedders.SphericalEmbedder",
     "sgm.modules.diffusionmodules.denoiser.Denoiser":
         "gcd_tpu_torch.diffusion.denoiser.Denoiser",
+    "sgm.modules.diffusionmodules.denoiser.DiscreteDenoiser":
+        "gcd_tpu_torch.diffusion.denoiser.DiscreteDenoiser",
     "sgm.modules.diffusionmodules.denoiser_scaling.VScalingWithEDMcNoise":
         "gcd_tpu_torch.diffusion.scaling.VScalingWithEDMcNoise",
+    "sgm.modules.diffusionmodules.denoiser_scaling.EDMScaling":
+        "gcd_tpu_torch.diffusion.scaling.EDMScaling",
+    "sgm.modules.diffusionmodules.denoiser_scaling.EpsScaling":
+        "gcd_tpu_torch.diffusion.scaling.EpsScaling",
+    "sgm.modules.diffusionmodules.denoiser_scaling.VScaling":
+        "gcd_tpu_torch.diffusion.scaling.VScaling",
+    "sgm.modules.diffusionmodules.denoiser_scaling.DumbScaling":
+        "gcd_tpu_torch.diffusion.scaling.DumbScaling",
     "sgm.modules.diffusionmodules.discretizer.EDMDiscretization":
         "gcd_tpu_torch.diffusion.discretization.EDMDiscretization",
+    "sgm.modules.diffusionmodules.discretizer.LegacyDDPMDiscretization":
+        "gcd_tpu_torch.diffusion.discretization.LegacyDDPMDiscretization",
     "sgm.modules.diffusionmodules.guiders.LinearPredictionGuider":
         "gcd_tpu_torch.diffusion.guiders.LinearPredictionGuider",
+    "sgm.modules.diffusionmodules.guiders.IdentityGuider":
+        "gcd_tpu_torch.diffusion.guiders.IdentityGuider",
+    "sgm.modules.diffusionmodules.guiders.VanillaCFG":
+        "gcd_tpu_torch.diffusion.guiders.VanillaCFG",
     "sgm.modules.diffusionmodules.sampling.EulerEDMSampler":
         "gcd_tpu_torch.diffusion.sampling.EulerEDMSampler",
+    "sgm.modules.diffusionmodules.sampling.EDMSampler":
+        "gcd_tpu_torch.diffusion.sampling.EDMSampler",
+    "sgm.modules.diffusionmodules.sampling.HeunEDMSampler":
+        "gcd_tpu_torch.diffusion.sampling.HeunEDMSampler",
+    "sgm.modules.diffusionmodules.sampling.EulerAncestralSampler":
+        "gcd_tpu_torch.diffusion.sampling.EulerAncestralSampler",
+    "sgm.modules.diffusionmodules.sampling.DPMPP2SAncestralSampler":
+        "gcd_tpu_torch.diffusion.sampling.DPMPP2SAncestralSampler",
+    "sgm.modules.diffusionmodules.sampling.DPMPP2MSampler":
+        "gcd_tpu_torch.diffusion.sampling.DPMPP2MSampler",
+    "sgm.modules.diffusionmodules.sampling.LinearMultistepSampler":
+        "gcd_tpu_torch.diffusion.sampling.LinearMultistepSampler",
+    "sgm.modules.autoencoding.losses.lpips.LatentLPIPS":
+        "gcd_tpu_torch.models.lpips.LatentLPIPS",
+    "sgm.modules.encoders.modules.InceptionV3":
+        "gcd_tpu_torch.models.inception.InceptionV3",
     "sgm.modules.diffusionmodules.loss.StandardDiffusionLoss":
         "gcd_tpu_torch.diffusion.loss.StandardDiffusionLoss",
     "sgm.modules.diffusionmodules.sigma_sampling.EDMSampling":

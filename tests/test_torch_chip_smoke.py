@@ -5,7 +5,8 @@ expected launches from recorded GroupNorm sites (`split_calls`), the
 training-entry phase's launch, state, image-log and CSV checks, and the
 eval phase's frame check, sample recorder and guidance-interval split, and
 the sharded phase's list of the served meshes' rank-local shapes against
-the shapes the kernel phases hold.
+the shapes the kernel phases hold, and the samplers phase's evaluation
+counts on the flagship ladder.
 
 A tiny rematerialised block blends x with x + scale * linear(x) in bf16,
 as the UNet's VideoResBlock and SpatialVideoTransformer do.
@@ -302,3 +303,31 @@ def test_served_mesh_shapes_are_held():
     # of 7 frames.
     assert not chip_smoke.served_mesh_shapes(1, 1, 4) <= held
     assert not chip_smoke.served_mesh_shapes(2, 1, 1, decoding_t=7) <= held
+
+
+def test_samplers_phase_plans():
+    """The samplers phase's (a) runs on the flagship's 25-step ladder:
+    Heun and DPM++ 2S evaluate 49 times (no second evaluation on the final
+    step), the others 25; EDMSampler churns some of the steps but not all;
+    the ancestral and churned samplers need per-step noise."""
+    import copy
+
+    from gcd_tpu_torch.utils.config import instantiate_from_config, load_config
+
+    base = load_config(chip_smoke.CONFIG)["model"]["params"]["sampler_config"]
+    evaluations = {}
+    for name, extra in chip_smoke.SAMPLER_RUNS:
+        cfg = copy.deepcopy(base)
+        cfg["target"] = chip_smoke.SAMPLING + name
+        cfg["params"].update(extra)
+        sampler = instantiate_from_config(cfg)
+        plan = sampler.plan(sampler.sigmas())
+        evaluations[name] = sum(len(p["evals"]) for p in plan)
+        assert sampler.needs_step_noise == (name in ("EDMSampler", "EulerAncestralSampler",
+                                                     "DPMPP2SAncestralSampler"))
+        if name == "EDMSampler":
+            assert 0 < sum(p["bump"] > 0 for p in plan) < len(plan)
+    assert evaluations == {"EDMSampler": 25, "HeunEDMSampler": 49, "EulerAncestralSampler": 25,
+                           "DPMPP2SAncestralSampler": 49, "DPMPP2MSampler": 25,
+                           "LinearMultistepSampler": 25}
+    assert set(chip_smoke.PROFILED_RUNS) <= set(evaluations) | {"IdentityGuider", "VanillaCFG"}

@@ -12,6 +12,7 @@ another and served alone (padded with a copy of itself) they differ only in
 the order of fp32 sums, against a bound of 1e-5 relative L2.
 """
 
+import copy
 import io
 import json
 import struct
@@ -39,6 +40,7 @@ from gcd_tpu_torch.engine.export import export_sampler
 from gcd_tpu_torch.serve import load_artifact
 from gcd_tpu_torch.serve import main as serve_main
 from gcd_tpu_torch.serve import make_handler
+from gcd_tpu_torch.utils.config import instantiate_from_config
 from scripts import eval_utils
 from tests.torch_port_helpers import TINY_CONFIG, rel_l2
 
@@ -91,6 +93,34 @@ def test_batched_requests_match_lone_ones_and_drop_the_padding(bundle, server):
     assert rel_l2(outs[0]["sampled_video"], outs[1]["sampled_video"]) > 1e-6  # not constant
     with pytest.raises(ValueError, match="does not divide"):
         make_engine_sample_fn(bundle.engine, 2, T)  # the tiny config decodes 2 frames a chunk
+
+
+def test_ancestral_requests_in_one_batch_match_lone_ones(bundle):
+    """Euler-ancestral draws noise at every step: each clip's from its own
+    request's generator after its latent noise, so two requests batched
+    together give each the frames it gets alone."""
+    engine = copy.copy(bundle.engine)  # the same modules, another sampler
+    engine.sampler = instantiate_from_config({
+        "target": "sgm.modules.diffusionmodules.sampling.EulerAncestralSampler",
+        "params": {"num_steps": 2, "discretization_config": {
+            "target": "sgm.modules.diffusionmodules.discretizer.EDMDiscretization",
+            "params": {"sigma_max": 700.0}}, "guider_config": {
+            "target": "sgm.modules.diffusionmodules.guiders.LinearPredictionGuider",
+            "params": {"num_frames": T, "max_scale": 1.5}}}})
+    srv = SamplerServer(make_engine_sample_fn(engine, 2, T, decoding_t=T), T, max_batch=2,
+                        max_wait_ms=500).start()
+    try:
+        clips = [_clip(bundle, i, 10.0 * i) for i in range(2)]
+        pair = [f.result(timeout=120) for f in [srv.submit(c, seed=200 + i)
+                                                for i, c in enumerate(clips)]]
+        assert srv.batches_run == 1
+        alone = [srv.submit(c, seed=200 + i).result(timeout=120) for i, c in enumerate(clips)]
+    finally:
+        srv.stop()
+    for a, b in zip(alone, pair):
+        assert np.isfinite(b["sampled_video"]).all()
+        assert rel_l2(a["sampled_video"], b["sampled_video"]) <= TOL
+    assert rel_l2(pair[0]["sampled_video"], pair[1]["sampled_video"]) > 1e-6  # not constant
 
 
 def test_http_round_trip(bundle, server):

@@ -33,6 +33,12 @@ mesh flags of the inference entries) on the CPU.
   tensor > 1 (JAX's make_sampler shards them); the conditioner and the
   decode run whole on every process.
 * One process in a gloo group of one: bit-identical to sample_video.
+* A churned Heun sampler at data 2: its per-step noise broadcast once from
+  process 0, its correction evaluations through the same row split; bit
+  for bit the one-process sample_video with that noise and each video's
+  rows evaluated on their own, as the data 2 Euler run is. (Against the
+  whole-batch one-process run it differs by 2.6e-5: the correction to
+  sigma 0.002 divides the evaluation's fp32 differences by 0.002.)
 * guidance_interval at data 2 x fsdp 2: the guided step splits frames
   (F = 2), the plain step's one video takes F = 4, whose blocks do not
   split the 2x3 plane, so it runs whole on each rank (replicated).
@@ -75,7 +81,7 @@ from gcd_tpu_torch.parallel.frames import (
     unpack_frames,
     unpack_rows,
 )
-from gcd_tpu_torch.utils.config import load_config
+from gcd_tpu_torch.utils.config import instantiate_from_config, load_config
 from tests.test_torch_distributed import _free_port
 from tests.torch_port_helpers import (
     REPO,
@@ -92,6 +98,15 @@ KEY = 3
 MESHES = {"data2": (2, 1, 1), "data2_fsdp2": (2, 2, 1), "fsdp2_tensor2": (1, 2, 2)}
 # Of the 2-step ladder (700, 0.002), only the first step is guided.
 INTERVAL = (1.0, 1000.0)
+# Churn at both steps, a correction at the first: 3 evaluations, noise at 2.
+HEUN = {"target": "sgm.modules.diffusionmodules.sampling.HeunEDMSampler",
+        "params": {"s_churn": 1.0, "num_steps": STEPS,
+                   "discretization_config": {
+                       "target": "sgm.modules.diffusionmodules.discretizer.EDMDiscretization",
+                       "params": {"sigma_max": 700.0}},
+                   "guider_config": {
+                       "target": "sgm.modules.diffusionmodules.guiders.LinearPredictionGuider",
+                       "params": {"num_frames": T, "max_scale": 2.5, "min_scale": 1.0}}}}
 PORT_TOL, JAX_TOL = 2e-5, 1e-3
 OUTPUTS = ("sampled_video", "sampled_z", "cond_video")
 
@@ -106,12 +121,17 @@ from gcd_tpu_torch.engine.build import engine_from_config
 from gcd_tpu_torch.engine.serving import make_sharded_sampler
 from gcd_tpu_torch.parallel import distributed
 from gcd_tpu_torch.parallel.mesh import create_mesh
-work, name, mesh, interval, port, nproc, pid = sys.argv[1:]
+from gcd_tpu_torch.utils.config import instantiate_from_config
+work, name, mesh, interval, sampler, port, nproc, pid = sys.argv[1:]
 nproc, pid = int(nproc), int(pid)
 setup = torch.load(f"{work}/setup.pt")
 engine = engine_from_config(setup["config"], "cpu", torch.float32, setup["state_dict"])
 if interval:
     engine.sampler.guidance_interval = tuple(json.loads(interval))
+step_noise = None
+if sampler:
+    engine.sampler = instantiate_from_config(json.loads(sampler))
+    step_noise = setup["step_noise"] if pid == 0 else torch.zeros_like(setup["step_noise"])
 distributed.initialize(f"127.0.0.1:{port}", nproc, pid, torch.device("cpu"))
 out = {}
 if nproc == 1:
@@ -120,7 +140,7 @@ if nproc == 1:
     out.update({"one_" + k: v for k, v in one.items()})
 sample = make_sharded_sampler(engine, create_mesh(*json.loads(mesh), "cpu"),
                               num_steps=setup["steps"], return_latents=True, verbose=pid == 0)
-out.update(sample(setup["batch"], setup["noise"]))
+out.update(sample(setup["batch"], setup["noise"], step_noise))
 torch.save(out, f"{work}/{name}_{pid}.pt")
 distributed.shutdown()
 """
@@ -141,10 +161,11 @@ def _launch(argv, nproc):
             for pid in range(nproc)]
 
 
-def _sampler_run(work, name, mesh, interval=None):
+def _sampler_run(work, name, mesh, interval=None, sampler=None):
     nproc = int(np.prod(mesh))
     return _launch(lambda pid, port: [CHILD, work, name, json.dumps(mesh),
-                                      json.dumps(interval) if interval else "", str(port),
+                                      json.dumps(interval) if interval else "",
+                                      json.dumps(sampler) if sampler else "", str(port),
                                       str(nproc), str(pid)], nproc)
 
 
@@ -199,9 +220,11 @@ def runs(tmp_path_factory):
     noise = np.array(jax.random.normal(jax.random.split(jax.random.PRNGKey(KEY))[0],
                                        (T, H // 8, W // 8, 4), dtype=jnp.float32))
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    step_noise = torch.randn((STEPS, T, 4, H // 8, W // 8),
+                             generator=torch.Generator().manual_seed(5))
     torch.save({"config": cfg, "state_dict": engine_state_dict(params, emb_models, 30),
-                "batch": tbatch, "noise": torch.from_numpy(noise), "steps": STEPS},
-               os.path.join(work, "setup.pt"))
+                "batch": tbatch, "noise": torch.from_numpy(noise), "steps": STEPS,
+                "step_noise": step_noise}, os.path.join(work, "setup.pt"))
 
     inputs = os.path.join(work, "inputs")
     os.makedirs(inputs)
@@ -215,6 +238,7 @@ def runs(tmp_path_factory):
     procs = {name: _sampler_run(work, name, mesh) for name, mesh in MESHES.items()}
     procs["interval"] = _sampler_run(work, "interval", MESHES["data2_fsdp2"], INTERVAL)
     procs["one_rank"] = _sampler_run(work, "one_rank", (1, 1, 1))
+    procs["heun"] = _sampler_run(work, "heun", MESHES["data2"], sampler=HEUN)
     procs["entry"] = _launch(lambda pid, port: [
         ENTRY, *entry_args, "--output", os.path.join(work, f"entry_{pid}"), "--mesh_data", "2",
         "--coordinator", f"127.0.0.1:{port}", "--num_processes", "2", "--process_id",
@@ -237,6 +261,10 @@ def runs(tmp_path_factory):
         assert engine.sampler.guided_steps(STEPS) == [True, False]
         one_interval = engine.sample_video(tbatch, noise=torch.from_numpy(noise),
                                            num_steps=STEPS, return_latents=True)
+        engine.sampler = instantiate_from_config(HEUN)
+        one_heun = engine.sample_video(tbatch, noise=torch.from_numpy(noise), num_steps=STEPS,
+                                       return_latents=True, step_noise=step_noise,
+                                       denoise=_per_video(engine))
         entry_one = os.path.join(work, "entry_one")
         infer.main([*entry_args, "--output", entry_one])
     finally:
@@ -247,7 +275,7 @@ def runs(tmp_path_factory):
     got = {name: [torch.load(os.path.join(work, f"{name}_{pid}.pt")) for pid in range(len(p))]
            for name, p in procs.items() if name != "entry"}
     return dict(work=work, one=one, per_video=per_video, one_interval=one_interval,
-                jax=jax_out, got=got, logs=logs, entry_one=entry_one)
+                one_heun=one_heun, jax=jax_out, got=got, logs=logs, entry_one=entry_one)
 
 
 # ---- unit cases -----------------------------------------------------------
@@ -406,6 +434,16 @@ def test_guidance_interval_matches_one_process(runs):
     for k in OUTPUTS:
         assert rel_l2(outs[0][k].numpy(), runs["one_interval"][k].numpy()) <= PORT_TOL, k
     # Guidance changes the clip: the interval run is not the full-CFG one.
+    assert rel_l2(outs[0]["sampled_z"].numpy(), runs["one"]["sampled_z"].numpy()) > 1e-3
+
+
+def test_churned_heun_is_the_per_video_run_bit_for_bit(runs):
+    """Process 1 passes zeros as its step noise: process 0's, broadcast,
+    is what both processes sample with."""
+    outs = runs["got"]["heun"]
+    for k in OUTPUTS:
+        assert torch.equal(outs[1][k], outs[0][k]), k
+        assert torch.equal(outs[0][k], runs["one_heun"][k]), k
     assert rel_l2(outs[0]["sampled_z"].numpy(), runs["one"]["sampled_z"].numpy()) > 1e-3
 
 
