@@ -91,6 +91,35 @@ without the final `ok` line):
                    VGG passes. (e) InceptionV3 (seeded random weights) on
                    the clip's 14 frames resized to 299: (14, 2048), within
                    1e-4 of the CPU's on two frames, ms.
+  first_stage    - the first-stage family, after the samplers phase: the
+                   flagship engine with its VideoDecoder in time_mode "all"
+                   (built in memory from configs/infer_kubric.yaml; a
+                   VideoAttnBlock at mid_attn_1) through sample_video, one
+                   random 14-frame 384x256 clip decoded at decoding_t 14:
+                   frames finite in [0, 1], each kernel's launches phase 6's
+                   model plus two K2 and two K3 a VideoAttnBlock, every
+                   kernel but K6 launched; the clip's latents decoded with
+                   every kernel on vs off (2e-2), and by the conv-only
+                   decoder on the same weights, timed in turns and by device
+                   time. K2 at the decoder's (14, 1536, 512), one head, and
+                   at D = 256 (14, 24576, 256), beside the UNet's four
+                   levels at B*T = 28, and K3 at M = 21504, C = 512, I =
+                   2048, against their plain versions (1e-2), bit-identical
+                   on a second call, with CUDA-event, device, plain,
+                   library (SDPA for K2) and bound times. SD v1's kl-f8
+                   AutoencoderKL (CompVis v1-inference.yaml) round-tripping
+                   the clip (posterior noise from a generator), on vs off
+                   (2e-2). One generator step (adaptive weight from the
+                   gradients at the decoder's conv_out) and one
+                   discriminator step of GeneralLPIPSWithDiscriminator (ndf
+                   64, 3 layers, seeded random LPIPS weights) on 4 frames
+                   through the kl-f8 decoder, forward and backward: finite
+                   losses and gradients, the running statistics moved. The
+                   four quantizers at vqgan_imagenet_f16_16384 widths
+                   (16384 codes of 256) on the clip's f16 latents, forward
+                   and backward in training mode: finite, indices in range,
+                   the VectorQuantizer's first 512 indices equal to the
+                   CPU's, the EMA codebook moved. The phase's seconds.
   export         - the exported sampler (engine/export.py): each gcd:: op's
                    fake implementation against its kernel on the card
                    (opcheck's fake-tensor test, K4 / K5 on channels-last
@@ -1345,6 +1374,313 @@ def serve(smi: str):
     served_run = served(engine, smi, per_batch)
     samplers_launches = samplers_phase(engine, smi, launch_model, per_batch)
     return stats, launches, served_run, launch_model, phase6, samplers_launches
+
+
+# The first-stage phase: the flagship engine with its VideoDecoder in
+# time_mode "all" (VideoAttnBlock at mid_attn_1: K2 twice at one head of
+# 512, K3 twice at C = 512, I = 2048 a decode chunk); K2 at the decoder's
+# mid shape and at D = 256 (an attn_resolutions level of width 256 at
+# 128 x 192 positions); SD v1's kl-f8 first stage (CompVis
+# v1-inference.yaml first_stage_config); the LPIPS + PatchGAN loss at ndf 64,
+# 3 layers on FS_LOSS_FRAMES frames; the quantizers at taming-transformers'
+# vqgan_imagenet_f16_16384 widths on a clip's f16 latents.
+FS_TIME_MODE = "all"
+KL_F8 = {"embed_dim": 4, "ddconfig": {
+    "double_z": True, "z_channels": 4, "resolution": 256, "in_channels": 3, "out_ch": 3,
+    "ch": 128, "ch_mult": [1, 2, 4, 4], "num_res_blocks": 2, "attn_resolutions": [],
+    "dropout": 0.0}}
+FS_LOSS_FRAMES = 4
+VQ_N_EMBED, VQ_DIM = 16384, 256
+VQ_CPU_ROWS = 512  # latents whose indices the CPU recomputes
+
+
+def seeded_weights_(module: torch.nn.Module, gen: torch.Generator) -> torch.nn.Module:
+    """load_engine's random weights (N(0, 0.02), seeded) on every parameter."""
+    from gcd_tpu_torch.engine.build import RANDOM_STD
+
+    with torch.no_grad():
+        for p in module.parameters():
+            p.normal_(0.0, RANDOM_STD, generator=gen)
+    return module
+
+
+def first_stage_phase(smi: str, launch_model: dict) -> dict:
+    """The first-stage family on the card (module docstring). Returns the
+    launches of the clip through the time_mode "all" engine."""
+    import copy
+
+    from gcd_tpu_torch.engine.build import engine_from_config
+    from gcd_tpu_torch.models.discriminator import (GeneralLPIPSWithDiscriminator,
+                                                    adaptive_weight_from_grads)
+    from gcd_tpu_torch.models.layers import GroupNorm32
+    from gcd_tpu_torch.models.lpips import LPIPS
+    from gcd_tpu_torch.models.vae import VideoAttnBlock, VideoDecoder
+    from gcd_tpu_torch.ops import (KERNELS, geglu_mlp, geglu_mlp_plain, kernel_flags,
+                                   temporal_attention, temporal_attention_plain)
+    from gcd_tpu_torch.utils.config import instantiate_from_config, load_config
+
+    phase_t0 = time.perf_counter()
+    all_off = dict.fromkeys(KERNELS, False)
+    cfg = copy.deepcopy(load_config(CONFIG)["model"])
+    dec_cfg = cfg["params"]["first_stage_config"]["params"]["decoder_config"]
+    dec_cfg["params"]["time_mode"] = FS_TIME_MODE
+    t0 = time.perf_counter()
+    engine = engine_from_config(cfg)
+    build_s = time.perf_counter() - t0
+    decoder = engine.first_stage_model.decoder
+    attn_blocks = count_modules(decoder, VideoAttnBlock)
+    with torch.device("meta"):
+        conv_only = VideoDecoder(**{k: v for k, v in dec_cfg["params"].items()
+                                    if k != "time_mode"})
+    # Launches a clip: phase 6's model, plus two K2 and two K3 a
+    # VideoAttnBlock (one decode chunk of T frames); its GroupNorm is
+    # mid_attn_1's as in the conv-only decoder, whose count must be equal.
+    expected = dict(launch_model["per_clip"])
+    expected["tattn"] += 2 * attn_blocks
+    expected["fused_mlp"] += 2 * attn_blocks
+    if count_modules(decoder, GroupNorm32) != count_modules(conv_only, GroupNorm32):
+        raise RuntimeError("first_stage: the all decoder's GroupNorms differ from conv-only's")
+
+    # The main path: one clip through sample_video, counts from 0.
+    gen = torch.Generator("cuda").manual_seed(SEED + 90)
+    batch = random_batch(gen)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.sample_video(batch, generator=gen, decoding_t=T, return_latents=True)
+    torch.cuda.synchronize()
+    clip_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    check_frames("first_stage clip", out["sampled_video"].cpu(), (T, H, W, 3))
+    log("first_stage_clip", time_mode=FS_TIME_MODE, video_attn_blocks=attn_blocks,
+        clip_s=clip_s, engine_build_s=build_s, launches=launches, expected=expected, card=smi)
+    missing = [name for name in KERNELS if name != "flash_bwd" and launches[name] == 0]
+    if launches != expected or missing:
+        raise RuntimeError(f"first_stage clip: launches {launches}, expected {expected}")
+
+    # The decode on the clip's latents: kernels on against all off, and
+    # against the conv-only decoder on the same weights (its keys are a
+    # subset), timed in turns and by device time.
+    z = out["sampled_z"].permute(0, 3, 1, 2)
+    conv_only = conv_only.to(torch.bfloat16).to_empty(device="cuda").eval()
+    if conv_only.load_state_dict(decoder.state_dict(), strict=False).missing_keys:
+        raise RuntimeError("first_stage: the conv-only decoder's keys are not the all one's")
+
+    def decode_all():
+        return engine.decode_first_stage(z, T)
+
+    def decode_conv_only():
+        return conv_only((z / engine.scale_factor).to(torch.bfloat16), T)
+
+    with torch.no_grad():
+        dec_on = decode_all()
+        with kernel_flags(**all_off):
+            dec_off = decode_all()
+        walls = {"all": [], "conv_only": []}
+        for which in ("all", "conv_only", "conv_only", "all"):
+            walls[which].append(wall_s(decode_all if which == "all" else decode_conv_only,
+                                       reps=2)[1])
+        dev = {which: device_profile(fn)[1] for which, fn in (("all", decode_all),
+                                                              ("conv_only", decode_conv_only))}
+    dec_rel = rel_l2(dec_on, dec_off)
+    log("first_stage_decode", frames_rel_l2_on_off=dec_rel, tol=AB_TOL,
+        wall_s={k: statistics.mean(v) for k, v in walls.items()},
+        device_ms={k: ("not measured" if v is None else v) for k, v in dev.items()}, card=smi)
+    if not dec_rel <= AB_TOL:
+        raise RuntimeError(f"first_stage decode on vs off: {dec_rel} > {AB_TOL}")
+    del out, dec_on, dec_off, conv_only, engine, decoder
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K2 at the decoder's shapes (and the UNet's at B*T = 28, for the same
+    # error beside them) and K3 at C = 512; not counted as launches.
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    cases = []
+    tattn_shapes = [("vae mid", T, HL * WL, 512, 1), ("vae D=256", T, 16 * HL * WL, 256, 1)]
+    tattn_shapes += [(name, BT, s, c, c // 64) for name, s, c, _ in LEVELS]
+    for label, bt, s, c, heads in tattn_shapes:
+        q, k, v = randn(bt, s, c), randn(bt, s, c), randn(bt, s, c)
+        d = c // heads
+        th = [z.reshape(bt // T, T, s, heads, d).permute(0, 2, 3, 1, 4)
+              .reshape(bt // T * s, heads, T, d).contiguous() for z in (q, k, v)]
+        cases.append(("tattn", f"{label} ({bt},{s},{heads}x{d})",
+                      lambda q=q, k=k, v=v, h=heads: temporal_attention(q, k, v, T, h),
+                      lambda q=q, k=k, v=v, h=heads: temporal_attention_plain(q, k, v, T, h),
+                      lambda th=th: F.scaled_dot_product_attention(*th),
+                      4 * bt * s * c * 2, 4 * bt * s * T * c))
+    m, c, inner = T * HL * WL, 512, 2048
+    x = randn(m, c)
+    w1, b1 = randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, std=0.1)
+    w2, b2 = randn(c, inner, std=inner ** -0.5), randn(c, std=0.1)
+    cases.append(("fused_mlp", mlp_label("vae mid", m, c, inner),
+                  lambda a=(x, w1, b1, w2, b2): geglu_mlp(*a),
+                  lambda a=(x, w1, b1, w2, b2): geglu_mlp_plain(*a), None,
+                  2 * (2 * m * c + 3 * inner * c + 2 * inner + c), 6 * m * c * inner))
+    for fn in KERNELS.values():
+        fn.launches = 0
+    kernel_rows = {}
+    for name, label, run, plain, library, nbytes, flops in cases:
+        got = run()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, err_abs = rel_l2(got, ref), max_abs(got, ref)
+        ms, host_ms = cuda_ms(run)
+        plain_ms = cuda_ms(plain)[0]
+        lib_ms = None if library is None else cuda_ms(library)[0]
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        row = {"rel_l2": err, "max_abs_err": err_abs, "ms": ms, "host_ms": host_ms,
+               "device_ms": device_ms(run), "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_device_ms": None if library is None else device_ms(library),
+               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+        kernel_rows[label] = row
+        log("first_stage_kernel", kernel=name, shape=label, **row, card=smi)
+        if not err <= KERNEL_TOL:
+            raise RuntimeError(f"first_stage {name} {label}: relative L2 {err} > {KERNEL_TOL}")
+        if not torch.equal(run(), got):
+            raise RuntimeError(f"first_stage {name} {label}: two calls differ")
+        del got, ref
+    del cases, x, w1, w2
+    torch.cuda.empty_cache()
+
+    # SD v1's kl-f8 autoencoder: a clip's frames round-tripped (the
+    # posterior sampled from the generator), kernels on against all off.
+    kl_gen = torch.Generator("cuda").manual_seed(SEED + 91)
+    with torch.device("meta"):
+        kl = instantiate_from_config({"target": "sgm.models.autoencoder.AutoencoderKL",
+                                      "params": copy.deepcopy(KL_F8)})
+    kl = seeded_weights_(kl.to(torch.bfloat16).to_empty(device="cuda").eval(), kl_gen)
+    frames = batch["cond_frames_without_noise"].permute(0, 3, 1, 2).to(torch.bfloat16)
+    noise = torch.randn(T, 4, HL, WL, generator=kl_gen, device="cuda")
+
+    def round_trip():
+        return kl.decode(kl.encode(frames, noise))
+
+    for fn in KERNELS.values():
+        fn.launches = 0
+    with torch.no_grad():
+        rec_on, kl_s = wall_s(round_trip, reps=2)
+        kl_launches = {name: fn.launches // 2 for name, fn in KERNELS.items()}
+        with kernel_flags(**all_off):
+            rec_off = round_trip()
+    kl_rel = rel_l2(rec_on, rec_off)
+    log("first_stage_kl_f8", frames=T, wall_s=kl_s, launches=kl_launches,
+        rec_rel_l2_on_off=kl_rel, tol=AB_TOL, card=smi)
+    if (tuple(rec_on.shape) != (T, 3, H, W) or not kl_rel <= AB_TOL
+            or not torch.isfinite(rec_on).all()):
+        raise RuntimeError(f"kl-f8 round trip on vs off: {kl_rel} > {AB_TOL}")
+    del rec_on, rec_off
+
+    # One generator step and one discriminator step of the LPIPS + PatchGAN
+    # loss (ndf 64, 3 layers; seeded random LPIPS weights), forward and
+    # backward through the kl-f8 decoder.
+    torch.manual_seed(SEED + 92)
+    loss_fn = GeneralLPIPSWithDiscriminator(disc_start=0, disc_num_layers=3,
+                                            regularization_weights={"kl_loss": 1e-6}).cuda()
+    with torch.device("meta"):
+        lpips = LPIPS()
+    lp_sd = {}  # He-scaled VGG16, positive lins, as the samplers phase's
+    for key, p in lpips.state_dict().items():
+        t = torch.empty(p.shape, device="cuda")
+        lp_sd[key] = (t.uniform_(0.05, 1.0, generator=kl_gen) if key.startswith("lin")
+                      else t.normal_(0.0, (2.0 / p[0].numel()) ** 0.5 if p.dim() == 4
+                                     else 0.05, generator=kl_gen))
+    x = frames[:FS_LOSS_FRAMES].float()
+    last = kl.decoder.conv_out.weight
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        zl = kl.encode(frames[:FS_LOSS_FRAMES], noise[:FS_LOSS_FRAMES])
+    rec = kl.decode(zl, FS_LOSS_FRAMES).float()
+    rec_loss = (x - rec).abs() + torch.func.functional_call(lpips, lp_sd,
+                                                             (x, rec)).reshape(-1, 1, 1, 1)
+    nll, _ = loss_fn.get_nll_loss(rec_loss)
+    g = -loss_fn.discriminator(rec).mean()
+    d_weight = adaptive_weight_from_grads(torch.autograd.grad(nll, last, retain_graph=True),
+                                          torch.autograd.grad(g, last, retain_graph=True))
+    loss_fn.train()
+    gen_loss, gen_log = loss_fn(x, rec, optimizer_idx=0, global_step=1, d_weight=d_weight,
+                                regularization_log={"kl_loss": torch.ones((), device="cuda")},
+                                lpips_params=lp_sd)
+    gen_loss.backward()
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    dec_grads = [p.grad for p in kl.decoder.parameters()]
+    stats0 = loss_fn.discriminator.main[3].running_var.clone()
+    loss_fn.discriminator.zero_grad()
+    t0 = time.perf_counter()
+    disc_loss, disc_log = loss_fn(x, rec.detach(), optimizer_idx=1, global_step=1,
+                                  lpips_params=lp_sd)
+    disc_loss.backward()
+    torch.cuda.synchronize()
+    disc_s = time.perf_counter() - t0
+    disc_grads = [p.grad for p in loss_fn.discriminator.parameters()]
+    log("first_stage_gan_loss", frames=FS_LOSS_FRAMES, generator_step_s=gen_s,
+        discriminator_step_s=disc_s, d_weight=float(d_weight),
+        generator_log={k: float(v) for k, v in gen_log.items()},
+        discriminator_log={k: float(v) for k, v in disc_log.items()}, card=smi)
+    finite = all(torch.isfinite(t).all() for t in (gen_loss, disc_loss, d_weight))
+    grads_ok = (all(gr is not None and torch.isfinite(gr).all() for gr in dec_grads + disc_grads)
+                and any(gr.abs().max() > 0 for gr in disc_grads))
+    if not finite or not grads_ok or torch.equal(stats0,
+                                                 loss_fn.discriminator.main[3].running_var):
+        raise RuntimeError("first_stage GAN loss: non-finite loss or gradient, or the "
+                           "discriminator step left its running statistics")
+    del kl, loss_fn, rec, rec_loss, dec_grads, disc_grads, lp_sd, frames
+    torch.cuda.empty_cache()
+
+    # The quantizers at vqgan_imagenet_f16_16384 widths on a clip's f16
+    # latents (T x 16 x 24 x 256).
+    vq_gen = torch.Generator("cuda").manual_seed(SEED + 94)
+    zq_in = torch.randn(T, H // 16, W // 16, VQ_DIM, generator=vq_gen, device="cuda")
+    quantizers = {
+        "VectorQuantizer": {"n_e": VQ_N_EMBED, "e_dim": VQ_DIM, "beta": 0.25},
+        "VectorQuantizerWithInputProjection": {"input_dim": VQ_DIM, "n_codes": VQ_N_EMBED,
+                                               "codebook_dim": VQ_DIM, "output_dim": VQ_DIM},
+        "GumbelQuantizer": {"num_hiddens": VQ_DIM, "embedding_dim": VQ_DIM,
+                            "n_embed": VQ_N_EMBED},
+        "EMAVectorQuantizer": {"n_embed": VQ_N_EMBED, "embedding_dim": VQ_DIM, "beta": 0.25}}
+    for qname, params in quantizers.items():
+        torch.manual_seed(SEED + 95)
+        quant = instantiate_from_config({
+            "target": f"sgm.modules.autoencoding.regularizers.quantize.{qname}",
+            "params": params}).cuda().train()
+        zin = zq_in.clone().requires_grad_(True)
+        kwargs = {"generator": vq_gen} if qname == "GumbelQuantizer" else {}
+        ema0 = quant.embedding.weight.clone() if qname == "EMAVectorQuantizer" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z_q, info = quant(zin, **kwargs)
+        (z_q.sum() + info["loss/vq"]).backward()
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t0
+        idx = next(info[k] for k in ("min_encoding_indices", "indices", "encoding_indices")
+                   if k in info).reshape(-1)
+        cpu_share = None
+        if qname == "VectorQuantizer":
+            rows = zq_in.reshape(-1, VQ_DIM)[:VQ_CPU_ROWS].cpu()
+            book = quant.embedding.weight.detach().cpu()
+            cpu_idx = ((rows ** 2).sum(1, keepdim=True) + (book ** 2).sum(1)[None]
+                       - 2.0 * rows @ book.t()).argmin(1)
+            cpu_share = float((cpu_idx == idx[:VQ_CPU_ROWS].cpu()).float().mean())
+        log("first_stage_quantizer", quantizer=qname, shape=list(zin.shape), seconds=q_s,
+            loss=float(info["loss/vq"].detach()), distinct_codes=int(idx.unique().numel()),
+            indices_equal_to_cpu=cpu_share, card=smi)
+        ok = (torch.isfinite(z_q).all() and torch.isfinite(zin.grad).all()
+              and 0 <= int(idx.min()) and int(idx.max()) < VQ_N_EMBED
+              and math.isfinite(float(info["loss/vq"].detach())))
+        if ema0 is not None:
+            ok = ok and not torch.equal(ema0, quant.embedding.weight) and bool(
+                torch.isfinite(quant.embedding.weight).all())
+        if not ok or (cpu_share is not None and cpu_share < 0.999):
+            raise RuntimeError(f"first_stage {qname}: non-finite or out-of-range output, "
+                               f"indices equal to the CPU's on {cpu_share}")
+        del quant, zin, z_q, info
+    torch.cuda.empty_cache()
+    log("first_stage_done", phase_seconds=time.perf_counter() - phase_t0, card=smi)
+    return launches
 
 
 def op_cases(gen: torch.Generator):
@@ -4122,6 +4458,9 @@ def main() -> int:
     served_launches = served_run["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    first_stage_launches = first_stage_phase(smi, launch_model)
+    gc.collect()
+    torch.cuda.empty_cache()
     export_launches, artifact_launches = export_phase(smi, phase6_clip, served_run)
     train_launches, phase7 = train(smi)
     gc.collect()
@@ -4164,6 +4503,7 @@ def main() -> int:
          "mesh_launches": mesh_launches.get(name, 0),
          "sharded_launches": sharded_launches.get(name, 0),
          "samplers_launches": samplers_launches.get(name, 0),
+         "first_stage_launches": first_stage_launches[name],
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]

@@ -60,8 +60,21 @@
 // The TPU's 8-position striped mask and head-pair packing fitted the MXU's
 // 128-wide tiles; a 16-row mma.sync tile needs neither.
 //
-// Requires T <= 16, D = C / H a multiple of 16 up to 128, and q, k, v, o
-// 16-byte aligned (the wrapper checks).
+// Wide heads (D = 192 .. 512, a multiple of 64: the VAE decoder's
+// VideoAttnBlock, one head of width 128 to 512) take a second family,
+// temporal_attention_wide_kernel, reached by the same C entry and the same
+// maps. A unit's stage is 3 D / 64 boxes (48 KB at D = 512), and O = P V
+// over all D / 8 n-tiles would need 4 D / 8 fp32 accumulators a lane (256
+// at D = 512). So S = Q K^T runs as above over D / 16 k-steps (one 16 x 16
+// tile), P stays in registers as the A fragment, and PV, the division and
+// the write over the Q rows go 64 channels (8 n-tiles, 32 accumulators) at
+// a time; a block is one warp with a ring of two units, so an SM holds two
+// to five blocks as D falls from 512 to 192. Each output value is computed
+// by the same instructions as in the narrow family. At the decoder's
+// (14, 1536, 512), H = 1, q, k, v and o are 88 MB: 0.026 ms at 3.35 TB/s.
+//
+// Requires T <= 16, D = C / H a multiple of 16 up to 128 or of 64 up to
+// 512, and q, k, v, o 16-byte aligned (the wrapper checks).
 
 #include "hopper.cuh"
 
@@ -89,6 +102,19 @@ __host__ __device__ constexpr int smem_bytes() {
 template <int DC>
 __host__ __device__ constexpr int blocks_per_sm() {
   return 233472 / (smem_bytes<DC>() + 1024);
+}
+
+constexpr int WIDE_WARPS = 1;      // warps a block of the wide family
+constexpr int WIDE_STAGES = 2;     // units its ring holds
+
+template <int DC>
+__host__ __device__ constexpr int wide_smem_bytes() {
+  return 1024 + WIDE_WARPS * WIDE_STAGES * (stage_bytes<DC>() + (int)sizeof(uint64_t));
+}
+
+template <int DC>
+__host__ __device__ constexpr int wide_blocks_per_sm() {
+  return 233472 / (wide_smem_bytes<DC>() + 1024);
 }
 
 // Shared address of 16-byte chunk c (of the head's channels) of frame row r
@@ -246,6 +272,135 @@ temporal_attention_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// The wide family (D = 64 DC, DC = 3 .. 8): the narrow kernel's schedule
+// with one warp a block, and PV in 64-channel chunks.
+template <int DC>
+__global__ void __launch_bounds__(WIDE_WARPS * 32, wide_blocks_per_sm<DC>())
+temporal_attention_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap vmap,
+                               bf16* __restrict__ o, int T, int S, int H, long long units,
+                               float scale) {
+  constexpr int D = 64 * DC;
+  constexpr int KC = D / 16;       // k-steps of S = Q K^T
+  constexpr int CHUNKS = D / 8;    // 16-byte chunks of a frame's head
+  constexpr int STAGE = stage_bytes<DC>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  unsigned char* ring = base + warp * WIDE_STAGES * STAGE;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(base + WIDE_WARPS * WIDE_STAGES * STAGE) + warp * WIDE_STAGES;
+  const long long step = (long long)gridDim.x * WIDE_WARPS;
+  const long long first = (long long)blockIdx.x * WIDE_WARPS + warp;
+  const size_t C = (size_t)H * D;
+
+  auto load = [&](long long u, int st) {
+    const int h = (int)(u % H), s = (int)((u / H) % S), b = (int)(u / H / S);
+    unsigned char* dst = ring + st * STAGE;
+    mbar_arrive_expect_tx(&full[st], STAGE);
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      tma_load_4d(dst + j * BOX, &qmap, &full[st], h * D + 64 * j, s, 0, b);
+      tma_load_4d(dst + (DC + j) * BOX, &kmap, &full[st], h * D + 64 * j, s, 0, b);
+      tma_load_4d(dst + (2 * DC + j) * BOX, &vmap, &full[st], h * D + 64 * j, s, 0, b);
+    }
+  };
+  if (lane == 0) {
+    for (int st = 0; st < WIDE_STAGES; ++st) mbar_init(&full[st], 1);
+    mbar_fence_init();
+    for (int st = 0; st < WIDE_STAGES; ++st)
+      if (first + st * step < units) load(first + st * step, st);
+  }
+  __syncwarp();
+
+  const int a_row = lane & 15, a_chunk = lane >> 4;
+  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_chunk = (lane >> 3) & 1;
+  const int g = lane >> 2, cq = 2 * (lane & 3);
+  int i = 0;
+  for (long long u = first; u < units; u += step, ++i) {
+    const int st = i % WIDE_STAGES;
+    const uint32_t qs = smem_u32(ring + st * STAGE), ks = qs + DC * BOX, vs = ks + DC * BOX;
+    mbar_wait(&full[st], (i / WIDE_STAGES) & 1);
+
+    float sc[2][4] = {};
+#pragma unroll 8
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t a[4], kb[4];
+      ldsm_x4(a, chunk_at(qs, a_row, 2 * kc + a_chunk));
+      ldsm_x4(kb, chunk_at(ks, k_row, 2 * kc + k_chunk));
+      mma_bf16_16816(sc[0], a, kb[0], kb[1]);
+      mma_bf16_16816(sc[1], a, kb[2], kb[3]);
+    }
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = 8 * n + cq + (e & 1) < T ? sc[n][e] * scale : -INFINITY;
+        sc[n][e] = x;
+        if (e < 2) m0 = fmaxf(m0, x);
+        else m1 = fmaxf(m1, x);
+      }
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+    float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[n][e] - (e < 2 ? m0 : m1));
+        sc[n][e] = p;
+        if (e < 2) l0 += p;
+        else l1 += p;
+      }
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
+                            pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
+    const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+
+    // Every lane's ldmatrix of the Q rows is done: each 64-channel chunk of
+    // O / rowsum goes over them as soon as it is summed.
+    __syncwarp();
+#pragma unroll 1
+    for (int cb = 0; cb < DC; ++cb) {
+      float acc[8][4] = {};
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, chunk_at(vs, a_row, 8 * cb + j + a_chunk));
+        mma_bf16_16816(acc[j], pa, vb[0], vb[1]);
+        mma_bf16_16816(acc[j + 1], pa, vb[2], vb[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        st_shared_u32(chunk_at(qs, g, 8 * cb + j) + 2 * cq,
+                      pack_bf16(div_by(acc[j][0], l0, r0), div_by(acc[j][1], l0, r0)));
+        st_shared_u32(chunk_at(qs, g + 8, 8 * cb + j) + 2 * cq,
+                      pack_bf16(div_by(acc[j][2], l1, r1), div_by(acc[j][3], l1, r1)));
+      }
+    }
+    __syncwarp();
+    const int h = (int)(u % H), s = (int)((u / H) % S), b = (int)(u / H / S);
+    bf16* out = o + ((size_t)b * T * S + s) * C + (size_t)h * D;
+#pragma unroll 4
+    for (int idx = lane; idx < ROWS * CHUNKS; idx += 32) {
+      const int t = idx / CHUNKS, c = idx % CHUNKS;
+      if (t < T)
+        *reinterpret_cast<uint4*>(out + (size_t)t * S * C + 8 * c) =
+            ld_shared_v4(chunk_at(qs, t, c));
+    }
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0 && u + WIDE_STAGES * step < units) load(u + WIDE_STAGES * step, st);
+  }
+}
+
 // A 4D map over a (B*T, S, C) tensor seen as (C, S, T, B): boxes of 64
 // channels x 1 position x 16 frames (frames past T read as zero).
 bool frames_map(CUtensorMap* map, const void* p, int B, int T, int S, int C) {
@@ -279,10 +434,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int T, i
   return (int)cudaGetLastError();
 }
 
+template <int DC>
+int launch_wide(const void* q, const void* k, const void* v, void* o, int B, int T, int S,
+                int H, float scale, cudaStream_t stream) {
+  const int C = H * 64 * DC;
+  CUtensorMap qm, km, vm;
+  if (!frames_map(&qm, q, B, T, S, C) || !frames_map(&km, k, B, T, S, C) ||
+      !frames_map(&vm, v, B, T, S, C))
+    return (int)cudaErrorInvalidValue;
+  const int smem = wide_smem_bytes<DC>();
+  static std::atomic<uint64_t> smem_set{0};  // one per DC
+  cudaError_t err = smem_limit_once(temporal_attention_wide_kernel<DC>, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const long long units = (long long)B * S * H;
+  const long long blocks = (units + WIDE_WARPS - 1) / WIDE_WARPS;
+  const long long resident = (long long)sms * wide_blocks_per_sm<DC>();
+  temporal_attention_wide_kernel<DC>
+      <<<(unsigned)(blocks < resident ? blocks : resident), WIDE_WARPS * 32, smem, stream>>>(
+          qm, km, vm, (bf16*)o, T, S, H, units, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, o: (B*T, S, C) bf16, contiguous, 16-byte aligned; C = H D with D
-// a multiple of 16 up to 128; T <= 16.
+// a multiple of 16 up to 128 (the narrow family) or of 64 from 192 up to 512
+// (the wide family); T <= 16.
 extern "C" int gcd_temporal_attention(const void* q, const void* k, const void* v, void* o,
                                       int BT, int T, int S, int C, int H, float scale,
                                       void* stream) {
@@ -290,6 +469,17 @@ extern "C" int gcd_temporal_attention(const void* q, const void* k, const void* 
     return (int)cudaErrorInvalidValue;
   const int D = C / H, B = BT / T;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D > 128) {
+    switch (D % 64 ? 0 : D / 64) {
+      case 3: return launch_wide<3>(q, k, v, o, B, T, S, H, scale, st);
+      case 4: return launch_wide<4>(q, k, v, o, B, T, S, H, scale, st);
+      case 5: return launch_wide<5>(q, k, v, o, B, T, S, H, scale, st);
+      case 6: return launch_wide<6>(q, k, v, o, B, T, S, H, scale, st);
+      case 7: return launch_wide<7>(q, k, v, o, B, T, S, H, scale, st);
+      case 8: return launch_wide<8>(q, k, v, o, B, T, S, H, scale, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (D % 16 ? 0 : D / 16) {
     case 1: return launch<1>(q, k, v, o, B, T, S, H, scale, st);
     case 2: return launch<2>(q, k, v, o, B, T, S, H, scale, st);

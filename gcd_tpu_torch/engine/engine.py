@@ -126,14 +126,22 @@ class DiffusionEngine(nn.Module):
         """(c, uc), uc with the `force_uc_zero_embeddings` keys zeroed."""
         return self.conditioner.get_unconditional_conditioning(batch, force_uc_zero_embeddings)
 
+    def _first_stage_dtype(self, x: torch.Tensor) -> torch.dtype:
+        """The first stage's weight dtype; x's own for one without weights
+        (IdentityFirstStage)."""
+        weight = next(self.first_stage_model.parameters(), None)
+        return x.dtype if weight is None else weight.dtype
+
     def encode_first_stage(self, x: torch.Tensor,
                            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Frames (N, H, W, 3) in [-1, 1] -> scaled latents (N, H/8, W/8, 4),
         encoded in chunks of en_and_decode_n_samples_a_time: a sample of the
         posterior, mean + std * noise, with the unit Gaussian `noise`
-        (N, H/8, W/8, 4), or one drawn from torch's global generator."""
+        (N, H/8, W/8, 4), or one drawn from torch's global generator (the
+        mode, a quantizer's z_q or the frames themselves for the first
+        stages that do not sample)."""
         vae = self.first_stage_model
-        x = x.permute(0, 3, 1, 2).to(vae.encoder.conv_in.weight.dtype)
+        x = x.permute(0, 3, 1, 2).to(self._first_stage_dtype(x))
         n = self.en_and_decode_n_samples_a_time or x.shape[0]
         chunks = x.split(n)
         noises = (noise.permute(0, 3, 1, 2).split(n) if noise is not None
@@ -145,8 +153,7 @@ class DiffusionEngine(nn.Module):
                            decoding_t: Optional[int] = None) -> torch.Tensor:
         """Latents (N, 4, h, w) -> frames (N, 3, 8h, 8w), decoded in chunks
         whose size is also the decoder's temporal extent."""
-        decoder = self.first_stage_model.decoder
-        z = (z / self.scale_factor).to(decoder.conv_in.weight.dtype)
+        z = (z / self.scale_factor).to(self._first_stage_dtype(z))
         n = decoding_t or self.en_and_decode_n_samples_a_time or z.shape[0]
         return torch.cat([self.first_stage_model.decode(chunk, chunk.shape[0])
                           for chunk in z.split(n)])
@@ -193,7 +200,7 @@ class DiffusionEngine(nn.Module):
         rank draws those of the global batch and keeps its own rows
         (engine/trainer.py), so any number of ranks makes the same step."""
         h, w = frame_hw[0] // 8, frame_hw[1] // 8
-        z = self.first_stage_model.decoder.conv_in.in_channels
+        z = self.first_stage_model.latent_channels
         draws: Dict = {}
         if getattr(self.first_stage_model.regularization, "sample", False):
             chunk = self.en_and_decode_n_samples_a_time or frames

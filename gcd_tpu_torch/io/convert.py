@@ -1,5 +1,6 @@
 """Weight bridge: flax parameter tree -> torch state dict (the main model;
-LPIPS and InceptionV3 by their own functions at the end).
+LPIPS, InceptionV3, the first stage with a VQ regularizer, the quantizers
+and the discriminator by their own functions at the end).
 
 The port's own copy of the JAX package's numpy path translation
 (gcd_tpu/io/convert.py: flax_path_to_torch_key, torch_layout_from_flax,
@@ -179,4 +180,65 @@ def inception_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
             if path[-1] == "kernel":
                 arr = arr.transpose(3, 2, 0, 1)
             out[".".join(path[:-1] + (names[path[-1]],))] = torch.from_numpy(np.array(arr))
+    return out
+
+
+def quantizer_state_dict_from_flax(variables: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX quantizer's variables (gcd_tpu/models/vq.py: {"params"[,
+    "ema"]}, as numpy) -> the port's keys (models/vq.py): the codebook
+    leaves `embedding` / `embed` as `embedding.weight` / `embed.weight`,
+    the EMA collection's weight / cluster_size / embed_avg under
+    `embedding.`, convs and linears as state_dict_from_flax."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, t in state_dict_from_flax(variables.get("params", {}), prefix).items():
+        out[key + ".weight" if key.rsplit(".", 1)[-1] in ("embedding", "embed") else key] = t
+    for name, leaf in variables.get("ema", {}).items():
+        out[f"{prefix}embedding.{name}"] = torch.from_numpy(np.array(leaf))
+    return out
+
+
+def first_stage_state_dict_from_flax(params: Dict, prefix: str = "first_stage_model."
+                                     ) -> Dict[str, torch.Tensor]:
+    """A JAX first stage's params (encoder, decoder[, quant_conv,
+    post_quant_conv][, regularization: a VQ regularizer's variables]) ->
+    the port's keys under `prefix`."""
+    params = dict(params)
+    reg = params.pop("regularization", None)
+    out = state_dict_from_flax(params, prefix)
+    if reg is not None:
+        out.update(quantizer_state_dict_from_flax(reg, prefix + "regularization."))
+    return out
+
+
+def discriminator_state_dict_from_flax(variables: Dict, prefix: str = ""
+                                       ) -> Dict[str, torch.Tensor]:
+    """A JAX NLayerDiscriminator's variables ({"params"[, "batch_stats"]},
+    as numpy) -> the port's `main.{i}.*` keys (models/discriminator.py):
+    conv kernels HWIO -> OIHW; BatchNorm scale / bias -> weight / bias and
+    its batch_stats mean / var -> running_mean / running_var, with
+    num_batches_tracked 0 (flax keeps no count); ActNorm's loc / scale as
+    they are."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaves in variables["params"].items():
+        base = prefix + _translate_segment(name)
+        for leaf, arr in leaves.items():
+            arr = np.asarray(arr)
+            if leaf == "kernel":
+                arr, leaf = arr.transpose(3, 2, 0, 1), "weight"
+            elif leaf == "scale" and "loc" not in leaves:
+                leaf = "weight"
+            out[f"{base}.{leaf}"] = torch.from_numpy(np.array(arr))
+    for name, stats in variables.get("batch_stats", {}).items():
+        base = prefix + _translate_segment(name)
+        out[f"{base}.running_mean"] = torch.from_numpy(np.array(stats["mean"]))
+        out[f"{base}.running_var"] = torch.from_numpy(np.array(stats["var"]))
+        out[f"{base}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return out
+
+
+def discriminator_loss_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX GeneralLPIPSWithDiscriminator's variables (the discriminator's
+    params and batch_stats, and `logvar`) -> the port loss's keys."""
+    out = discriminator_state_dict_from_flax(variables, "discriminator.")
+    out["logvar"] = torch.tensor(float(np.asarray(variables["logvar"])))
     return out

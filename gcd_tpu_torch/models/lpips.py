@@ -25,7 +25,6 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from gcd_tpu_torch.models.vae import AutoencodingEngine
 from gcd_tpu_torch.utils.config import instantiate_from_config
 from gcd_tpu_torch.utils.resize import resize
 
@@ -155,9 +154,7 @@ class _Decode(nn.Module):
         self.model = model
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        if isinstance(self.model, AutoencodingEngine):  # its decoder takes the frame count
-            return self.model.decode(z, z.shape[0])
-        return self.model.decode(z)
+        return self.model.decode(z, z.shape[0])  # a video decoder takes the frame count
 
 
 class LatentLPIPS:

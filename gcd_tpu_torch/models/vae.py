@@ -1,15 +1,21 @@
 """KL VAE (port of gcd_tpu/models/vae.py): the image Encoder, the plain 2D
-Decoder, the SVD temporal VideoDecoder (time_mode "conv-only"), and the
-engines that hold them.
+Decoder, the SVD temporal VideoDecoder in its three time modes, and the
+first-stage engines that hold them (AutoencodingEngine, its Legacy form
+with quant convs, which is also AutoencoderKL, AutoencoderKLModeOnly,
+IdentityFirstStage).
 
 The reference's VAEGroupNorm is GroupNorm32 with eps 1e-6 here (K4 on
 CUDA); the VAE ResnetBlocks and norm_out apply SiLU to its bf16 output, as
-the JAX package does, while the time_stack norms fuse SiLU in fp32. The only
-attention is the mid-block spatial AttnBlock: one head of width 512 over the
-latent's tokens, computed with plain matmuls and an fp32 softmax as the JAX
-package does (head dim not in {64, 128}). Keys follow the reference:
-first_stage_model.{encoder,decoder}.*, and encoder / decoder / quant_conv /
-post_quant_conv under AutoencoderKLModeOnly.
+the JAX package does, while the time_stack norms fuse SiLU in fp32. The
+spatial attention (AttnBlock, and the spatial half of VideoAttnBlock) is
+one head of the block's width over the plane's tokens, computed with plain
+matmuls and an fp32 softmax as the JAX package does (head dim not in {64,
+128}). VideoAttnBlock's temporal half is a one-head VideoTransformerBlock
+of the block's width without a context: K2 (its wide family at 256 and
+512) for both attentions, K3 for both GEGLU MLPs. Keys follow the
+reference: first_stage_model.{encoder,decoder}.*, and encoder / decoder /
+quant_conv / post_quant_conv (/ regularization.* of a VQ regularizer) under
+the Legacy engines.
 """
 
 from __future__ import annotations
@@ -22,8 +28,28 @@ from torch import nn
 
 from gcd_tpu_torch.models.layers import GroupNorm32
 from gcd_tpu_torch.models.resblock import Upsample
-from gcd_tpu_torch.ops.basic import dot_product_attention
+from gcd_tpu_torch.models.video_attention import VideoTransformerBlock
+from gcd_tpu_torch.ops.basic import dot_product_attention, timestep_embedding
 from gcd_tpu_torch.utils.config import instantiate_from_config
+
+MERGE_STRATEGIES = ("fixed", "learned")
+
+
+def _init_merge(module: nn.Module, alpha: float, merge_strategy: str) -> None:
+    """A video block's blend: alpha itself ("fixed") or sigmoid of the
+    learned `mix_factor` initialised to alpha ("learned")."""
+    if merge_strategy not in MERGE_STRATEGIES:
+        raise ValueError(f"unknown merge strategy {merge_strategy!r}")
+    module.alpha = float(alpha)
+    if merge_strategy == "learned":
+        module.mix_factor = nn.Parameter(torch.full((1,), float(alpha)))
+
+
+def _merge_alpha(module: nn.Module, like: torch.Tensor) -> torch.Tensor:
+    """The block's alpha as a 0-d tensor of `like`'s dtype."""
+    if hasattr(module, "mix_factor"):
+        return torch.sigmoid(module.mix_factor)[0].to(like.dtype)
+    return torch.tensor(module.alpha, dtype=like.dtype, device=like.device)
 
 
 class ResnetBlock(nn.Module):
@@ -59,12 +85,44 @@ class AttnBlock(nn.Module):
         self.v = nn.Conv2d(channels, channels, 1)
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def attention(self, x: torch.Tensor) -> torch.Tensor:
+        """x (N, C, H, W) -> the attention's tokens (N, HW, C)."""
         n, c, h, w = x.shape
         hn = self.norm(x)
         q, k, v = (proj(hn).reshape(n, c, h * w).transpose(1, 2)
                    for proj in (self.q, self.k, self.v))
-        out = dot_product_attention(q, k, v)  # (N, HW, C)
+        return dot_product_attention(q, k, v)
+
+    def forward(self, x: torch.Tensor, timesteps: Optional[int] = None) -> torch.Tensor:
+        n, c, h, w = x.shape
+        out = self.attention(x)
+        return x + self.proj_out(out.transpose(1, 2).reshape(n, c, h, w))
+
+
+class VideoAttnBlock(AttnBlock):
+    """AttnBlock with a temporal branch (gcd_tpu/models/vae.py:253-311):
+    the spatial attention's tokens plus a sinusoidal frame-index embedding
+    (video_time_embed: Linear-SiLU-Linear) go through a one-head temporal
+    transformer without a context (time_mix_block: ff_in, two temporal
+    self-attentions, ff), and alpha weights the *spatial* tokens against
+    it before proj_out and the outer residual. x (B*T, C, H, W)."""
+
+    def __init__(self, channels: int, alpha: float = 0.0, merge_strategy: str = "learned"):
+        super().__init__(channels)
+        self.video_time_embed = nn.Sequential(nn.Linear(channels, 4 * channels), nn.SiLU(),
+                                              nn.Linear(4 * channels, channels))
+        self.time_mix_block = VideoTransformerBlock(channels, 1, channels, ff_in=True)
+        _init_merge(self, alpha, merge_strategy)
+
+    def forward(self, x: torch.Tensor, timesteps: int) -> torch.Tensor:
+        n, c, h, w = x.shape
+        tokens = self.attention(x)  # (B*T, HW, C)
+        frame_idx = torch.arange(timesteps, dtype=torch.float32,
+                                 device=x.device).repeat(n // timesteps)
+        emb = self.video_time_embed(timestep_embedding(frame_idx, c).to(tokens.dtype))
+        mixed = self.time_mix_block(tokens + emb[:, None, :], None, timesteps)
+        alpha = _merge_alpha(self, tokens)
+        out = alpha * tokens + (1.0 - alpha) * mixed
         return x + self.proj_out(out.transpose(1, 2).reshape(n, c, h, w))
 
 
@@ -98,21 +156,22 @@ class TemporalResStack(nn.Module):
 
 
 class DecoderVideoResBlock(ResnetBlock):
-    """Spatial ResnetBlock + temporal time_stack, with a learned scalar
-    alpha = sigmoid(mix_factor) weighting the temporal branch."""
+    """Spatial ResnetBlock + temporal time_stack, with a scalar alpha
+    (fixed, or sigmoid(mix_factor) learned) weighting the temporal branch."""
 
     def __init__(self, channels: int, out_channels: Optional[int] = None,
-                 video_kernel_size: Sequence[int] = (3, 1, 1), alpha: float = 0.0):
+                 video_kernel_size: Sequence[int] = (3, 1, 1), alpha: float = 0.0,
+                 merge_strategy: str = "learned"):
         super().__init__(channels, out_channels)
         self.time_stack = TemporalResStack(out_channels or channels, video_kernel_size)
-        self.mix_factor = nn.Parameter(torch.full((1,), float(alpha)))
+        _init_merge(self, alpha, merge_strategy)
 
     def forward(self, x: torch.Tensor, timesteps: int) -> torch.Tensor:
         x = super().forward(x)
         bt, c, h, w = x.shape
         x_mix = x.reshape(bt // timesteps, timesteps, c, h, w).transpose(1, 2)
         x_vid = self.time_stack(x_mix)
-        alpha = torch.sigmoid(self.mix_factor)[0].to(x.dtype)
+        alpha = _merge_alpha(self, x)
         out = alpha * x_vid + (1.0 - alpha) * x_mix
         return out.transpose(1, 2).reshape(bt, c, h, w)
 
@@ -156,7 +215,7 @@ class _Level(nn.Module):
         for i, block in enumerate(self.block):
             h = block(h, timesteps)
             if hasattr(self, "attn"):
-                h = self.attn[i](h)
+                h = self.attn[i](h, timesteps)
         return h
 
 
@@ -203,8 +262,8 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     """Plain SD image decoder. forward(z (N, z_channels, h, w)) ->
-    (N, out_ch, 8h, 8w). Subclasses swap the residual block and the output
-    conv; `timesteps` reaches every block."""
+    (N, out_ch, 8h, 8w). Subclasses swap the residual block, the attention
+    block and the output conv; `timesteps` reaches every block."""
 
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
@@ -215,7 +274,7 @@ class Decoder(nn.Module):
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (len(ch_mult) - 1)
         self.conv_in = nn.Conv2d(z_channels, block_in, 3, padding=1)
-        self.mid = _Mid(self._res_block(block_in, block_in), AttnBlock(block_in),
+        self.mid = _Mid(self._res_block(block_in, block_in), self._attn_block(block_in),
                         self._res_block(block_in, block_in))
         levels = []
         for i_level in reversed(range(len(ch_mult))):
@@ -225,7 +284,7 @@ class Decoder(nn.Module):
                 blocks.append(self._res_block(block_in, block_out))
                 block_in = block_out
                 if curr_res in attn_resolutions:
-                    attns.append(AttnBlock(block_in))
+                    attns.append(self._attn_block(block_in))
             levels.insert(0, _Level(blocks, attns, "upsample",
                                     Upsample(block_in) if i_level else None))
             curr_res *= 2 if i_level else 1
@@ -236,6 +295,9 @@ class Decoder(nn.Module):
     def _res_block(self, channels: int, out_channels: int) -> nn.Module:
         return ResnetBlock(channels, out_channels)
 
+    def _attn_block(self, channels: int) -> nn.Module:
+        return AttnBlock(channels)
+
     def _out_conv(self, channels: int, out_channels: int) -> nn.Module:
         return nn.Conv2d(channels, out_channels, 3, padding=1)
 
@@ -245,7 +307,7 @@ class Decoder(nn.Module):
     def forward(self, z: torch.Tensor, timesteps: Optional[int] = None) -> torch.Tensor:
         h = self.conv_in(z)
         h = self.mid.block_1(h, timesteps)
-        h = self.mid.attn_1(h)
+        h = self.mid.attn_1(h, timesteps)
         h = self.mid.block_2(h, timesteps)
         for level in reversed(self.up):
             h = level(h, timesteps)
@@ -255,25 +317,45 @@ class Decoder(nn.Module):
 
 
 class VideoDecoder(Decoder):
-    """SVD temporal decoder, time_mode "conv-only" (VideoResBlocks, AE3DConv
-    out, plain spatial attention). forward(z (N, z_channels, h, w),
-    timesteps) -> (N, out_ch, 8h, 8w); `timesteps` (the decode chunk's frame
-    count, N when None) must divide N."""
+    """SVD temporal decoder (gcd_tpu/models/vae.py:386-492). time_mode:
+    "conv-only" (GCD's: VideoResBlocks, AE3DConv out, plain spatial
+    attention), "attn-only" (plain ResnetBlocks and conv out,
+    VideoAttnBlocks) or "all" (VideoResBlocks, VideoAttnBlocks, AE3DConv
+    out); every video block blends with `alpha` by `merge_strategy`.
+    forward(z (N, z_channels, h, w), timesteps) -> (N, out_ch, 8h, 8w);
+    `timesteps` (the decode chunk's frame count, N when None) must divide
+    N."""
 
     def __init__(self, *args, video_kernel_size: Sequence[int] = (3, 1, 1),
-                 time_mode: str = "conv-only", **kwargs):
-        if time_mode != "conv-only":
-            raise NotImplementedError("VideoDecoder port covers time_mode='conv-only'")
-        self._vks = tuple(video_kernel_size)  # read by Decoder.__init__'s hooks
+                 time_mode: str = "conv-only", alpha: float = 0.0,
+                 merge_strategy: str = "learned", **kwargs):
+        if time_mode not in ("all", "conv-only", "attn-only"):
+            raise ValueError(f"time_mode must be one of all/conv-only/attn-only, "
+                             f"got {time_mode!r}")
+        # Read by Decoder.__init__'s hooks.
+        self._vks = tuple(video_kernel_size)
+        self._video_res, self._video_attn = time_mode != "attn-only", time_mode != "conv-only"
+        self._merge = (float(alpha), merge_strategy)
         super().__init__(*args, **kwargs)
 
     def _res_block(self, channels: int, out_channels: int) -> nn.Module:
-        return DecoderVideoResBlock(channels, out_channels, self._vks)
+        if not self._video_res:
+            return ResnetBlock(channels, out_channels)
+        return DecoderVideoResBlock(channels, out_channels, self._vks, *self._merge)
+
+    def _attn_block(self, channels: int) -> nn.Module:
+        if not self._video_attn:
+            return AttnBlock(channels)
+        return VideoAttnBlock(channels, *self._merge)
 
     def _out_conv(self, channels: int, out_channels: int) -> nn.Module:
+        if not self._video_res:
+            return nn.Conv2d(channels, out_channels, 3, padding=1)
         return AE3DConvOut(channels, out_channels, self._vks)
 
     def _head(self, h: torch.Tensor, timesteps: Optional[int]) -> torch.Tensor:
+        if not self._video_res:
+            return self.conv_out(h)
         return self.conv_out(h, timesteps)
 
     def forward(self, z: torch.Tensor, timesteps: Optional[int] = None) -> torch.Tensor:
@@ -317,7 +399,8 @@ class DiagonalGaussianRegularizer:
 class AutoencodingEngine(nn.Module):
     """First-stage VAE wrapper (`first_stage_model.{encoder,decoder}.*`), no
     quant convs. `encode` goes through the configured regularizer, by
-    default a DiagonalGaussianRegularizer that samples the posterior; the
+    default a DiagonalGaussianRegularizer that samples the posterior, or a
+    VQ quantizer (models/vq.py, its codebook under `regularization.*`); the
     loss config is accepted for config parity."""
 
     def __init__(self, encoder_config: dict, decoder_config: dict,
@@ -329,35 +412,83 @@ class AutoencodingEngine(nn.Module):
         self.regularization = (instantiate_from_config(regularizer_config)
                                if regularizer_config else DiagonalGaussianRegularizer())
 
+    @property
+    def latent_channels(self) -> int:
+        return self.decoder.conv_in.in_channels
+
+    def regularize(self, moments: torch.Tensor,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The regularizer on the encoder's moments (N, C, h, w): a posterior
+        sample (with `noise`) or mode, or a quantizer's straight-through z_q
+        (quantizers take channels-last, as the JAX package's do; the engine
+        passes them no random numbers, as JAX's passes no key)."""
+        if isinstance(self.regularization, nn.Module):
+            z_q, _ = self.regularization(moments.permute(0, 2, 3, 1))
+            return z_q.permute(0, 3, 1, 2)
+        return self.regularization(moments, noise)
+
     def encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (N, 3, H, W) -> latents (N, z, H/8, W/8); a posterior sample
         takes `noise` (N, z, H/8, W/8) or draws it from torch's global
         generator."""
-        return self.regularization(self.encoder(x), noise)
+        return self.regularize(self.encoder(x), noise)
 
-    def decode(self, z: torch.Tensor, timesteps: int) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, timesteps: Optional[int] = None) -> torch.Tensor:
         return self.decoder(z, timesteps)
 
 
-class AutoencoderKLModeOnly(nn.Module):
-    """KL autoencoder with quant / post_quant 1x1 convs whose `encode`
-    returns the posterior mode (the conditioner's frame encoder). The
-    conditioner never decodes; the 2D decoder is here because the reference
-    checkpoints store it, so a state dict loads with strict=True."""
+class AutoencodingEngineLegacy(AutoencodingEngine):
+    """The engine with quant / post_quant 1x1 convs around the latent
+    (gcd_tpu/models/vae.py:599-657): `ddconfig` builds a 2D Encoder and
+    Decoder; the regularizer defaults to the sampling posterior, which makes
+    it the KL autoencoder `sgm.models.autoencoder.AutoencoderKL` too (JAX's
+    AutoencoderKL only drops the lossconfig, which this class ignores)."""
 
-    def __init__(self, embed_dim: int, ddconfig: dict, **unused):
-        super().__init__()
-        # unused: the reference's lossconfig / monitor.
-        dd = {k: v for k, v in ddconfig.items() if k != "lossconfig"}
+    def __init__(self, embed_dim: int, ddconfig: Optional[dict] = None,
+                 regularizer_config: Optional[dict] = None, **unused):
+        # unused: the reference's max_batch_size, lossconfig and monitor.
+        dd = {k: v for k, v in (ddconfig or {}).items() if k != "lossconfig"}
+        super().__init__({"target": "sgm.modules.diffusionmodules.model.Encoder", "params": dd},
+                         {"target": "sgm.modules.diffusionmodules.model.Decoder", "params": dd},
+                         regularizer_config)
         mult = 2 if dd.get("double_z", True) else 1
         z_channels = int(dd.get("z_channels", 4))
-        self.encoder = Encoder(**dd)
-        self.decoder = Decoder(**dd)
-        self.quant_conv = nn.Conv2d(mult * z_channels, mult * embed_dim, 1)
-        self.post_quant_conv = nn.Conv2d(embed_dim, z_channels, 1)
+        self.embed_dim = int(embed_dim)
+        self.quant_conv = nn.Conv2d(mult * z_channels, mult * self.embed_dim, 1)
+        self.post_quant_conv = nn.Conv2d(self.embed_dim, z_channels, 1)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return DiagonalGaussianDistribution(self.quant_conv(self.encoder(x))).mode()
+    @property
+    def latent_channels(self) -> int:
+        return self.embed_dim
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.post_quant_conv(z))
+    def encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.regularize(self.quant_conv(self.encoder(x)), noise)
+
+    def decode(self, z: torch.Tensor, timesteps: Optional[int] = None) -> torch.Tensor:
+        return self.decoder(self.post_quant_conv(z), timesteps)
+
+
+class AutoencoderKLModeOnly(AutoencodingEngineLegacy):
+    """The Legacy engine whose `encode` returns the posterior mode (the
+    conditioner's frame encoder). The conditioner never decodes; the 2D
+    decoder is here because the reference checkpoints store it, so a state
+    dict loads with strict=True."""
+
+    def __init__(self, embed_dim: int, ddconfig: dict, **unused):
+        super().__init__(embed_dim, ddconfig, {
+            "target": "sgm.modules.autoencoding.regularizers.DiagonalGaussianRegularizer",
+            "params": {"sample": False}})
+
+
+class IdentityFirstStage(nn.Module):
+    """A first stage that encodes and decodes to its input
+    (gcd_tpu/models/vae.py:674-683)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return x
+
+    def decode(self, z: torch.Tensor, timesteps: Optional[int] = None) -> torch.Tensor:
+        return z

@@ -43,7 +43,10 @@ from gcd_tpu_torch.parallel.frames import (
 
 class VideoTransformerBlock(nn.Module):
     """Temporal block: [ff_in] -> temporal self-attn -> cross-attn to a
-    per-video context -> FF. x (B*T, S, C); context (B, L, Ck)."""
+    per-video context -> FF. x (B*T, S, C); context (B, L, Ck). Built
+    without a context_dim (the VAE's VideoAttnBlock), attn2 is a second
+    temporal self-attention and forward takes context None, as the JAX
+    block's attn2 self-attends over the frames when it gets no context."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
                  context_dim: Optional[int] = None, ff_in: bool = False):
@@ -53,12 +56,13 @@ class VideoTransformerBlock(nn.Module):
             self.ff_in = FeedForward(dim)
         self.attn1 = TemporalSelfAttention(dim, n_heads, d_head)
         self.ff = FeedForward(dim)
-        self.attn2 = CrossAttention(dim, n_heads, d_head, context_dim)
+        self.attn2 = (TemporalSelfAttention(dim, n_heads, d_head) if context_dim is None
+                      else CrossAttention(dim, n_heads, d_head, context_dim))
         self.norm1 = LayerNormFp32(dim)
         self.norm2 = LayerNormFp32(dim)
         self.norm3 = LayerNormFp32(dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor, timesteps: int
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor], timesteps: int
                 ) -> torch.Tensor:
         t = timesteps
         bt, s, c = x.shape
@@ -66,6 +70,9 @@ class VideoTransformerBlock(nn.Module):
         if hasattr(self, "ff_in"):
             x = self.ff_in(self.norm_in(x)) + x
         x = self.attn1(self.norm1(x), timesteps=t) + x
+        if context is None:
+            x = self.attn2(self.norm2(x), timesteps=t) + x
+            return self.ff(self.norm3(x)) + x
         # Context keys are per video, so attending from the (B, T*S, C) view
         # is the reference's per-pixel temporal cross-attention.
         h = self.attn2(self.norm2(x).reshape(b, t * s, c), context=context)

@@ -28,6 +28,26 @@ REGISTRY = {
         "gcd_tpu_torch.models.vae.AutoencodingEngine",
     "sgm.models.autoencoder.AutoencoderKLModeOnly":
         "gcd_tpu_torch.models.vae.AutoencoderKLModeOnly",
+    "sgm.models.autoencoder.AutoencodingEngineLegacy":
+        "gcd_tpu_torch.models.vae.AutoencodingEngineLegacy",
+    "sgm.models.autoencoder.AutoencoderKL":
+        "gcd_tpu_torch.models.vae.AutoencodingEngineLegacy",
+    "sgm.models.autoencoder.IdentityFirstStage":
+        "gcd_tpu_torch.models.vae.IdentityFirstStage",
+    "sgm.modules.autoencoding.regularizers.quantize.VectorQuantizer":
+        "gcd_tpu_torch.models.vq.VectorQuantizer",
+    "sgm.modules.autoencoding.regularizers.quantize.VectorQuantizerWithInputProjection":
+        "gcd_tpu_torch.models.vq.VectorQuantizerWithInputProjection",
+    "sgm.modules.autoencoding.regularizers.quantize.GumbelQuantizer":
+        "gcd_tpu_torch.models.vq.GumbelQuantizer",
+    "sgm.modules.autoencoding.regularizers.quantize.EMAVectorQuantizer":
+        "gcd_tpu_torch.models.vq.EMAVectorQuantizer",
+    "sgm.modules.autoencoding.lpips.model.model.NLayerDiscriminator":
+        "gcd_tpu_torch.models.discriminator.NLayerDiscriminator",
+    "sgm.modules.autoencoding.losses.discriminator_loss.GeneralLPIPSWithDiscriminator":
+        "gcd_tpu_torch.models.discriminator.GeneralLPIPSWithDiscriminator",
+    "sgm.modules.autoencoding.losses.GeneralLPIPSWithDiscriminator":
+        "gcd_tpu_torch.models.discriminator.GeneralLPIPSWithDiscriminator",
     "sgm.modules.autoencoding.regularizers.DiagonalGaussianRegularizer":
         "gcd_tpu_torch.models.vae.DiagonalGaussianRegularizer",
     "sgm.modules.diffusionmodules.model.Encoder":

@@ -26,6 +26,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
 from gcd_tpu_torch.models.layers import AlphaBlender  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 
 B, T, N, C = 2, 3, 8, 16
 

@@ -40,6 +40,7 @@ from gcd_tpu_torch.ops import (
 from gcd_tpu_torch.ops.fused_norm import group_norm_from_sums_plain
 from tests.helpers import tiny_engine_config
 from tests.torch_port_helpers import engine_params, engine_state_dict, tiny_batch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, T, H, W = 1, 3, 32, 48
 STEPS = 3

@@ -30,6 +30,7 @@ from gcd_tpu_torch.engine.export import load_sampler
 from tests.helpers import tiny_engine_config
 from tests.torch_port_helpers import (TINY_CONFIG, engine_params, engine_state_dict, rel_l2,
                                       tiny_batch)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, T, H, W = 1, 3, 32, 48
 STEPS = 3

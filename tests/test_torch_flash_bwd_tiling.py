@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from gcd_tpu.ops.flash_attention import _flash_bwd_rows
 from gcd_tpu_torch.ops.flash_attention import BWD_TILE
 from tests.torch_port_helpers import rel_l2
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CSRC = (Path(__file__).resolve().parent.parent / "gcd_tpu_torch" / "csrc"
         / "flash_attention_bwd.cu")

@@ -39,6 +39,7 @@ from gcd_tpu_torch.ops.fused_gn_conv import (
     tile_plan,
 )
 from tests.torch_port_helpers import flax_params, load_port, nchw, nhwc, rel_l2
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 G = 32

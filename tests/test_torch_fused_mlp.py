@@ -35,6 +35,7 @@ from gcd_tpu_torch.ops.fused_mlp import (
     geglu_mlp_plain,
 )
 from tests.torch_port_helpers import rel_l2
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CSRC = Path(__file__).resolve().parent.parent / "gcd_tpu_torch" / "csrc" / "fused_mlp.cu"
 FP32_TOL = 2e-5

@@ -35,6 +35,7 @@ from gcd_tpu_torch.ops.fused_norm import (
 )
 from tests.test_torch_gn_stats import cl_stats_model
 from tests.torch_port_helpers import rel_l2
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CSRC = Path(__file__).resolve().parent.parent / "gcd_tpu_torch" / "csrc" / "fused_norm.cu"
 CONSTS = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", CSRC.read_text())}

@@ -29,6 +29,7 @@ from gcd_tpu_torch.ops import (
     temporal_attention_plain,
 )
 from tests.torch_port_helpers import rel_l2
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

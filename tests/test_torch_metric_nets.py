@@ -43,6 +43,7 @@ from tests.torch_port_helpers import (
     rel_l2,
     tiny_batch,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VGG_CONVS = [(0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128), (10, 128, 256),
              (12, 256, 256), (14, 256, 256), (17, 256, 512), (19, 512, 512), (21, 512, 512),

@@ -11,6 +11,7 @@ import pytest
 
 from gcd_tpu.utils import metrics as jmetrics
 from gcd_tpu_torch.utils import metrics
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-10
 T, H, W = 3, 24, 20

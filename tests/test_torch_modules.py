@@ -26,6 +26,7 @@ from gcd_tpu_torch.models.attention import (
 from gcd_tpu_torch.models.layers import FeedForward
 from gcd_tpu_torch.models.video_attention import SpatialVideoTransformer
 from tests.torch_port_helpers import flax_params, load_port, nchw, nhwc, rel_l2
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

@@ -31,6 +31,7 @@ from tests.torch_port_helpers import (
     rel_l2,
     tiny_batch,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 T = 3
 SAMPLING = "sgm.modules.diffusionmodules.sampling."

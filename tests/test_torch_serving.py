@@ -43,6 +43,7 @@ from gcd_tpu_torch.serve import make_handler
 from gcd_tpu_torch.utils.config import instantiate_from_config
 from scripts import eval_utils
 from tests.torch_port_helpers import TINY_CONFIG, rel_l2
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 T, H, W = 3, 32, 48
 TOL = 1e-5

@@ -40,6 +40,7 @@ from tests.torch_port_helpers import (
     rel_l2,
     tiny_batch,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, H, W = 3, 16, 16

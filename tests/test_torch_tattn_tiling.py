@@ -11,8 +11,9 @@ The model computes as the kernel does, in fp32 on bf16 values:
     and the tests take S of 5 and 37, which no tile of 8 positions divides;
   - per tensor, the TMA box (64 channels x 16 frames) at channel h D of
     the (C, S, T, B) view: frames past T and channels past C read as zero,
-    T padded to 16 rows; a head slab is the box's first D channels (two
-    boxes at D > 64);
+    T padded to 16 rows; a head slab is the box's first D channels (D / 64
+    boxes at D > 64: two at 128, four at 256, eight at 512 in the wide
+    family, whose per-value arithmetic is the narrow family's);
   - S = Q K^T as a 16 x 16 tile, times the scale; key columns >= T set to
     -inf before the row max; P = exp(s - max) in fp32 and its fp32 row
     sum; P rounded to bf16 before PV; O = P V divided by the sum after PV;
@@ -47,13 +48,20 @@ import torch.nn.functional as F
 from jax.experimental.pallas import tpu as pltpu
 
 from gcd_tpu.ops.temporal_attention import _pallas_fwd, _xla_temporal
-from gcd_tpu_torch.ops.temporal_attention import MAX_FRAMES, MAX_HEAD_DIM, kernel_head_dim
+from gcd_tpu_torch.ops.temporal_attention import (
+    MAX_FRAMES,
+    MAX_HEAD_DIM,
+    MAX_WIDE_HEAD_DIM,
+    kernel_head_dim,
+)
 from tests.torch_port_helpers import rel_l2
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CSRC = (Path(__file__).resolve().parent.parent / "gcd_tpu_torch" / "csrc"
         / "temporal_attention.cu")
 CONSTS = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", CSRC.read_text())}
 ROWS, WARPS, STAGES = CONSTS["ROWS"], CONSTS["WARPS"], CONSTS["STAGES"]
+WIDE_WARPS, WIDE_STAGES = CONSTS["WIDE_WARPS"], CONSTS["WIDE_STAGES"]
 BOX_CHANNELS = 64  # a box's inner extent: 128 bytes of bf16, the swizzle span
 XLA_TOL = 1e-5
 KERNEL_TOL = 5e-4
@@ -105,15 +113,21 @@ def test_constants_match_the_kernel():
     assert ROWS == MAX_FRAMES == 16
     assert re.search(r"const uint32_t box\[4\] = \{64, 1, ROWS, 1\};", CSRC.read_text())
     assert re.search(r"switch \(D % 16 \? 0 : D / 16\)", CSRC.read_text())
-    assert [d for d in range(1, 200) if kernel_head_dim(d)] == list(range(16, MAX_HEAD_DIM + 1, 16))
+    assert re.search(r"if \(D > 128\) \{\s*switch \(D % 64 \? 0 : D / 64\)", CSRC.read_text())
+    assert [d for d in range(1, 1100) if kernel_head_dim(d)] == (
+        list(range(16, MAX_HEAD_DIM + 1, 16)) + list(range(192, MAX_WIDE_HEAD_DIM + 1, 64)))
+    assert MAX_WIDE_HEAD_DIM == 512
 
 
 # (B, T, S, heads, D): T of 3, 14 (the UNet's) and 16 (no padding), D of 16
 # (a box holds four heads; the last heads' boxes run past C) and 64 (the
 # UNet's), S of 5, 24 (the UNet's mid level) and 37, and D = 80 and 128 (two
-# boxes).
+# boxes); the wide family's D = 256 and 512 (the VAE decoder's one-head
+# VideoAttnBlocks), 192 and 320, one head or two.
 SHAPES = [(2, 3, 37, 4, 16), (1, 14, 24, 2, 64), (2, 16, 5, 3, 64), (1, 14, 5, 5, 16),
-          (1, 3, 24, 1, 64), (1, 16, 37, 2, 16), (1, 14, 5, 2, 80), (1, 4, 6, 2, 128)]
+          (1, 3, 24, 1, 64), (1, 16, 37, 2, 16), (1, 14, 5, 2, 80), (1, 4, 6, 2, 128),
+          (1, 14, 5, 1, 256), (2, 14, 3, 1, 512), (1, 16, 4, 2, 512), (2, 3, 7, 2, 192),
+          (1, 14, 5, 1, 320)]
 
 
 @pytest.mark.parametrize("b,t,s,heads,d", SHAPES)
@@ -132,6 +146,23 @@ def test_k2_model_matches_tpu_kernel_rounding_points():
     Pallas kernel in interpret mode (its default head-pair packing)."""
     b, t, s, heads, d = 1, 14, 8, 2, 64
     q, k, v = _inputs(b * t, s, heads * d, 3)
+    scale = d ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        want = _pallas_fwd(*(jnp.asarray(z.numpy(), jnp.bfloat16) for z in (q, k, v)),
+                           t, heads, scale)
+    want = np.asarray(want, np.float32)
+    got = _bf16(k2_model(q, k, v, t, heads, scale)).numpy()
+    unrounded_p = _bf16(k2_model(q, k, v, t, heads, scale, round_p=False)).numpy()
+    assert rel_l2(got, want) <= KERNEL_TOL < 1e-3 < rel_l2(unrounded_p, want)
+
+
+@pytest.mark.parametrize("d", [256, 512])
+def test_k2_wide_model_matches_tpu_kernel_rounding_points(d):
+    """The wide family's heads (one head, the VAE decoder's widths) at T =
+    14 and a tiny S, bf16 in and out, against the Pallas kernel in
+    interpret mode, with the narrow family's bound."""
+    b, t, s, heads = 1, 14, 8, 1
+    q, k, v = _inputs(b * t, s, heads * d, 5 + d)
     scale = d ** -0.5
     with pltpu.force_tpu_interpret_mode():
         want = _pallas_fwd(*(jnp.asarray(z.numpy(), jnp.bfloat16) for z in (q, k, v)),
@@ -163,17 +194,47 @@ SCHEDULE = [
 ]
 
 
-def blocks_per_sm(d: int) -> int:
-    """`blocks_per_sm` of the source: an SM's 233,472 bytes of shared memory
-    over a block's rings, barriers and alignment slack, plus 1 KB reserved."""
+# The wide family's schedule: the same expressions over WIDE_WARPS and
+# WIDE_STAGES.
+WIDE_SCHEDULE = [
+    r"return 233472 / \(wide_smem_bytes<DC>\(\) \+ 1024\);",
+    r"return 1024 \+ WIDE_WARPS \* WIDE_STAGES \* \(stage_bytes<DC>\(\) \+ "
+    r"\(int\)sizeof\(uint64_t\)\);",
+    r"const long long blocks = \(units \+ WIDE_WARPS - 1\) / WIDE_WARPS;",
+    r"const long long resident = \(long long\)sms \* wide_blocks_per_sm<DC>\(\);",
+    r"<<<\(unsigned\)\(blocks < resident \? blocks : resident\), WIDE_WARPS \* 32,",
+    r"const long long step = \(long long\)gridDim\.x \* WIDE_WARPS;",
+    r"const long long first = \(long long\)blockIdx\.x \* WIDE_WARPS \+ warp;",
+    r"for \(int st = 0; st < WIDE_STAGES; \+\+st\) if \(first \+ st \* step < units\) "
+    r"load\(first \+ st \* step, st\);",
+    r"for \(long long u = first; u < units; u \+= step, \+\+i\) \{ "
+    r"const int st = i % WIDE_STAGES;",
+    r"mbar_wait\(&full\[st\], \(i / WIDE_STAGES\) & 1\);",
+    r"if \(lane == 0 && u \+ WIDE_STAGES \* step < units\) "
+    r"load\(u \+ WIDE_STAGES \* step, st\);",
+]
+
+
+def blocks_per_sm(d: int, warps: int = WARPS, stages: int = STAGES) -> int:
+    """`blocks_per_sm` (`wide_blocks_per_sm` with the wide family's warps
+    and stages) of the source: an SM's 233,472 bytes of shared memory over a
+    block's rings, barriers and alignment slack, plus 1 KB reserved."""
     stage = 3 * -(-d // BOX_CHANNELS) * ROWS * 128
-    return 233472 // (1024 + WARPS * STAGES * (stage + 8) + 1024)
+    return 233472 // (1024 + warps * stages * (stage + 8) + 1024)
 
 
 def test_persistent_schedule_is_the_source_s():
     flat = " ".join(CSRC.read_text().split())
     missing = [e for e in SCHEDULE if not re.search(e, flat)]
     assert not missing
+
+
+def test_wide_persistent_schedule_is_the_source_s():
+    flat = " ".join(CSRC.read_text().split())
+    missing = [e for e in WIDE_SCHEDULE if not re.search(e, flat)]
+    assert not missing
+    # An SM holds two blocks of the wide family at D = 512, five at 192.
+    assert [blocks_per_sm(d, WIDE_WARPS, WIDE_STAGES) for d in (192, 256, 512)] == [5, 4, 2]
 
 
 @pytest.mark.parametrize("units,sms,d", [(960, 132, 64), (15360, 132, 64), (7, 132, 64),
@@ -183,8 +244,19 @@ def test_persistent_schedule_loads_and_computes_every_unit_once(units, sms, d):
     every unit is loaded once into the stage it is computed from, after
     that stage's previous unit was computed, with the phase the wait
     expects, and computed once; no load is left in flight at exit."""
+    _schedule_computes_every_unit_once(units, sms, d, WARPS, STAGES)
+
+
+# The VAE decoder's mid block (1536 units at D = 512), its D = 256 level
+# (6144), and a grid smaller than the work.
+@pytest.mark.parametrize("units,sms,d", [(1536, 132, 512), (6144, 132, 256), (50, 3, 320)])
+def test_wide_persistent_schedule_loads_and_computes_every_unit_once(units, sms, d):
+    _schedule_computes_every_unit_once(units, sms, d, WIDE_WARPS, WIDE_STAGES)
+
+
+def _schedule_computes_every_unit_once(units, sms, d, WARPS, STAGES):
     blocks = (units + WARPS - 1) // WARPS
-    resident = sms * blocks_per_sm(d)
+    resident = sms * blocks_per_sm(d, WARPS, STAGES)
     step = (blocks if blocks < resident else resident) * WARPS
     computed = []
     for first in range(step):

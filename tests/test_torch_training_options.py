@@ -54,6 +54,7 @@ from tests.torch_port_helpers import (
     rel_l2,
     tiny_batch,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 B, T, H, W = 2, 2, 32, 48
 UNET = "model.diffusion_model."

@@ -32,6 +32,7 @@ from gcd_tpu_torch.io.convert import (
 )
 from gcd_tpu_torch.utils.config import instantiate_from_config, load_config
 from tests.torch_port_helpers import TINY_CONFIG
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PREFIXES = {"model.diffusion_model.": 1432, "first_stage_model.decoder.": 266,
