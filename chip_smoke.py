@@ -120,6 +120,41 @@ without the final `ok` line):
                    and backward in training mode: finite, indices in range,
                    the VectorQuantizer's first 512 indices equal to the
                    CPU's, the EMA codebook moved. The phase's seconds.
+  conditioning   - the text towers and the other embedders, after the
+                   first-stage phase: (a) each text embedder at its
+                   published width with seeded random bf16 weights on 28
+                   rows x 77 tokens: CLIP ViT-L/14 (FrozenCLIPEmbedder, 768
+                   x 12, QuickGELU), OpenCLIP ViT-H-14
+                   (FrozenOpenCLIPEmbedder, 1024 x 24, penultimate),
+                   ViT-bigG-14 (FrozenOpenCLIPEmbedder2, 1280 x 32,
+                   legacy false, pooled too), T5 v1.1 XXL (FrozenT5Embedder,
+                   4096 / 10240 / 24 layers / 64 heads) and ByT5-base
+                   (FrozenByT5Embedder) from strings: shapes, finite, ms,
+                   peak memory, and relative L2 against the same weights in
+                   fp32 on the card within TEXT_TOL. (b) GaussianEncoder and
+                   LowScaleEncoder on the conditioner's kl-f8 encoder, a
+                   14-frame 256 x 384 clip: each K4 / K5 launch against the
+                   model. (c) configs/infer_kubric.yaml built in code with
+                   (a)'s ViT-H-14 text embedder in place of the CLIP image
+                   embedder (crossattn (28, 77, 1024)): one request through
+                   sample_video, 25 Euler-EDM steps with CFG: frames finite
+                   in [0, 1], each kernel's launches phase 6's per clip (the
+                   77-key cross-attention launches none), frames with every
+                   kernel on vs off within 2e-2, its seconds beside phase
+                   6's. (d) two VideoUNets at svd_gcd's widths on B*T = 28,
+                   32 x 48 latents and (a)'s context: A (scale-shift norm,
+                   resblock up / down, conv projections, no per-frame
+                   temporal context, fixed blends, a 3 x 3 x 3 time kernel)
+                   and B (no temporal cross-attention, resampling without
+                   convs, ff_in), and svd_gcd's ds1 SpatialVideoTransformer
+                   without self-attention (a block option the VideoUNet
+                   does not pass on): one evaluation each,
+                   kernels on vs off within 2e-2, launches against the
+                   model of its modules (unet_launch_model), device ms by
+                   kernel; every K1 / K2 / K3 / K4 / K5 / K7 case at a shape
+                   or flag phase 4 does not hold against its plain version
+                   (1e-2), bit-identical on a second call. The phase's
+                   seconds.
   export         - the exported sampler (engine/export.py): each gcd:: op's
                    fake implementation against its kernel on the card
                    (opcheck's fake-tensor test, K4 / K5 on channels-last
@@ -164,9 +199,9 @@ without the final `ok` line):
                    converter's size) on a disk checked to hold two
                    checkpoints; the host splat's ms a 420x280 render and
                    the seconds of one example; then train.main on
-                   configs/train_kubric_max90.yaml for 4 steps (checkpoint
-                   and image log at step 4) and a --resume to step 6.
-                   Checks every loss finite, the CSV's steps 1-6, step_4,
+                   configs/train_kubric_max90.yaml for 3 steps (checkpoint
+                   and image log at step 3) and a --resume to step 5.
+                   Checks every loss finite, the CSV's steps 1-5, step_3,
                    the resumed trainer's masters and optimizer state equal
                    to the saved ones bit for bit, the image log's frames
                    and PNG, and every step's launches equal to phase 7's;
@@ -176,7 +211,7 @@ without the final `ok` line):
   eval           - the inference and evaluation entries, on phase 8's run
                    directory before it is removed (its trainer freed):
                    gcd_tpu_torch.test.main on configs/infer_kubric.yaml
-                   with phase 8's checkpoints/step_4 (whose run config
+                   with phase 8's checkpoints/step_3 (whose run config
                    names the synthetic root), scene 0, 2 generated
                    controls, 2 samples each, 14 frames at 384x256, 25
                    steps: both controls in the summary, PSNR, SSIM and
@@ -409,10 +444,10 @@ PTXAS_ENTRIES = ("flash_attention_kernel", "flash_bwd_rows_kernel", "flash_bwd_d
                  "group_norm_cl_table_kernel", "group_stats_cl_kernel")
 # Phase 8, the training entry on a synthetic Kubric-4D root: one scene of the
 # fewest frames model_frames 14 samples from, 16 views of the converter's
-# 576 x 384 points each (3,538,944 points a frame); 4 steps with a checkpoint
-# and an image log at step 4, then a resume to step 6.
+# 576 x 384 points each (3,538,944 points a frame); 3 steps with a checkpoint
+# and an image log at step 3, then a resume to step 5.
 ENTRY_FRAMES, ENTRY_VIEWS, ENTRY_POINTS = 16, 16, 576 * 384
-ENTRY_STEPS, ENTRY_RESUME_STEPS = 4, 6
+ENTRY_STEPS, ENTRY_RESUME_STEPS = 3, 5
 ENTRY_DATASET_SIZE = 16
 # Phase 9, the ParallelDomain configs: one scene of the dataset's 50 frames,
 # 19 views of the converter's 640 x 480 points each (5,836,800 points a
@@ -760,18 +795,21 @@ def record_groupnorms(engine, counter: Counter):
 
 @contextmanager
 def record_gn_conv_sites(engine, counter: Counter):
-    """Count every K7 call of the 2D ResBlocks by (N, C, H, W, F): the
-    in_layers chain on x, the out_layers chain on (N, F, H, W)."""
+    """Count every K7 call of the 2D ResBlocks by (N, C, H, W, F): each of
+    the block's fused chains (ResBlock.fused_convs), the in_layers chain on
+    x, the out_layers chain on (N, F, H, W) at the output's plane."""
     from gcd_tpu_torch.models.resblock import ResBlock
     from gcd_tpu_torch.ops import kernel_enabled
     from gcd_tpu_torch.ops.fused_gn_conv import supported
 
-    def hook(mod, inputs, _):
+    def hook(mod, inputs, out):
         x = inputs[0]
         if x.dim() != 4 or not kernel_enabled("fused_gn_conv"):
             return
-        n, c, h, w = x.shape
-        for conv, ch in zip(mod.fused_convs(), (c, mod.in_layers[2].out_channels)):
+        for conv in mod.fused_convs():
+            # in_layers' conv on x, out_layers' on the block's output plane.
+            n, ch, h, w = x.shape if conv is mod.in_layers[2] else (
+                out.shape[0], conv.in_channels, *out.shape[2:])
             if supported(torch.empty(n, ch, h, w, device="meta"), conv.weight, G):
                 counter[(n, ch, h, w, conv.out_channels)] += 1
 
@@ -1370,7 +1408,8 @@ def serve(smi: str):
     # For the sharded phase: the first request's frames, the clips' wall
     # times, the launches a clip, and the UNet's GroupNorm and K7 sites.
     phase6 = {"frames": first_frames, "clip_s": clip_s, "expected": expected,
-              "gn_unet": gn_calls["unet"], "gn_conv": gn_conv_calls}
+              "gn_unet": gn_calls["unet"], "gn_conv": gn_conv_calls,
+              "held_gn": set(gn_checked), "held_k7": set(gn_conv_sites)}
     served_run = served(engine, smi, per_batch)
     samplers_launches = samplers_phase(engine, smi, launch_model, per_batch)
     return stats, launches, served_run, launch_model, phase6, samplers_launches
@@ -1681,6 +1720,424 @@ def first_stage_phase(smi: str, launch_model: dict) -> dict:
     torch.cuda.empty_cache()
     log("first_stage_done", phase_seconds=time.perf_counter() - phase_t0, card=smi)
     return launches
+
+
+# The conditioning phase: the text towers at their published widths on
+# COND_ROWS rows of COND_TOKENS tokens (seeded random bf16 weights, held
+# against the same weights in fp32 on the card within TEXT_TOL), the
+# stochastic embedders on the kl-f8 encoder, a text-conditioned clip (the
+# flagship with ViT-H-14's text tower in place of its image tower), two
+# VideoUNets at svd_gcd's widths with the architecture options GCD's
+# configs leave off (OPTION_UNETS), and one block without self-attention
+# (OPTION_BLOCK).
+COND_ROWS, COND_TOKENS = BT, 77
+# (label, embedder, params): CLIP ViT-L/14 (768 x 12, quick GELU),
+# OpenCLIP ViT-H-14 (1024 x 24) and ViT-bigG-14 (1280 x 32), T5 v1.1 XXL
+# (4096 / 10240 / 24 layers / 64 heads), ByT5-base from strings.
+TEXT_EMBEDDERS = [
+    ("ViT-L/14", "FrozenCLIPEmbedder", {"version": "openai/clip-vit-large-patch14"}),
+    ("ViT-H-14", "FrozenOpenCLIPEmbedder", {"arch": "ViT-H-14", "layer": "penultimate"}),
+    ("ViT-bigG-14", "FrozenOpenCLIPEmbedder2", {"arch": "ViT-bigG-14", "layer": "penultimate",
+                                                "legacy": False, "always_return_pooled": True}),
+    ("t5-v1_1-xxl", "FrozenT5Embedder", {"version": "google/t5-v1_1-xxl"}),
+    ("byt5-base", "FrozenByT5Embedder", {"version": "google/byt5-base"}),
+]
+# Relative L2 of a tower in bf16 against the same (bf16-rounded) weights in
+# fp32, each output. Written before the first run: a bf16 residual stream
+# rounds each of up to 32 blocks' sums at 2^-9; 5e-2 leaves room for 32
+# such roundings adding in quadrature with a margin for the softmax and
+# norm inputs.
+TEXT_TOL = 5e-2
+OPTION_UNETS = {
+    "A": {"use_scale_shift_norm": True, "resblock_updown": True,
+          "use_linear_in_transformer": False, "use_spatial_context": False,
+          "merge_strategy": "fixed", "video_kernel_size": 3},
+    "B": {"disable_temporal_crossattention": True, "conv_resample": False,
+          "extra_ff_mix_layer": True},
+}
+# A block option the JAX VideoUNet does not pass on, run on one
+# SpatialVideoTransformer at svd_gcd's ds1 width (option_block).
+OPTION_BLOCK = {"disable_self_attn": True}
+CLIP_BOS, CLIP_EOT, T5_EOS, T5_VOCAB = 49406, 49407, 1, 32100
+
+
+def text_tokens(gen: torch.Generator, name: str):
+    """COND_ROWS inputs of COND_TOKENS tokens for an embedder: CLIP's (bos,
+    random word ids, eot, zero padding: the eot is each row's largest id),
+    T5's (random ids, eos, padding), strings for ByT5."""
+    lengths = torch.randint(8, COND_TOKENS - 1, (COND_ROWS,), generator=gen,
+                            device="cuda").tolist()
+    if name == "FrozenByT5Embedder":
+        words = ["red", "ball", "rolls", "left", "camera", "orbits", "slowly", "around",
+                 "the", "scene", "a", "cube", "falls", "onto", "floor", "blue"]
+        idx = torch.randint(0, len(words), (COND_ROWS, 12), generator=gen,
+                            device="cuda").tolist()
+        return [" ".join(words[i] for i in row)[:n] for row, n in zip(idx, lengths)]
+    clip = name != "FrozenT5Embedder"
+    ids = torch.randint(1 if clip else 2, CLIP_BOS if clip else T5_VOCAB,
+                        (COND_ROWS, COND_TOKENS), generator=gen, device="cuda")
+    pos = torch.arange(COND_TOKENS, device="cuda")[None]
+    end = torch.tensor(lengths, device="cuda")[:, None]
+    ids = torch.where(pos < end, ids, torch.zeros_like(ids))
+    ids = torch.where(pos == end, torch.full_like(ids, CLIP_EOT if clip else T5_EOS), ids)
+    if clip:
+        ids[:, 0] = CLIP_BOS
+    return ids
+
+
+def text_embedder_runs(smi: str, gen: torch.Generator) -> dict:
+    """(a): each text embedder at its published width. Returns the ViT-H-14
+    context (COND_ROWS, COND_TOKENS, 1024) for (d)."""
+    import copy
+
+    from gcd_tpu_torch.utils.config import instantiate_from_config
+
+    context = None
+    for label, name, params in TEXT_EMBEDDERS:
+        with torch.device("meta"):
+            emb = instantiate_from_config({"target": f"sgm.modules.encoders.modules.{name}",
+                                           "params": params})
+        emb = seeded_weights_(emb.to(torch.bfloat16).to_empty(device="cuda").eval(), gen)
+        text = text_tokens(gen, name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            out = emb(text)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            ms, host_ms = cuda_ms(lambda: emb(text), iters=3)
+            ref = copy.deepcopy(emb).float()(text)
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        errs = [rel_l2(o, r) for o, r in zip(outs, refs)]
+        finite = all(bool(torch.isfinite(o).all()) for o in outs)
+        params_n = sum(p.numel() for p in emb.parameters())
+        log("conditioning_text", embedder=label, target=name, params=params_n,
+            shapes=[list(o.shape) for o in outs], dtypes=[str(o.dtype) for o in outs],
+            finite=finite, ms=ms, host_ms=host_ms, peak_mem_bytes=peak,
+            rel_l2_vs_fp32=errs, tol=TEXT_TOL, card=smi)
+        if not finite or not max(errs) <= TEXT_TOL or outs[0].shape[:2] != (COND_ROWS,
+                                                                           COND_TOKENS):
+            raise RuntimeError(f"conditioning {label}: finite {finite}, shapes "
+                               f"{[tuple(o.shape) for o in outs]}, bf16 vs fp32 {errs}")
+        if label == "ViT-H-14":
+            context = out
+        del emb, out, ref, outs, refs
+        torch.cuda.empty_cache()
+    return context
+
+
+def stochastic_embedder_runs(smi: str, gen: torch.Generator, cfg: dict) -> None:
+    """(b): GaussianEncoder and LowScaleEncoder on the conditioner's kl-f8
+    encoder, a clip's frames; each K4 / K5 launch against the model (one K4
+    a GroupNorm call, K5 for those on K4's split path)."""
+    from gcd_tpu_torch.models.layers import GroupNorm32
+    from gcd_tpu_torch.ops import KERNELS
+    from gcd_tpu_torch.utils.config import instantiate_from_config
+
+    emb_models = cfg["params"]["conditioner_config"]["params"]["emb_models"]
+    dd = next(e for e in emb_models if e["target"].endswith("VideoPredictionEmbedderWithEncoder")
+              )["params"]["encoder_config"]["params"]["ddconfig"]
+    frames = torch.rand(T, H, W, 3, generator=gen, device="cuda") * 2.0 - 1.0
+    for name, params in (("GaussianEncoder", {"ddconfig": dd}),
+                         ("LowScaleEncoder", {"model_config": {"params": {
+                             "embed_dim": 4, "ddconfig": dd}}})):
+        with torch.device("meta"):
+            emb = instantiate_from_config({"target": f"sgm.modules.encoders.modules.{name}",
+                                           "params": params})
+        emb = seeded_weights_(emb.to(torch.bfloat16).to_empty(device="cuda").eval(), gen)
+        sites = Counter()
+        for fn in KERNELS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), record_groupnorms(emb, sites):
+            out = emb(frames, generator=gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in KERNELS.items()}
+        encoder = emb if name == "GaussianEncoder" else emb.model.encoder
+        expected = dict.fromkeys(KERNELS, 0)
+        expected["fused_gn"] = count_modules(encoder, GroupNorm32)
+        expected["gn_stats"] = split_calls(sites)
+        z = out[0] if isinstance(out, tuple) else out
+        log("conditioning_stochastic", embedder=name, shape=list(z.shape), seconds=seconds,
+            launches=launches, expected=expected, finite=bool(torch.isfinite(z).all()),
+            card=smi)
+        if launches != expected or not torch.isfinite(z).all():
+            raise RuntimeError(f"conditioning {name}: launches {launches}, expected {expected}")
+        del emb, out, z
+    torch.cuda.empty_cache()
+
+
+@contextmanager
+def record_attention_mlp_sites(module, sites: dict):
+    """Record the K1 (self-attention at a kernel head dim), K2 and K3 calls
+    of a module: sites[kernel][(rows, tokens, channels, heads)] or, for K3,
+    [(M, C, inner)] += 1."""
+    from gcd_tpu_torch.models.attention import CrossAttention, TemporalSelfAttention
+    from gcd_tpu_torch.models.layers import FeedForward
+    from gcd_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+
+    def hook(mod, args, kwargs):
+        x = args[0]
+        if isinstance(mod, FeedForward):
+            c = x.shape[-1]
+            sites["fused_mlp"][(x.numel() // c, c, mod.net[2].in_features)] += 1
+        elif isinstance(mod, TemporalSelfAttention):
+            sites["tattn"][(x.shape[0], x.shape[1], mod.heads * mod.dim_head, mod.heads)] += 1
+        elif (len(args) < 2 or args[1] is None) and kwargs.get("context") is None \
+                and mod.dim_head in KERNEL_HEAD_DIMS:
+            sites["flash"][(x.shape[0], x.shape[1], mod.heads * mod.dim_head, mod.heads)] += 1
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True) for m in module.modules()
+               if isinstance(m, (CrossAttention, TemporalSelfAttention, FeedForward))]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def unet_launch_model(unet, gn_sites: Counter) -> dict:
+    """One evaluation's launches of a VideoUNet from its modules: K1 a
+    spatial block whose attn1 attends to itself, K2 a temporal block's
+    attention over the frames (attn1, and attn2 where it has no context),
+    K3 a feed-forward, K7 a fused GroupNorm -> SiLU -> 3x3 chain, K4 every
+    other GroupNorm, K5 those of K4's split path (`gn_sites`, the recorded
+    calls) and one a K7."""
+    from gcd_tpu_torch.models.attention import BasicTransformerBlock, TemporalSelfAttention
+    from gcd_tpu_torch.models.layers import FeedForward, GroupNorm32
+    from gcd_tpu_torch.models.video_attention import VideoTransformerBlock
+
+    k7 = gn_conv_modules(unet)
+    temporal = sum(isinstance(getattr(m, a, None), TemporalSelfAttention)
+                   for m in unet.modules() if isinstance(m, VideoTransformerBlock)
+                   for a in ("attn1", "attn2"))
+    return {"flash": sum(not m.disable_self_attn for m in unet.modules()
+                         if isinstance(m, BasicTransformerBlock)),
+            "flash_bwd": 0, "tattn": temporal, "fused_mlp": count_modules(unet, FeedForward),
+            "fused_gn": count_modules(unet, GroupNorm32) - k7,
+            "gn_stats": split_calls(gn_sites) + k7, "fused_gn_conv": k7}
+
+
+def phase4_shapes() -> dict:
+    """The K1, K2 and K3 shapes phase 4 holds (attention_mlp_cases)."""
+    rows = (BT, T, SERVE_BATCH * BT)
+    return {"flash": {(b, s, c, c // 64) for b in rows for _, s, c, _ in LEVELS}
+            | {(BT, 384, 640, 5)},
+            "tattn": {(b, s, c, c // 64) for b in rows for _, s, c, _ in LEVELS},
+            "fused_mlp": {(b * s, c, 4 * c) for b in rows for _, s, c, _ in LEVELS}}
+
+
+def new_site_cases(gen: torch.Generator, sites: dict):
+    """Cases (attention_mlp_cases' form, 0 launches a clip) for the K1, K2
+    and K3 sites that phase 4 does not hold."""
+    from gcd_tpu_torch.ops import (flash_attention, flash_attention_plain, geglu_mlp,
+                                   geglu_mlp_plain, temporal_attention, temporal_attention_plain)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    held = phase4_shapes()
+    for name in ("flash", "tattn"):
+        for b, s, c, heads in sorted(set(sites[name]) - held[name]):
+            q, k, v = randn(b, s, c), randn(b, s, c), randn(b, s, c)
+            fn, plain = ((flash_attention, flash_attention_plain) if name == "flash"
+                         else (lambda *a: temporal_attention(*a[:3], T, a[3]),
+                               lambda *a: temporal_attention_plain(*a[:3], T, a[3])))
+            ops = 4 * b * s * (s if name == "flash" else T) * c
+            yield (name, f"({b},{s},{c}) heads={heads}", 0,
+                   lambda a=(q, k, v, heads), f=fn: f(*a),
+                   lambda a=(q, k, v, heads), f=plain: f(*a), None,
+                   4 * b * s * c * 2, ops, BF16_FLOPS)
+    for m, c, inner in sorted(set(sites["fused_mlp"]) - held["fused_mlp"]):
+        x = randn(m, c)
+        w = (randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, std=0.1),
+             randn(c, inner, std=inner ** -0.5), randn(c, std=0.1))
+        yield ("fused_mlp", mlp_label("option", m, c, inner), 0,
+               lambda a=(x, *w): geglu_mlp(*a), lambda a=(x, *w): geglu_mlp_plain(*a), None,
+               2 * (2 * m * c + 3 * inner * c + 2 * inner + c), 6 * m * c * inner, BF16_FLOPS)
+
+
+def option_block(base: dict):
+    """svd_gcd's ds1 SpatialVideoTransformer with OPTION_BLOCK."""
+    from gcd_tpu_torch.models.video_attention import SpatialVideoTransformer
+
+    ch, d_head = base["model_channels"], base["num_head_channels"]
+    depth = base["transformer_depth"]
+    return SpatialVideoTransformer(
+        ch, ch // d_head, d_head, depth if isinstance(depth, int) else depth[0],
+        base["context_dim"], ff_in=base["extra_ff_mix_layer"],
+        merge_strategy=base["merge_strategy"], use_spatial_context=base["use_spatial_context"],
+        use_linear=base["use_linear_in_transformer"], **OPTION_BLOCK)
+
+
+def option_unet_runs(smi: str, gen: torch.Generator, cfg: dict, context: torch.Tensor,
+                     phase6: dict) -> dict:
+    """(d): one evaluation of each OPTION_UNETS network at svd_gcd's widths
+    on B*T = 28 rows of 32 x 48 latents and (a)'s 77-token context, and of
+    option_block on the ds1 tokens: kernels on vs off within AB_TOL,
+    launches against unet_launch_model, device ms by kernel; then every
+    kernel case at a shape or flag phase 4 does not hold against its plain
+    version (KERNEL_TOL), bit-identical on a second call. Returns {network:
+    launches}."""
+    from gcd_tpu_torch.models.unet import VideoUNet
+    from gcd_tpu_torch.ops import KERNELS, kernel_flags
+
+    base = cfg["params"]["network_config"]["params"]
+    y_dim = base["adm_in_channels"] + base.get("aux_emb_dim", 0)
+    x = torch.randn(BT, HL, WL, base["in_channels"], generator=gen,
+                    device="cuda").permute(0, 3, 1, 2).to(torch.bfloat16)
+    sigma_noise = torch.randn(BT, generator=gen, device="cuda")
+    y = torch.randn(BT, y_dim, generator=gen, device="cuda").to(torch.bfloat16)
+    ioi = torch.zeros(BT // T, T, device="cuda")
+    tokens = torch.randn(BT, base["model_channels"], HL, WL, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    all_off = dict.fromkeys(KERNELS, False)
+    runs, new_gn, new_k7 = {}, Counter(), Counter()
+    attn_sites = {k: Counter() for k in ("flash", "tattn", "fused_mlp")}
+    networks = [(label, options, lambda o=options: VideoUNet(**{**base, **o}),
+                 lambda net: net(x, sigma_noise, context, y, num_video_frames=T,
+                                 image_only_indicator=ioi))
+                for label, options in OPTION_UNETS.items()]
+    networks.append(("block", OPTION_BLOCK, lambda: option_block(base),
+                     lambda net: net(tokens, context, T, ioi)))
+    for label, options, build, call in networks:
+        with torch.device("meta"):
+            unet = build()
+        unet = seeded_weights_(unet.to(torch.bfloat16).to_empty(device="cuda").eval(), gen)
+
+        def evaluate(unet=unet, call=call):
+            return call(unet)
+
+        gn_sites, k7_sites = Counter(), Counter()
+        with torch.no_grad():
+            evaluate()  # warm
+            for fn in KERNELS.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            with record_groupnorms(unet, gn_sites), record_gn_conv_sites(unet, k7_sites), \
+                    record_attention_mlp_sites(unet, attn_sites):
+                on = evaluate()
+            torch.cuda.synchronize()
+            launches = {n: fn.launches for n, fn in KERNELS.items()}
+            with kernel_flags(**all_off):
+                off = evaluate()
+            by_name, total = device_profile(evaluate)
+            _, wall = wall_s(evaluate, reps=2)
+        expected = unet_launch_model(unet, gn_sites)
+        err = rel_l2(on, off)
+        kernels_ms = None if by_name is None else {
+            name: sum(v for k, v in by_name.items() if any(t in k for t in tags))
+            for name, tags in PROFILE_TAGS.items()}
+        log("conditioning_option_unet", unet=label, options=options,
+            params=sum(p.numel() for p in unet.parameters()), launches=launches,
+            expected=expected, rel_l2_on_off=err, tol=AB_TOL, wall_s=wall,
+            device_ms="not measured" if total is None else total, kernels_ms=kernels_ms,
+            card=smi)
+        if launches != expected or not err <= AB_TOL or not torch.isfinite(on).all():
+            raise RuntimeError(f"option UNet {label}: launches {launches}, expected "
+                               f"{expected}, on vs off {err}")
+        runs[label] = launches
+        for site, n in gn_sites.items():
+            if site not in phase6["held_gn"]:
+                new_gn[site] += 0
+        for site in k7_sites:
+            if site not in phase6["held_k7"]:
+                new_k7[site] += 0
+        del unet, on, off
+        torch.cuda.empty_cache()
+
+    variants = {}
+    cases = list(itertools.chain(new_site_cases(gen, attn_sites),
+                                 groupnorm_cases(gen, new_gn, variants),
+                                 gn_conv_cases(gen, new_k7)))
+    for name, label, _, run, plain, library, nbytes, flops, peak in cases:
+        got = run()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, err_abs = rel_l2(got, ref), max_abs(got, ref)
+        ms, host_ms = cuda_ms(run)
+        b_ms, b_by = bound(nbytes, flops, peak)
+        log("conditioning_kernel", kernel=name, shape=label,
+            variant=variants.get(label), rel_l2=err, max_abs_err=err_abs, ms=ms,
+            host_ms=host_ms, device_ms=device_ms(run), plain_ms=cuda_ms(plain)[0],
+            library_ms=None if library is None else cuda_ms(library)[0], bound_ms=b_ms,
+            bound_by=b_by, card=smi)
+        if not err <= KERNEL_TOL:
+            raise RuntimeError(f"conditioning {name} {label}: relative L2 {err} > {KERNEL_TOL}")
+        if rel_l2(run(), got) != 0.0:
+            raise RuntimeError(f"conditioning {name} {label}: two calls differ")
+        del got, ref
+    log("conditioning_kernel_cases", cases=len(cases), card=smi)
+    return runs
+
+
+def conditioning_phase(smi: str, launch_model: dict, phase6: dict) -> tuple:
+    """The conditioning phase (module docstring): (a) the text towers, (b)
+    the stochastic embedders, (c) a text-conditioned clip through
+    sample_video, (d) the option UNets and block. Returns (the clip's
+    launches, the option networks' launches summed)."""
+    import copy
+
+    from gcd_tpu_torch.engine.build import engine_from_config
+    from gcd_tpu_torch.ops import KERNELS, kernel_flags
+    from gcd_tpu_torch.utils.config import load_config
+
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SEED + 100)
+    context = text_embedder_runs(smi, gen)
+    cfg = copy.deepcopy(load_config(CONFIG)["model"])
+    stochastic_embedder_runs(smi, gen, cfg)
+
+    # (c) The flagship with ViT-H-14's text tower in place of its CLIP
+    # image embedder: a (B*T, 77, 1024) crossattn, one request of 25
+    # Euler-EDM steps with CFG, kernels on and all off.
+    emb_models = cfg["params"]["conditioner_config"]["params"]["emb_models"]
+    emb_models[0] = {"input_key": "txt", "is_trainable": False,
+                     "target": "sgm.modules.encoders.modules.FrozenOpenCLIPEmbedder",
+                     "params": {"arch": "ViT-H-14", "layer": "penultimate"}}
+    t0 = time.perf_counter()
+    engine = engine_from_config(cfg)
+    build_s = time.perf_counter() - t0
+    frames, clip_s = {}, {}
+    for which in ("on", "off"):
+        cgen = torch.Generator("cuda").manual_seed(SEED + 101)
+        batch = random_batch(cgen)
+        batch["txt"] = text_tokens(cgen, "FrozenOpenCLIPEmbedder")[:T]
+        for fn in KERNELS.values():
+            fn.launches = 0
+        with kernel_flags(**(dict.fromkeys(KERNELS, False) if which == "off" else {})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine.sample_video(batch, generator=cgen, decoding_t=T)
+            torch.cuda.synchronize()
+        clip_s[which] = time.perf_counter() - t0
+        frames[which] = out["sampled_video"]
+        if which == "on":
+            launches = {name: fn.launches for name, fn in KERNELS.items()}
+            with torch.no_grad():
+                c, _ = engine.get_unconditional_conditioning(batch, UC_KEYS)
+    expected = launch_model["per_clip"]
+    check_frames("text clip", frames["on"].cpu().numpy(), (T, H, W, 3))
+    clip_rel = rel_l2(frames["on"], frames["off"])
+    log("conditioning_text_clip", crossattn=list(c["crossattn"].shape), clip_s=clip_s,
+        phase6_clip_s=phase6["clip_s"], engine_build_s=build_s, launches=launches,
+        expected=expected, frames_rel_l2_on_off=clip_rel, tol=AB_TOL, card=smi)
+    if (tuple(c["crossattn"].shape) != (T, COND_TOKENS, 1024) or launches != expected
+            or not clip_rel <= AB_TOL):
+        raise RuntimeError(f"text clip: crossattn {tuple(c['crossattn'].shape)}, launches "
+                           f"{launches} (expected {expected}), on vs off {clip_rel}")
+    del engine, out, frames, c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    options = option_unet_runs(smi, gen, cfg, context, phase6)
+    del context
+    torch.cuda.empty_cache()
+    log("conditioning_done", phase_seconds=time.perf_counter() - phase_t0, card=smi)
+    return launches, {name: sum(run[name] for run in options.values()) for name in KERNELS}
 
 
 def op_cases(gen: torch.Generator):
@@ -2572,7 +3029,7 @@ def entry_phase(smi: str, phase7: dict, work: str):
                  "model.params.ckpt_path=null",
                  f"lightning.modelcheckpoint.params.every_n_train_steps={ENTRY_STEPS}",
                  f"lightning.callbacks.image_logger.params.batch_frequency={ENTRY_STEPS}"]
-    # Two checkpoints (steps 4 and 6) and the root must fit on this disk.
+    # Two checkpoints (steps 3 and 5) and the root must fit on this disk.
     root_bytes = ENTRY_FRAMES * ENTRY_VIEWS * ENTRY_POINTS * 3 * 4
     need = 2 * phase7["checkpoint_bytes"] + root_bytes
     free = shutil.disk_usage(work).free
@@ -2613,7 +3070,7 @@ def entry_phase(smi: str, phase7: dict, work: str):
         image_mean=float(img.mean()), jpg_shape=list(example["jpg"].shape), card=smi)
     del xyz, rgb, example
 
-    # Run 1: four steps, the checkpoint and the image log at step 4.
+    # Run 1: three steps, the checkpoint and the image log at step 3.
     for fn in KERNELS.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2628,7 +3085,7 @@ def entry_phase(smi: str, phase7: dict, work: str):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Run 2: resume from step 4 to step 6; the restored state first.
+    # Run 2: resume from step 3 to step 5; the restored state first.
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run = train_entry.setup(["--resume", run1["logdir"], "--seed", str(SEED),
@@ -2754,7 +3211,7 @@ def check_galleries(smi: str, out: str, tags: list, seconds: list) -> None:
 
 def eval_phase(smi: str, launch_model: dict, logdir: str, work: str) -> dict:
     """The eval phase, on phase 8's run directory: the test entry on its
-    step_4 checkpoint, the infer entry on an .npz clip and a PNG, and a
+    step_3 checkpoint, the infer entry on an .npz clip and a PNG, and a
     guidance_interval request against the kernels-off one. Returns the
     kernel launches over the three."""
     import gcd_tpu_torch.infer as infer_entry
@@ -2775,7 +3232,7 @@ def eval_phase(smi: str, launch_model: dict, logdir: str, work: str) -> dict:
     total = Counter()
 
     # 1. The test entry: full width, 2 generated controls of scene 0, 2
-    # samples each, on the run's step_4 (its config names the root).
+    # samples each, on the run's step_3 (its config names the root).
     out = os.path.join(work, "eval_test")
     reset()
     t0 = time.perf_counter()
@@ -4461,6 +4918,9 @@ def main() -> int:
     first_stage_launches = first_stage_phase(smi, launch_model)
     gc.collect()
     torch.cuda.empty_cache()
+    cond_launches, option_launches = conditioning_phase(smi, launch_model, phase6_clip)
+    gc.collect()
+    torch.cuda.empty_cache()
     export_launches, artifact_launches = export_phase(smi, phase6_clip, served_run)
     train_launches, phase7 = train(smi)
     gc.collect()
@@ -4504,6 +4964,8 @@ def main() -> int:
          "sharded_launches": sharded_launches.get(name, 0),
          "samplers_launches": samplers_launches.get(name, 0),
          "first_stage_launches": first_stage_launches[name],
+         "conditioning_launches": cond_launches[name],
+         "option_unet_launches": option_launches[name],
          "max_abs_err": stats[name]["max_abs_err"], "ms": stats[name]["ms"],
          "plain_ms": stats[name]["plain_ms"], "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["t_bytes"] >= stats[name]["t_ops"]

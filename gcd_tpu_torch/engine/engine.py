@@ -121,10 +121,12 @@ class DiffusionEngine(nn.Module):
         return self.conditioner(batch, force_zero_embeddings, train, generator, ucg_keep)
 
     def get_unconditional_conditioning(
-            self, batch: Dict, force_uc_zero_embeddings: Optional[Sequence[str]] = None
-    ) -> Tuple[Dict, Dict]:
-        """(c, uc), uc with the `force_uc_zero_embeddings` keys zeroed."""
-        return self.conditioner.get_unconditional_conditioning(batch, force_uc_zero_embeddings)
+            self, batch: Dict, force_uc_zero_embeddings: Optional[Sequence[str]] = None,
+            generator: Optional[torch.Generator] = None) -> Tuple[Dict, Dict]:
+        """(c, uc), uc with the `force_uc_zero_embeddings` keys zeroed; an
+        embedder that draws random numbers draws from `generator`."""
+        return self.conditioner.get_unconditional_conditioning(
+            batch, force_uc_zero_embeddings, generator=generator)
 
     def _first_stage_dtype(self, x: torch.Tensor) -> torch.dtype:
         """The first stage's weight dtype; x's own for one without weights
@@ -165,8 +167,8 @@ class DiffusionEngine(nn.Module):
         `batch` is sample_video's plus "jpg", the target frames
         (B*T, H, W, 3) in [-1, 1]. The random numbers are `draws` --
         "posterior" (B*T, H/8, W/8, 4) for the first-stage sample,
-        "ucg_keep" {embedder index: (B*T,) keep mask} for the conditioning
-        dropout, and the loss's "sigma_rand", "noise" and "offset"
+        "ucg_keep" {embedder index: (B*T, its outputs) keep masks} for the
+        conditioning dropout, and the loss's "sigma_rand", "noise" and "offset"
         (StandardDiffusionLoss.draw) -- or, when None, `draw` makes them
         from `generator`. A key missing from `draws` is drawn from torch's
         global generator."""
@@ -196,7 +198,7 @@ class DiffusionEngine(nn.Module):
         frame_hw, drawn from `generator` (the one definition of their order
         and shapes): the posterior noise chunk by chunk (when the first
         stage samples), the conditioning-dropout keep masks of the embedders
-        with a ucg_rate (one per frame), then the loss's. A data-parallel
+        with a ucg_rate (GeneralConditioner.draw_keep), then the loss's. A data-parallel
         rank draws those of the global batch and keeps its own rows
         (engine/trainer.py), so any number of ranks makes the same step."""
         h, w = frame_hw[0] // 8, frame_hw[1] // 8
@@ -208,8 +210,7 @@ class DiffusionEngine(nn.Module):
                 torch.randn((min(chunk, frames - i), z, h, w), generator=generator,
                             device=device)
                 for i in range(0, frames, chunk)]).permute(0, 2, 3, 1)
-        keep = {i: torch.rand(frames, generator=generator, device=device) < 1.0 - rate
-                for i, rate in enumerate(self.conditioner.ucg_rates) if rate > 0.0}
+        keep = self.conditioner.draw_keep(frames, generator, device)
         if keep:
             draws["ucg_keep"] = keep
         draws.update(self.loss_fn.draw(torch.empty((frames, h, w, z), device=device),
@@ -354,7 +355,8 @@ class DiffusionEngine(nn.Module):
         "fps_id", "motion_bucket_id" (B*T,), "scaled_relative_angles"
         (B*T, 3), "image_only_indicator" (B, T), optionally "jpg". The latent
         noise is `noise` (B*T, H/8, W/8, 4), or drawn from `generator`
-        (`latent_noise`); a sampler's per-step noise is `step_noise`, or
+        (`latent_noise`) after the draws of any conditioner embedder that
+        draws random numbers (none in GCD's configs); a sampler's per-step noise is `step_noise`, or
         drawn from `generator` after the latent noise (`step_noise`).
         `denoise` as sample_latents takes it;
         `condition(batch) -> (c, uc)` and `decode(z) -> frames` in place of
@@ -363,7 +365,7 @@ class DiffusionEngine(nn.Module):
         Returns {"cond_video", "sampled_video"[, "gt_video", "sampled_z"]},
         frames (B*T, H, W, 3) in [0, 1], fp32."""
         if condition is None:
-            c, uc = self.get_unconditional_conditioning(batch, UC_ZERO_KEYS)
+            c, uc = self.get_unconditional_conditioning(batch, UC_ZERO_KEYS, generator)
         else:
             c, uc = condition(batch)
         frames = batch["cond_frames"]

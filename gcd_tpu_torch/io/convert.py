@@ -1,6 +1,8 @@
 """Weight bridge: flax parameter tree -> torch state dict (the main model;
-LPIPS, InceptionV3, the first stage with a VQ regularizer, the quantizers
-and the discriminator by their own functions at the end).
+LPIPS, InceptionV3, the first stage with a VQ regularizer, the quantizers,
+the discriminator, and the embedders whose reference names are not the
+flax paths' (the text towers, GaussianEncoder, LowScaleEncoder,
+ClassEmbedder) by their own functions at the end).
 
 The port's own copy of the JAX package's numpy path translation
 (gcd_tpu/io/convert.py: flax_path_to_torch_key, torch_layout_from_flax,
@@ -241,4 +243,150 @@ def discriminator_loss_state_dict_from_flax(variables: Dict) -> Dict[str, torch.
     params and batch_stats, and `logvar`) -> the port loss's keys."""
     out = discriminator_state_dict_from_flax(variables, "discriminator.")
     out["logvar"] = torch.tensor(float(np.asarray(variables["logvar"])))
+    return out
+
+
+# --- The text towers' checkpoint names (the port's copies of
+# gcd_tpu/io/convert.py t5_rename, hf_clip_text_to_openclip_sd and
+# openclip_text_rename). --------------------------------------------------
+
+_T5_KEY = re.compile(
+    r"^block_(\d+)_(attn\.(?:q|k|v|o)|ln\.(\d+)|wi(?:\.\d+)?|wo)\.weight$"
+)
+
+
+def t5_rename(key: str) -> str:
+    """A T5Encoder key from the flax path (block_N_attn.q.weight,
+    block_N_ln.0.weight, block_N_wi.0.weight, shared, ...) -> transformers'
+    T5EncoderModel key (encoder.block.N.layer.0.SelfAttention.q.weight,
+    encoder.block.N.layer.0.layer_norm.weight,
+    encoder.block.N.layer.1.DenseReluDense.wi_0.weight, shared.weight, ...)."""
+    if key == "shared":
+        return "shared.weight"
+    if key == "relative_attention_bias":
+        return ("encoder.block.0.layer.0.SelfAttention."
+                "relative_attention_bias.weight")
+    if key == "final_layer_norm.weight":
+        return "encoder.final_layer_norm.weight"
+    m = _T5_KEY.match(key)
+    if m:
+        n, mid = m.group(1), m.group(2)
+        if mid.startswith("attn."):
+            return f"encoder.block.{n}.layer.0.SelfAttention.{mid[5:]}.weight"
+        if mid.startswith("ln."):
+            layer = mid.split(".")[1]
+            return f"encoder.block.{n}.layer.{layer}.layer_norm.weight"
+        ff = mid.replace("wi.0", "wi_0").replace("wi.1", "wi_1")
+        return f"encoder.block.{n}.layer.1.DenseReluDense.{ff}.weight"
+    return key
+
+
+def hf_clip_text_to_openclip_sd(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Re-key a transformers CLIPTextModel state dict (numpy arrays or
+    tensors) into open_clip text-tower names (token_embedding.weight,
+    transformer.resblocks.N.attn.in_proj_*, ...), merging the separate
+    q / k / v projections into the combined in_proj."""
+    out: Dict[str, Any] = {}
+    pre = "text_model."
+    qkv: Dict[str, Dict[str, np.ndarray]] = {}
+    for k, v in sd.items():
+        if not k.startswith(pre):
+            continue
+        k = k[len(pre):]
+        if k == "embeddings.token_embedding.weight":
+            out["token_embedding.weight"] = v
+        elif k == "embeddings.position_embedding.weight":
+            out["positional_embedding"] = v
+        elif k == "final_layer_norm.weight":
+            out["ln_final.weight"] = v
+        elif k == "final_layer_norm.bias":
+            out["ln_final.bias"] = v
+        elif k.startswith("encoder.layers."):
+            rest = k[len("encoder.layers."):]
+            n, sub = rest.split(".", 1)
+            base = f"transformer.resblocks.{n}"
+            m = re.match(r"self_attn\.([qkv])_proj\.(weight|bias)$", sub)
+            if m:
+                qkv.setdefault(f"{base}|{m.group(2)}", {})[m.group(1)] = v
+            elif sub.startswith("self_attn.out_proj."):
+                out[f"{base}.attn.out_proj.{sub.rsplit('.', 1)[1]}"] = v
+            elif sub.startswith("layer_norm1."):
+                out[f"{base}.ln_1.{sub.rsplit('.', 1)[1]}"] = v
+            elif sub.startswith("layer_norm2."):
+                out[f"{base}.ln_2.{sub.rsplit('.', 1)[1]}"] = v
+            elif sub.startswith("mlp.fc1."):
+                out[f"{base}.mlp.c_fc.{sub.rsplit('.', 1)[1]}"] = v
+            elif sub.startswith("mlp.fc2."):
+                out[f"{base}.mlp.c_proj.{sub.rsplit('.', 1)[1]}"] = v
+    for key, parts in qkv.items():
+        base, leaf = key.split("|")
+        qkv_parts = [parts["q"], parts["k"], parts["v"]]
+        out[f"{base}.attn.in_proj_{leaf}"] = (torch.cat(qkv_parts) if torch.is_tensor(
+            qkv_parts[0]) else np.concatenate(qkv_parts, axis=0))
+    # CLIPTextModelWithProjection stores (out, width); open_clip stores the
+    # transposed parameter directly.
+    if "text_projection.weight" in sd:
+        out["text_projection"] = sd["text_projection.weight"].T
+    return out
+
+
+def openclip_text_rename(key: str) -> str:
+    """A CLIPTextTower key from the flax path -> open_clip's text key."""
+    if key.startswith("resblocks."):
+        return "transformer." + key
+    if key == "token_embedding":
+        return "token_embedding.weight"
+    return key
+
+
+def _strip(sd: Dict[str, torch.Tensor], head: str) -> Dict[str, torch.Tensor]:
+    return {k[len(head):]: v for k, v in sd.items() if k.startswith(head)}
+
+
+def embedder_state_dict_from_flax(embedder, params: Dict, prefix: str = ""
+                                  ) -> Dict[str, torch.Tensor]:
+    """A JAX embedder's params (gcd_tpu/models/embedders.py, as numpy) ->
+    the port embedder's keys under `prefix`, which are the reference's:
+    the T5 tower as transformers' T5EncoderModel under `transformer.`
+    (embed_tokens tied to shared), FrozenCLIPEmbedder's open_clip names
+    under `transformer.` (to which it re-keys a CLIPTextModel checkpoint),
+    the OpenCLIP towers open_clip's under `model.`
+    (with the logit_scale JAX does not keep), GaussianEncoder's encoder at
+    the root, LowScaleEncoder's KL autoencoder under `model.` (with its
+    schedule buffers, which JAX does not keep), ClassEmbedder's table as
+    embedding.weight; any other embedder as state_dict_from_flax."""
+    name = type(embedder).__name__
+    generic = state_dict_from_flax(params)
+    if name in ("FrozenT5Embedder", "FrozenByT5Embedder"):
+        sd = {"transformer." + t5_rename(k): v
+              for k, v in _strip(generic, "transformer.").items()}
+        sd["transformer.encoder.embed_tokens.weight"] = sd["transformer.shared.weight"]
+    elif name == "FrozenCLIPEmbedder":
+        sd = {"transformer." + openclip_text_rename(k): v
+              for k, v in _strip(generic, "transformer.").items()}
+    elif name in ("FrozenOpenCLIPEmbedder", "FrozenOpenCLIPEmbedder2"):
+        sd = {"model." + openclip_text_rename(k): v
+              for k, v in _strip(generic, "model.").items()}
+        sd["model.logit_scale"] = embedder.model.logit_scale.detach().float().cpu().clone()
+    elif name == "GaussianEncoder":
+        sd = _strip(generic, "encoder.")
+    elif name == "LowScaleEncoder":
+        sd = {"model." + k: v for k, v in generic.items()}
+        sd.update({k: b.detach().cpu().clone() for k, b in embedder.named_buffers()})
+    elif name == "ClassEmbedder":
+        sd = {"embedding.weight": generic["embedding.embedding"]}
+    else:
+        sd = generic
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def conditioner_state_dict_from_flax(conditioner, params: Dict, prefix: str = ""
+                                     ) -> Dict[str, torch.Tensor]:
+    """A JAX GeneralConditioner's params ({"embedders_i": ...}) -> the port
+    conditioner's keys under `prefix`, each embedder by
+    embedder_state_dict_from_flax."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, emb in enumerate(conditioner.embedders):
+        out.update(embedder_state_dict_from_flax(emb, params.get(f"embedders_{i}", {}),
+                                                 f"{prefix}embedders.{i}."))
     return out

@@ -3,7 +3,11 @@
 CrossAttention / TemporalSelfAttention / BasicTransformerBlock /
 SpatialTransformer. Self-attention with head dim 64 or 128 goes through K1
 (ops/flash_attention.py), temporal self-attention through K2
-(ops/temporal_attention.py), the GEGLU MLP through K3.
+(ops/temporal_attention.py), the GEGLU MLP through K3. Cross-attention to a
+context of more than one token (a text context) and self-attention at other
+head dims take ops/basic.py's dot_product_attention, the counterpart of the
+JAX package's `_xla_attention`, which JAX takes there too (q and k lengths
+differ, or no flash head dim): normalised in fp32, then cast.
 
 Under tensor parallelism (parallel/tensor.py `cut_unet`) an attention
 layer whose heads divide by the tensor size holds its rank's heads of
@@ -21,11 +25,8 @@ import torch
 from torch import nn
 
 from gcd_tpu_torch.models.layers import FeedForward, GroupNorm32, LayerNormFp32
-from gcd_tpu_torch.ops.flash_attention import (
-    KERNEL_HEAD_DIMS,
-    flash_attention,
-    flash_attention_plain,
-)
+from gcd_tpu_torch.ops.basic import dot_product_attention
+from gcd_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
 from gcd_tpu_torch.ops.temporal_attention import temporal_attention
 from gcd_tpu_torch.parallel.tensor import copy_to_tensor_group, row_parallel_linear
 
@@ -76,10 +77,12 @@ class CrossAttention(_Projections):
         ctx = x if context is None else self._enter(context.to(x.dtype))
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         if context is None and self.dim_head in KERNEL_HEAD_DIMS:
-            out = flash_attention(q, k, v, self.heads)
-        else:
-            out = flash_attention_plain(q, k, v, self.heads)
-        return self._leave(out)
+            return self._leave(flash_attention(q, k, v, self.heads))
+        b, sq, inner = q.shape
+        qh, kh, vh = (t.reshape(b, t.shape[1], self.heads, self.dim_head).transpose(1, 2)
+                      for t in (q, k, v))
+        out = dot_product_attention(qh, kh, vh)
+        return self._leave(out.transpose(1, 2).reshape(b, sq, inner))
 
 
 class TemporalSelfAttention(_Projections):
@@ -94,12 +97,15 @@ class TemporalSelfAttention(_Projections):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn(context) -> GEGLU FF, each pre-LN + residual."""
+    """self-attn -> cross-attn(context) -> GEGLU FF, each pre-LN + residual.
+    With `disable_self_attn` attn1 attends to the context as well."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, disable_self_attn: bool = False):
         super().__init__()
-        self.attn1 = CrossAttention(dim, n_heads, d_head)
+        self.disable_self_attn = disable_self_attn
+        self.attn1 = CrossAttention(dim, n_heads, d_head,
+                                    context_dim if disable_self_attn else None)
         self.ff = FeedForward(dim)
         self.attn2 = CrossAttention(dim, n_heads, d_head, context_dim)
         self.norm1 = LayerNormFp32(dim)
@@ -108,31 +114,56 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        x = self.attn1(self.norm1(x)) + x
+        x = self.attn1(self.norm1(x), context if self.disable_self_attn else None) + x
         x = self.attn2(self.norm2(x), context=context) + x
         return self.ff(self.norm3(x)) + x
 
 
+def token_projection(c_in: int, c_out: int, use_linear: bool) -> nn.Module:
+    """A transformer's proj_in / proj_out: a Linear on the tokens
+    (use_linear), or a 1x1 conv on the image, the reference's two forms
+    under one key."""
+    return nn.Linear(c_in, c_out) if use_linear else nn.Conv2d(c_in, c_out, 1)
+
+
+def project_in(proj: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, H*W, C') tokens through proj_in."""
+    if isinstance(proj, nn.Conv2d):
+        x = proj(x)
+    n, c, h, w = x.shape
+    tokens = x.reshape(n, c, h * w).transpose(1, 2)
+    return proj(tokens) if isinstance(proj, nn.Linear) else tokens
+
+
+def project_out(proj: nn.Module, tokens: torch.Tensor, hw) -> torch.Tensor:
+    """(N, H*W, C') tokens -> (N, C, H, W) through proj_out."""
+    if isinstance(proj, nn.Linear):
+        tokens = proj(tokens)
+    n, _, c = tokens.shape
+    x = tokens.transpose(1, 2).reshape(n, c, *hw)
+    return proj(x) if isinstance(proj, nn.Conv2d) else x
+
+
 class SpatialTransformer(nn.Module):
-    """GroupNorm + linear proj-in, transformer blocks, linear proj-out,
-    residual (the use_linear=True form GCD's UNet uses). x (N, C, H, W)."""
+    """GroupNorm + proj-in (linear, or a 1x1 conv without `use_linear`),
+    transformer blocks, proj-out, residual. x (N, C, H, W). Not reached by
+    a config: the port's default is the linear form of GCD's UNet."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, use_linear: bool = True,
+                 disable_self_attn: bool = False):
         super().__init__()
         inner = n_heads * d_head
         self.norm = GroupNorm32(in_channels, eps=1e-6)
-        self.proj_in = nn.Linear(in_channels, inner)
+        self.proj_in = token_projection(in_channels, inner, use_linear)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, n_heads, d_head, context_dim)
+            BasicTransformerBlock(inner, n_heads, d_head, context_dim, disable_self_attn)
             for _ in range(depth))
-        self.proj_out = nn.Linear(inner, in_channels)
+        self.proj_out = token_projection(inner, in_channels, use_linear)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        n, c, h, w = x.shape
-        tokens = self.proj_in(self.norm(x).reshape(n, c, h * w).transpose(1, 2))
+        tokens = project_in(self.proj_in, self.norm(x))
         for block in self.transformer_blocks:
             tokens = block(tokens, context=context)
-        out = self.proj_out(tokens).transpose(1, 2).reshape(n, c, h, w)
-        return out + x
+        return project_out(self.proj_out, tokens, x.shape[2:]) + x

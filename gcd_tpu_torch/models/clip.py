@@ -39,11 +39,11 @@ CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 class MHA(nn.Module):
     """torch.nn.MultiheadAttention's parameters (combined in_proj, out_proj),
-    self-attention only. x (B, S, C)."""
+    self-attention only, `causal` for the text towers. x (B, S, C)."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, causal: bool = False):
         super().__init__()
-        self.heads = heads
+        self.heads, self.causal = heads, causal
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = nn.Linear(width, width)
@@ -53,21 +53,31 @@ class MHA(nn.Module):
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (t.reshape(b, s, self.heads, c // self.heads).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
-        out = dot_product_attention(q, k, v)  # (B, H, S, D)
+        out = dot_product_attention(q, k, v, causal=self.causal)  # (B, H, S, D)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, c))
+
+
+class QuickGELU(nn.Module):
+    """x * sigmoid(1.702 x), the OpenAI CLIP weights' activation."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(1.702 * x)
 
 
 class CLIPBlock(nn.Module):
     """Pre-LN residual attention block: x + attn(ln_1(x)), then
-    x + mlp(ln_2(x)) with exact GELU."""
+    x + mlp(ln_2(x)) with exact GELU (or QuickGELU); `causal` masks the
+    attention to earlier tokens (the text towers)."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, causal: bool = False,
+                 quick_gelu: bool = False):
         super().__init__()
         self.ln_1 = LayerNormFp32(width)
-        self.attn = MHA(width, heads)
+        self.attn = MHA(width, heads, causal)
         self.ln_2 = LayerNormFp32(width)
         self.mlp = nn.Sequential(OrderedDict([
-            ("c_fc", nn.Linear(width, 4 * width)), ("gelu", nn.GELU()),
+            ("c_fc", nn.Linear(width, 4 * width)),
+            ("gelu", QuickGELU() if quick_gelu else nn.GELU()),
             ("c_proj", nn.Linear(4 * width, width))]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -85,19 +85,26 @@ class FeedForward(nn.Module):
 
 
 class AlphaBlender(nn.Module):
-    """Learned mix of a spatial and a temporal branch
-    (merge_strategy "learned" or "learned_with_images", the ones GCD's
-    configs use): alpha * x_spatial + (1 - alpha) * x_temporal."""
+    """Mix of a spatial and a temporal branch, alpha * x_spatial +
+    (1 - alpha) * x_temporal: alpha the constant `alpha` ("fixed", no
+    parameter), sigmoid of the learned `mix_factor` ("learned"), or that
+    with 1 for the frames the image-only indicator marks
+    ("learned_with_images")."""
 
     def __init__(self, alpha: float = 0.5, merge_strategy: str = "learned_with_images"):
         super().__init__()
-        if merge_strategy not in ("learned", "learned_with_images"):
+        if merge_strategy not in ("fixed", "learned", "learned_with_images"):
             raise ValueError(f"unsupported merge strategy {merge_strategy!r}")
         self.merge_strategy = merge_strategy
-        self.mix_factor = nn.Parameter(torch.full((1,), float(alpha)))
+        self.alpha = float(alpha)
+        if merge_strategy != "fixed":
+            self.mix_factor = nn.Parameter(torch.full((1,), float(alpha)))
 
     def get_alpha(self, image_only_indicator: Optional[torch.Tensor]) -> torch.Tensor:
-        """Scalar alpha, or (B, T) for learned_with_images."""
+        """Scalar alpha (fp32), or (B, T) for learned_with_images."""
+        if self.merge_strategy == "fixed":
+            device = None if image_only_indicator is None else image_only_indicator.device
+            return torch.full((), self.alpha, device=device)
         mix = torch.sigmoid(self.mix_factor)
         if self.merge_strategy == "learned":
             return mix[0]

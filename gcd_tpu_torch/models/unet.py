@@ -4,10 +4,12 @@
 Interface (torch layout, flattened video batch):
     x:         (B*T, in_channels, H, W)   latent + concat-cond channels
     timesteps: (B*T,)                     c_noise from the denoiser
-    context:   (B*T, L, context_dim)      CLIP-image crossattn tokens
+    context:   (B*T, L, context_dim)      crossattn tokens (CLIP image or text)
     y:         (B*T, adm_in_channels + aux_emb_dim); the last aux_emb_dim
                channels (camera embedding) feed `aux_label_emb`
     image_only_indicator: (B, T)
+    time_context: (B, Ck) or (B, L, Ck), the temporal blocks' per-video
+               context when use_spatial_context is False (optional)
 Parameter names are the reference's (model.diffusion_model.* key space).
 
 With `use_checkpoint`, every VideoResBlock and SpatialVideoTransformer call
@@ -51,38 +53,47 @@ def _recompute_context(flags: dict, fg):
 
 
 class VideoUNet(nn.Module):
+    """Every option of the JAX package's VideoUNet, with its defaults:
+    scale-shift norm, resblock up/down, conv_resample, the conv or linear
+    transformer projections, a per-frame or per-video (time_context)
+    temporal context, the fixed / learned / learned_with_images blends, any
+    video_kernel_size. `time_context_dim` sizes the temporal blocks' context
+    layers when use_spatial_context is False (JAX sizes them from the first
+    call's time_context); without it they attend over the frames, and a
+    time_context they would attend to raises. dims, time_downup,
+    num_heads_upsample, dropout and the attention backend's name are
+    accepted and unused, as in the JAX package."""
+
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
                  num_res_blocks: int, attention_resolutions: Sequence[int],
-                 channel_mult: Sequence[int] = (1, 2, 4, 8),
+                 dropout: float = 0.0, channel_mult: Sequence[int] = (1, 2, 4, 8),
+                 conv_resample: bool = True, dims: int = 2,
                  num_classes: Optional[Union[int, str]] = None,
-                 num_head_channels: int = -1, num_heads: int = -1,
+                 use_checkpoint: bool = False, num_heads: int = -1,
+                 num_head_channels: int = -1, num_heads_upsample: int = -1,
+                 use_scale_shift_norm: bool = False, resblock_updown: bool = False,
                  transformer_depth: Union[int, Sequence[int]] = 1,
                  transformer_depth_middle: Optional[int] = None,
-                 context_dim: Optional[int] = None,
+                 context_dim: Optional[int] = None, time_downup: bool = False,
+                 time_context_dim: Optional[int] = None,
                  extra_ff_mix_layer: bool = False, use_spatial_context: bool = False,
-                 merge_strategy: str = "learned_with_images", merge_factor: float = 0.5,
-                 video_kernel_size: Sequence[int] = (3, 1, 1),
-                 use_linear_in_transformer: bool = True,
-                 adm_in_channels: Optional[int] = None, aux_emb_dim: int = 0,
-                 aux_zero_init: bool = False, max_ddpm_temb_period: int = 10000,
-                 use_checkpoint: bool = False,
+                 merge_strategy: str = "fixed", merge_factor: float = 0.5,
                  spatial_transformer_attn_type: str = "softmax",
-                 dropout: float = 0.0):
+                 video_kernel_size: Union[int, Sequence[int]] = 3,
+                 use_linear_in_transformer: bool = False,
+                 adm_in_channels: Optional[int] = None, aux_emb_dim: int = 0,
+                 aux_zero_init: bool = False, disable_temporal_crossattention: bool = False,
+                 max_ddpm_temb_period: int = 10000):
         super().__init__()
-        # The forms GCD's configs use; the JAX package's other options
-        # (scale-shift norm, resblock up/down, conv proj-in, per-pixel
-        # context) are not ported. The attention backend name only matters
-        # for the reference's CUDA backends.
-        if not (use_linear_in_transformer and use_spatial_context):
-            raise NotImplementedError("VideoUNet port covers use_linear_in_transformer="
-                                      "True, use_spatial_context=True")
         if num_classes not in (None, "sequential"):
-            raise NotImplementedError(f"num_classes={num_classes!r}")
+            raise NotImplementedError(f"num_classes={num_classes!r}: GCD and SVD use "
+                                      "'sequential', as the JAX package requires")
         mc = model_channels
         emb_dim = 4 * mc
         depths = ([transformer_depth] * len(channel_mult)
                   if isinstance(transformer_depth, int) else list(transformer_depth))
-        depth_middle = transformer_depth_middle or depths[-1]
+        depth_middle = (depths[-1] if transformer_depth_middle is None
+                        else transformer_depth_middle)
         self.model_channels = mc
         self.use_checkpoint = use_checkpoint
         self.aux_emb_dim = aux_emb_dim
@@ -101,9 +112,10 @@ class VideoUNet(nn.Module):
                     for p in self.aux_label_emb.parameters():
                         nn.init.zeros_(p)
 
-        def res(ch_in, ch_out):
+        def res(ch_in, ch_out, up=False, down=False):
             return VideoResBlock(ch_in, emb_dim, ch_out, video_kernel_size,
-                                 merge_strategy, merge_factor)
+                                 merge_strategy, merge_factor,
+                                 use_scale_shift_norm=use_scale_shift_norm, up=up, down=down)
 
         def attn(ch, depth):
             if num_head_channels == -1:
@@ -113,7 +125,11 @@ class VideoUNet(nn.Module):
             return SpatialVideoTransformer(
                 ch, n_heads, d_head, depth, context_dim, ff_in=extra_ff_mix_layer,
                 merge_strategy=merge_strategy, merge_factor=merge_factor,
-                max_time_embed_period=max_ddpm_temb_period)
+                max_time_embed_period=max_ddpm_temb_period,
+                use_spatial_context=use_spatial_context,
+                use_linear=use_linear_in_transformer,
+                disable_temporal_crossattention=disable_temporal_crossattention,
+                time_context_dim=time_context_dim)
 
         self.input_blocks = nn.ModuleList(
             [nn.ModuleList([nn.Conv2d(in_channels, mc, 3, padding=1)])])
@@ -129,7 +145,9 @@ class VideoUNet(nn.Module):
                 chans.append(ch)
             if level != len(channel_mult) - 1:
                 ds *= 2
-                self.input_blocks.append(nn.ModuleList([Downsample(ch)]))
+                self.input_blocks.append(nn.ModuleList(
+                    [res(ch, ch, down=True) if resblock_updown
+                     else Downsample(ch, use_conv=conv_resample)]))
                 chans.append(ch)
 
         self.middle_block = nn.ModuleList([res(ch, ch), attn(ch, depth_middle), res(ch, ch)])
@@ -143,7 +161,8 @@ class VideoUNet(nn.Module):
                     layers.append(attn(ch, depths[level]))
                 if level and i == num_res_blocks:
                     ds //= 2
-                    layers.append(Upsample(ch))
+                    layers.append(res(ch, ch, up=True) if resblock_updown
+                                  else Upsample(ch, use_conv=conv_resample))
                 self.output_blocks.append(nn.ModuleList(layers))
 
         self.out = nn.Sequential(GroupNorm32(ch, silu=True), nn.Identity(),
@@ -156,20 +175,21 @@ class VideoUNet(nn.Module):
         return checkpoint(block, *args, use_reentrant=False,
                           context_fn=lambda: (nullcontext(), _recompute_context(flags, fg)))
 
-    def _run(self, layers: nn.ModuleList, h, emb, context, t, ioi):
+    def _run(self, layers: nn.ModuleList, h, emb, context, t, ioi, time_context):
         for layer in layers:
             if isinstance(layer, VideoResBlock):
                 h = self._remat(layer, h, emb, ioi, t)
             elif isinstance(layer, SpatialVideoTransformer):
-                h = self._remat(layer, h, context, t, ioi)
+                h = self._remat(layer, h, context, t, ioi, time_context)
             else:
                 h = layer(h)
         return h
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor, y: Optional[torch.Tensor] = None,
+                context: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None,
                 num_video_frames: int = 1,
-                image_only_indicator: Optional[torch.Tensor] = None) -> torch.Tensor:
+                image_only_indicator: Optional[torch.Tensor] = None,
+                time_context: Optional[torch.Tensor] = None) -> torch.Tensor:
         dtype = self.time_embed[0].weight.dtype
         t = num_video_frames
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(dtype))
@@ -184,14 +204,16 @@ class VideoUNet(nn.Module):
         fg = current_frame_group()
         if fg is not None:  # this rank's frames
             x, ioi = local_frames(x, t, fg), ioi[:, fg.frame_slice]
-        context = context.to(dtype)
+        context = None if context is None else context.to(dtype)
+        time_context = None if time_context is None else time_context.to(dtype)
 
         h = x.to(dtype)
         hs: List[torch.Tensor] = []
         for layers in self.input_blocks:
-            h = self._run(layers, h, emb, context, t, ioi)
+            h = self._run(layers, h, emb, context, t, ioi, time_context)
             hs.append(h)
-        h = self._run(self.middle_block, h, emb, context, t, ioi)
+        h = self._run(self.middle_block, h, emb, context, t, ioi, time_context)
         for layers in self.output_blocks:
-            h = self._run(layers, torch.cat([h, hs.pop()], dim=1), emb, context, t, ioi)
+            h = self._run(layers, torch.cat([h, hs.pop()], dim=1), emb, context, t, ioi,
+                          time_context)
         return self.out[2](self.out[0](h))

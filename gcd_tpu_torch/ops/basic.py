@@ -23,13 +23,23 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None, causal: bool = False,
+                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(..., Sq, D) x (..., Sk, D) -> (..., Sq, D) in v's dtype: fp32 logits
     and softmax, weights cast to v's dtype for the PV product, fp32
-    accumulation (gcd_tpu/ops/attention.py:_xla_attention). The attention of
-    heads that no kernel takes (the VAE's width-512 head, CLIP's width-80
-    heads)."""
+    accumulation (gcd_tpu/ops/attention.py:_xla_attention). `causal` sets
+    the logits of key j > query i to -1e9 (the text towers' mask); `bias`
+    is added to the fp32 logits before the mask (T5's position bias,
+    broadcast against (..., Sq, Sk)). The attention that no kernel takes:
+    cross-attention to a context of more than one token, heads of widths
+    K1 does not take (the VAE's 512, CLIP's 80), the text towers."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    if causal:
+        sq, sk = logits.shape[-2:]
+        future = torch.ones(sq, sk, dtype=torch.bool, device=logits.device).triu(1)
+        logits = logits.masked_fill(future, -1e9)
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(weights.float(), v.float()).to(v.dtype)

@@ -72,6 +72,11 @@ REGISTRY = {
         "gcd_tpu_torch.models.embedders.CameraEmbedder",
     "sgm.modules.encoders.modules.SphericalEmbedder":
         "gcd_tpu_torch.models.embedders.SphericalEmbedder",
+    **{f"sgm.modules.encoders.modules.{name}": f"gcd_tpu_torch.models.embedders.{name}"
+       for name in ("IdentityEncoder", "ClassEmbedder", "SpatialRescaler", "GaussianEncoder",
+                    "LowScaleEncoder", "FrozenT5Embedder", "FrozenByT5Embedder",
+                    "FrozenCLIPEmbedder", "FrozenOpenCLIPEmbedder",
+                    "FrozenOpenCLIPEmbedder2")},
     "sgm.modules.diffusionmodules.denoiser.Denoiser":
         "gcd_tpu_torch.diffusion.denoiser.Denoiser",
     "sgm.modules.diffusionmodules.denoiser.DiscreteDenoiser":

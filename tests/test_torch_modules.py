@@ -108,7 +108,9 @@ def test_spatial_video_transformer():
     ref = np.asarray(jax.jit(
         lambda p, x, c, i: jmod.apply({"params": p}, x, c, None, t, i))(
             params, *args[:2], args[4]))
-    port = load_port(SpatialVideoTransformer(32, 2, 16, 1, 24, ff_in=True), params)
+    port = load_port(SpatialVideoTransformer(
+        32, 2, 16, 1, 24, ff_in=True, merge_strategy="learned_with_images",
+        use_spatial_context=True, use_linear=True), params)
     with torch.no_grad():
         out = port(nchw(x), torch.from_numpy(ctx), t, torch.from_numpy(ioi))
     assert rel_l2(nhwc(out), ref) <= TOL

@@ -148,9 +148,9 @@ def _chip_smoke_imports():
 _NO_JAX = (
     "import sys\n"
     "bad = sorted(m for m in sys.modules if m in ('jax', 'gcd_tpu', 'cv2', 'imageio',\n"
-    "                                              'matplotlib', 'PIL')\n"
+    "                                              'matplotlib', 'PIL', 'transformers')\n"
     "             or m.startswith(('jax.', 'flax', 'optax', 'gcd_tpu.', 'orbax', 'cv2.',\n"
-    "                              'imageio.', 'matplotlib.', 'PIL.')))\n"
+    "                              'imageio.', 'matplotlib.', 'PIL.', 'transformers.')))\n"
     "assert not bad, bad\n"
 )
 
@@ -165,7 +165,8 @@ def _run_no_jax(code: str) -> None:
 def test_port_imports_no_jax():
     """Importing every gcd_tpu_torch module loads neither JAX nor any module
     of the JAX package, nor flax, optax, cv2, imageio, matplotlib, PIL or
-    orbax (the card's machine has none of them); nor does drawing with the
+    orbax (the card's machine has none of them), nor transformers (the text
+    embedders import it only to tokenise strings); nor does drawing with the
     copied colour tables and glyph atlas, whose generator
     (gcd_tpu_torch/assets/make_assets.py, which needs cv2 and matplotlib)
     is no module of the package."""
