@@ -26,7 +26,10 @@ without the final `ok` line):
                    3x3 conv (its 14 UNet shapes at N = 28, and at N = 56,
                    the served batch; K1, K2 and K3 likewise at B*T = 28
                    and 56, K1 also at D = 128 and K2 also at D = 16, 80
-                   and 128 at ds2's width; K4 / K5 also at the served
+                   and 128 at ds2's width, and with two row tiles at T = 25
+                   and 32 (one clip with CFG, B*T = 50 / 64) at the four
+                   levels' widths, plus a ragged S at ds1 and D = 16 at
+                   ds2, T = 25; K4 / K5 also at the served
                    batch's GroupNorm sites, the conditioner's and the
                    UNet's N doubled); K4 / K5
                    also on channels-first copies of those shapes; K1, K2,
@@ -45,9 +48,12 @@ without the final `ok` line):
                    split: K5, then the apply pass).
   5. ab          - the flagship UNet evaluation, the decode and the
                    conditioner with every kernel on vs off (relative
-                   L2 <= 2e-2); the UNet's and the decode's wall times and
-                   torch.profiler device time by kernel, with the GroupNorm
-                   kernels on vs off and with K7 on vs off.
+                   L2 <= 2e-2); one flagship UNet evaluation of a T = 25
+                   clip with CFG (B*T = 50) with K2 on vs K2 plain (2e-2,
+                   K2's launches one a temporal block, none when plain,
+                   each one's device ms); the UNet's and the decode's wall
+                   times and torch.profiler device time by kernel, with
+                   the GroupNorm kernels on vs off and with K7 on vs off.
   6. slice       - two requests through DiffusionEngine.sample_video:
                    random 14-frame 384x256 clips and camera moves, 25
                    Euler-EDM steps with per-frame CFG up to 1.5, one 14-frame
@@ -79,9 +85,16 @@ without the final `ok` line):
                    DPM++ 2S; 28 rows each, 14 under IdentityGuider), each
                    kernel's launches the conditioner's and decode's plus
                    phase 4's per-evaluation counts at those rows, the same
-                   seed twice bit-identical; wall s (both runs), profiled
-                   device ms of the Euler-ancestral, IdentityGuider and
-                   VanillaCFG repeats.
+                   seed twice bit-identical (DPM++ 2S: once; its artifact
+                   runs it again); wall s (both runs), profiled
+                   device ms of the IdentityGuider and VanillaCFG repeats. DPM++ 2S ancestral is also exported
+                   at full width (the conditioner, its guided evaluation
+                   and the decode) and run through load_sampler on the
+                   same batch and generator seed (the latent noise, then
+                   the per-step noise): frames finite in [0, 1] within 2e-2
+                   of the eager clip's (bit-identical or not, logged), each
+                   kernel's launches the eager clip's; export, load and
+                   clip seconds beside the eager clip's, the artifact's MB.
                    (c) one batch of two requests through SamplerServer with
                    Euler-ancestral (56 rows), launches counted. (d)
                    validation_metrics with seeded random LPIPS weights:
@@ -200,7 +213,7 @@ without the final `ok` line):
                    checkpoints; the host splat's ms a 420x280 render and
                    the seconds of one example; then train.main on
                    configs/train_kubric_max90.yaml for 3 steps (checkpoint
-                   and image log at step 3) and a --resume to step 5.
+                   and image log at step 3) and a --resume to step 4.
                    Checks every loss finite, the CSV's steps 1-5, step_3,
                    the resumed trainer's masters and optimizer state equal
                    to the saved ones bit for bit, the image log's frames
@@ -417,6 +430,10 @@ PROFILE_TAGS = {"flash": ("flash_attention_kernel",),
                 "fused_gn_conv": ("gn_silu_conv3x3_kernel", "splitk_sum_kernel")}
 LEVELS = [("ds1", 1536, 320, 5), ("ds2", 384, 640, 5), ("ds4", 96, 1280, 5),
           ("mid", 24, 1280, 1)]
+# Frame counts past one 16-row tile that K2 is held at (two row tiles):
+# SVD-XT's 25 and the kernel's largest, 32; the first also drives one
+# flagship UNet evaluation (phase 5).
+TALL_FRAMES = (25, 32)
 SOURCES = {
     "flash": ("gcd_tpu_torch/csrc/flash_attention.cu",
               "gcd_tpu/ops/flash_attention.py:55"),
@@ -445,9 +462,9 @@ PTXAS_ENTRIES = ("flash_attention_kernel", "flash_bwd_rows_kernel", "flash_bwd_d
 # Phase 8, the training entry on a synthetic Kubric-4D root: one scene of the
 # fewest frames model_frames 14 samples from, 16 views of the converter's
 # 576 x 384 points each (3,538,944 points a frame); 3 steps with a checkpoint
-# and an image log at step 3, then a resume to step 5.
+# and an image log at step 3, then a resume to step 4.
 ENTRY_FRAMES, ENTRY_VIEWS, ENTRY_POINTS = 16, 16, 576 * 384
-ENTRY_STEPS, ENTRY_RESUME_STEPS = 3, 5
+ENTRY_STEPS, ENTRY_RESUME_STEPS = 3, 4
 ENTRY_DATASET_SIZE = 16
 # Phase 9, the ParallelDomain configs: one scene of the dataset's 50 frames,
 # 19 views of the converter's 640 x 480 points each (5,836,800 points a
@@ -851,8 +868,8 @@ def mlp_label(level: str, m: int, c: int, inner: int) -> str:
     return f"{level} M={m} C={c} I={inner}"
 
 
-def tattn_label(level: str, bt: int, s: int, c: int) -> str:
-    return f"{level} ({bt},{s},{c}) T={T}"
+def tattn_label(level: str, bt: int, s: int, c: int, t: int = T) -> str:
+    return f"{level} ({bt},{s},{c}) T={t}"
 
 
 def grouped_var_mean(x: torch.Tensor):
@@ -951,6 +968,26 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
                    lambda q=qt, k=kt, v=vt, h=heads: temporal_attention_plain(q, k, v, T, h),
                    lambda th=th: F.scaled_dot_product_attention(*th),
                    qkv_bytes * bt // BT, 4 * bt * s * T * c, BF16_FLOPS)
+        # K2 with two row tiles (not on the 14-frame clip's path; 0 launches
+        # per clip): one clip with CFG at T = 25 and 32, the level's width;
+        # at ds1 also a ragged S (no multiple of 8), at ds2 also D = 16.
+        for tt in TALL_FRAMES:
+            extra = [(s, heads, "")]
+            if name == "ds1" and tt == TALL_FRAMES[0]:
+                extra.append((s - 5, heads, " ragged S"))
+            if name == "ds2" and tt == TALL_FRAMES[0]:
+                extra.append((s, c // 16, f" {c // 16}x16"))
+            for st, hd, note in extra:
+                bt2 = 2 * tt
+                qt, kt, vt = randn(bt2, st, c), randn(bt2, st, c), randn(bt2, st, c)
+                th = [z.reshape(2, tt, st, hd, c // hd).permute(0, 2, 3, 1, 4)
+                      .reshape(2 * st, hd, tt, c // hd).contiguous() for z in (qt, kt, vt)]
+                yield ("tattn", tattn_label(name, bt2, st, c, tt) + note, 0,
+                       lambda q=qt, k=kt, v=vt, t=tt, h=hd: temporal_attention(q, k, v, t, h),
+                       lambda q=qt, k=kt, v=vt, t=tt, h=hd:
+                       temporal_attention_plain(q, k, v, t, h),
+                       lambda th=th: F.scaled_dot_product_attention(*th),
+                       4 * bt2 * st * c * 2, 4 * bt2 * st * tt * c, BF16_FLOPS)
         if name == "ds2":
             # K2 at the other box layouts it takes (not on the UNet's path; 0
             # launches per clip): D = 16 (several heads a box), 80 (a partial
@@ -1296,6 +1333,39 @@ def serve(smi: str):
     if not all(v <= AB_TOL for v in ab.values()):
         raise RuntimeError(f"kernels on vs off: {ab} > {AB_TOL}")
     del den_on, den_off, den_k7_off, raw_on, raw_off, dec_on, dec_off
+
+    # One flagship UNet evaluation of a T = 25 clip with CFG (B*T = 50; the
+    # conditioning rows of phase 4's batch, cycled): K2 with two row tiles
+    # against K2 forced to its plain version.
+    t25 = TALL_FRAMES[0]
+    rows25 = torch.arange(2 * t25, device="cuda") % BT
+    cond25 = {k: v[rows25] for k, v in cond.items()}
+    x25 = torch.randn(2 * t25, HL, WL, 4, generator=gen, device="cuda").permute(0, 3, 1, 2)
+    noise25, ioi25 = torch.zeros(2 * t25, device="cuda"), torch.zeros(2, t25, device="cuda")
+
+    def unet25():
+        return engine.network_fn(x25, noise25, cond25, t25, ioi25)
+
+    k2 = KERNELS["tattn"]
+    with torch.no_grad():
+        k2.launches = 0
+        on25 = unet25()
+        k2_on, k2.launches = k2.launches, 0
+        with kernel_flags(tattn=False):
+            off25 = unet25()
+            k2_off = k2.launches
+            off25_ms = device_ms(unet25, iters=3)
+        on25_ms = device_ms(unet25, iters=3)
+    k2.launches = 0
+    err25 = rel_l2(on25, off25)
+    log("unet_t25", rows=2 * t25, frames=t25, rel_l2=err25, tol=AB_TOL, k2_launches=k2_on,
+        k2_plain_launches=k2_off, device_ms={"k2": on25_ms, "k2_plain": off25_ms},
+        out_std=float(on25.float().std()), card=smi)
+    if not (err25 <= AB_TOL and torch.isfinite(on25).all()) or k2_off \
+            or k2_on != count_modules(unet, VideoTransformerBlock):
+        raise RuntimeError(f"UNet at T = {t25}: K2 on vs plain {err25} (tol {AB_TOL}), K2 "
+                           f"launches {k2_on} on, {k2_off} plain")
+    del on25, off25, x25, cond25
 
     # Device time by kernel over one UNet evaluation and one decode, GroupNorm
     # kernels on and off, K7 on and off; the idle share is against the
@@ -2217,7 +2287,7 @@ def export_phase(smi: str, phase6: dict, served_run: dict) -> tuple:
         raise RuntimeError(f"artifact of {len(blob)} bytes holds the weights ({weight_bytes})")
 
     clip_s, launches, frames = [], None, None
-    for rep in range(CLIPS + 1):
+    for rep in range(CLIPS):
         for fn in KERNELS.values():
             fn.launches = 0
         gen = torch.Generator("cuda").manual_seed(SEED + 10)
@@ -2248,8 +2318,8 @@ def export_phase(smi: str, phase6: dict, served_run: dict) -> tuple:
         return programs["step"](weights, x, ladder[0], ladder[1], ioi, *cond[:2 * n])
 
     def eager_step():
-        return engine.sampler.step(engine.sampling_denoiser(ioi), x, ladder[0], ladder[1], c, uc,
-                                   True)
+        evaluate = engine.sampler.evaluator(engine.sampling_denoiser(ioi), c, uc)
+        return engine.sampler.step(evaluate, x, ladder[0], ladder[1], True)
 
     with torch.no_grad():
         step_same = torch.equal(exported_step(), eager_step())
@@ -2505,13 +2575,16 @@ SAMPLER_RUNS = [("EDMSampler", {"s_churn": 5.0, "s_tmin": 0.5, "s_tmax": 50.0}),
                 ("DPMPP2SAncestralSampler", {}), ("DPMPP2MSampler", {}),
                 ("LinearMultistepSampler", {"order": 4})]
 PLAIN_STEPS = 3
+# The sampler (a) also exports and runs as an artifact: two evaluations a
+# step, the Euler-only last step and per-step noise from the generator.
+EXPORTED_SAMPLER = "DPMPP2SAncestralSampler"
 DDPM_LADDER = {"target": "sgm.modules.diffusionmodules.discretizer.LegacyDDPMDiscretization"}
 SCALINGS = ("EDMScaling", "EpsScaling", "VScaling", "DumbScaling")
 METRIC_TOL = 1e-4  # relative, the card's fp32 (TF32 off) LPIPS / features against the CPU's
 # The runs whose repeat is profiled (device ms): the profiler slows a
-# 25-step clip several-fold, so of (a) only Euler-ancestral, and (b)'s
-# 14-row and 28-row guiders.
-PROFILED_RUNS = ("EulerAncestralSampler", "IdentityGuider", "VanillaCFG")
+# 25-step clip several-fold (≈ 14 s), so none of (a), and (b)'s 14-row and
+# 28-row guiders.
+PROFILED_RUNS = ("IdentityGuider", "VanillaCFG")
 
 
 def samplers_phase(engine, smi: str, launch_model: dict, per_batch: dict) -> dict:
@@ -2526,6 +2599,7 @@ def samplers_phase(engine, smi: str, launch_model: dict, per_batch: dict) -> dic
     kernels' launches over the phase's counted runs."""
     import copy
 
+    from gcd_tpu_torch.engine.export import export_sampler, load_sampler
     from gcd_tpu_torch.engine.server import make_engine_sample_fn
     from gcd_tpu_torch.models.inception import InceptionV3
     from gcd_tpu_torch.models.lpips import LPIPS
@@ -2558,7 +2632,8 @@ def samplers_phase(engine, smi: str, launch_model: dict, per_batch: dict) -> dic
                 for name in KERNELS}
 
     def clip(label: str, sampler_cfg: dict, steps: int, seed: int, denoiser_cfg=None,
-             want_evals=None) -> None:
+             want_evals=None, repeat: bool = True) -> tuple:
+        # Returns the first clip's frames, launches and seconds.
         engine.sampler = instantiate_from_config(copy.deepcopy(sampler_cfg))
         engine.denoiser = (instantiate_from_config(denoiser_cfg) if denoiser_cfg
                            else denoiser0)
@@ -2566,7 +2641,7 @@ def samplers_phase(engine, smi: str, launch_model: dict, per_batch: dict) -> dic
         doubled = type(engine.sampler.guider).__name__ != "IdentityGuider"
         want_rows = [2 * T if g and doubled else T for step in plan for g in step]
         frames, secs, device = [], [], None
-        for rep in range(2):
+        for rep in range(2 if repeat else 1):
             gen = torch.Generator("cuda").manual_seed(seed)
             batch = random_batch(gen)
 
@@ -2588,7 +2663,7 @@ def samplers_phase(engine, smi: str, launch_model: dict, per_batch: dict) -> dic
             secs.append(time.perf_counter() - t0)
             frames.append(out)
         want = expected(got_rows, outside)
-        same = torch.equal(frames[0], frames[1])
+        same = torch.equal(frames[0], frames[1]) if repeat else None
         log("samplers", run=label, sampler=type(engine.sampler).__name__,
             guider=type(engine.sampler.guider).__name__,
             denoiser=type(engine.denoiser).__name__, steps=steps, evaluations=len(got_rows),
@@ -2599,19 +2674,57 @@ def samplers_phase(engine, smi: str, launch_model: dict, per_batch: dict) -> dic
         if got_rows != want_rows or (want_evals is not None and len(got_rows) != want_evals):
             raise RuntimeError(f"samplers {label}: evaluations of {got_rows} rows, the plan's "
                                f"{want_rows} (expected {want_evals})")
-        if launches != want or not same:
+        if launches != want or same is False:
             raise RuntimeError(f"samplers {label}: launches {launches}, expected {want}; "
                                f"bit-identical repeat {same}")
+        return frames[0], launches, secs[0]
+
+    def exported(label: str, seed: int, eager: tuple) -> None:
+        # The engine's sampler exported at full width and run on the eager
+        # clip's batch and generator seed (export_phase's pattern).
+        frames0, launches0, secs0 = eager
+        gen = torch.Generator("cuda").manual_seed(seed)
+        batch = random_batch(gen)
+        params = engine.state_dict()
+        t0 = time.perf_counter()
+        blob = export_sampler(engine, params, batch, decoding_t=T)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sample = load_sampler(blob)
+        load_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches, _ = counted(lambda: sample(params, batch, generator=gen)["sampled_video"])
+        torch.cuda.synchronize()
+        clip_s = time.perf_counter() - t0
+        same, err = torch.equal(out, frames0), rel_l2(out, frames0)
+        log("samplers_exported", run=label, programs=sorted(sample.programs),
+            step_noise=sample.header["sampler"]["step_noise"], export_seconds=export_s,
+            load_seconds=load_s, artifact_mb=len(blob) / 1e6, clip_seconds=clip_s,
+            eager_clip_seconds=secs0, bit_identical_to_eager=same, rel_l2=err, tol=AB_TOL,
+            launches=launches, eager_launches=launches0, card=smi)
+        check_frames(f"samplers exported {label}", out.cpu().numpy(), (T, H, W, 3))
+        if not err <= AB_TOL or launches != launches0:
+            raise RuntimeError(f"samplers exported {label}: frames {err} (tol {AB_TOL}), "
+                               f"launches {launches} against the eager clip's {launches0}")
+        del sample, blob, out
+        gc.collect()
+        torch.cuda.empty_cache()
 
     try:
-        # (a) The six samplers at the config's steps.
+        # (a) The six samplers at the config's steps; DPM++ 2S ancestral
+        # also exported and run (its repeat is the artifact's run).
         steps = base["params"]["num_steps"]
         for i, (name, extra) in enumerate(SAMPLER_RUNS):
             cfg = copy.deepcopy(base)
             cfg["target"] = SAMPLING + name
             cfg["params"].update(extra)
             second = name in ("HeunEDMSampler", "DPMPP2SAncestralSampler")
-            clip(name, cfg, steps, SEED + 50 + i, want_evals=2 * steps - 1 if second else steps)
+            eager = clip(name, cfg, steps, SEED + 50 + i,
+                         want_evals=2 * steps - 1 if second else steps,
+                         repeat=name != EXPORTED_SAMPLER)
+            if name == EXPORTED_SAMPLER:
+                exported(name, SEED + 50 + i, eager)
             if name == "EDMSampler":
                 churned = sum(p["bump"] > 0 for p in engine.sampler.plan(engine.sampler.sigmas()))
                 if not 0 < churned < steps:
@@ -3029,7 +3142,7 @@ def entry_phase(smi: str, phase7: dict, work: str):
                  "model.params.ckpt_path=null",
                  f"lightning.modelcheckpoint.params.every_n_train_steps={ENTRY_STEPS}",
                  f"lightning.callbacks.image_logger.params.batch_frequency={ENTRY_STEPS}"]
-    # Two checkpoints (steps 3 and 5) and the root must fit on this disk.
+    # Two checkpoints (steps 3 and 4) and the root must fit on this disk.
     root_bytes = ENTRY_FRAMES * ENTRY_VIEWS * ENTRY_POINTS * 3 * 4
     need = 2 * phase7["checkpoint_bytes"] + root_bytes
     free = shutil.disk_usage(work).free
@@ -3085,7 +3198,7 @@ def entry_phase(smi: str, phase7: dict, work: str):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Run 2: resume from step 3 to step 5; the restored state first.
+    # Run 2: resume from step 3 to step 4; the restored state first.
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run = train_entry.setup(["--resume", run1["logdir"], "--seed", str(SEED),

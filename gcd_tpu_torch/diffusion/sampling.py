@@ -19,21 +19,33 @@ With a `guidance_interval` (lo, hi), each denoiser evaluation applies CFG
 when its own sigma (churn's sigma_hat, Heun's next sigma, DPM++ 2S's
 exp(-s)) is in [lo, hi] and runs the bare conditional batch otherwise,
 compared in float32 as JAX's `denoise` compares it.
+
+Every loop takes its denoiser evaluations through one callable,
+`evaluate(x, sigma, guided) -> denoised` (sigma the (N,) fp32 rows of x):
+`__call__` builds it over the eager denoiser (`evaluator`), and an exported
+sampler (engine/export.py) over its exported evaluation programs, so each
+sampler's update has one definition, `run`, that both execute. An exported
+sampler rebuilds the sampler from its record (`sampler_record` /
+`sampler_from_record`): its class, its own scalars, the ladder and the
+host plan, float32 values carried through JSON exactly.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from gcd_tpu_torch.diffusion.denoiser import _append_dims
-from gcd_tpu_torch.utils.config import instantiate_from_config
+from gcd_tpu_torch.utils.config import get_obj_from_str, instantiate_from_config
 
 DEFAULT_GUIDER = {"target": "sgm.modules.diffusionmodules.guiders.IdentityGuider"}
+SAMPLING = "sgm.modules.diffusionmodules.sampling."  # the samplers' config names
 f32 = np.float32
 TINY = f32(1e-14)  # JAX's "this sigma is 0" threshold
+# evaluate(x, sigma, guided) -> denoised, sigma the (N,) fp32 rows of x.
+Evaluate = Callable[[torch.Tensor, torch.Tensor, bool], torch.Tensor]
 
 
 def get_ancestral_step(sigma_from: np.float32, sigma_to: np.float32, eta: float = 1.0):
@@ -58,6 +70,9 @@ class BaseDiffusionSampler:
     guider_config gets IdentityGuider, as JAX's DEFAULT_GUIDER."""
 
     needs_step_noise = False
+    # The sampler's own settings that `loop` reads (an exported sampler's
+    # record carries them).
+    SCALARS: Tuple[str, ...] = ("guidance_interval",)
 
     def __init__(self, discretization_config: Dict, num_steps: Optional[int] = None,
                  guider_config: Optional[Dict] = None, verbose: bool = False,
@@ -108,11 +123,16 @@ class BaseDiffusionSampler:
             return self.guider(denoiser(x_in, s_in, c_in))
         return denoiser(x, sigma, cond)
 
-    def evaluate(self, denoiser: Callable, x: torch.Tensor, sigma: np.float32, cond: Dict,
-                 uc: Dict) -> torch.Tensor:
-        """`denoise` at the host sigma `sigma`, guided as `guided` decides."""
+    def evaluator(self, denoiser: Callable, cond: Dict, uc: Dict) -> Evaluate:
+        """`evaluate(x, sigma, guided)`: `denoise` over `denoiser` with cond
+        and uc."""
+        return lambda x, sigma, guided: self.denoise(denoiser, x, sigma, cond, uc, guided)
+
+    def evaluate_at(self, evaluate: Evaluate, x: torch.Tensor, sigma: np.float32
+                    ) -> torch.Tensor:
+        """`evaluate` at the host sigma `sigma`, guided as `guided` decides."""
         sig = torch.full((x.shape[0],), float(sigma), dtype=torch.float32, device=x.device)
-        return self.denoise(denoiser, x, sig, cond, uc, self.guided(sigma))
+        return evaluate(x, sig, self.guided(sigma))
 
     def __call__(self, denoiser: Callable, x: torch.Tensor, cond: Dict,
                  uc: Optional[Dict] = None, num_steps: Optional[int] = None,
@@ -120,6 +140,14 @@ class BaseDiffusionSampler:
         """Sample from the initial unit-variance noise x; `step_noise`
         (steps, *x.shape) for a sampler that `needs_step_noise`."""
         sigmas = self.sigmas(num_steps)
+        return self.run(self.evaluator(denoiser, cond, cond if uc is None else uc), x, sigmas,
+                        self.plan(sigmas), step_noise)
+
+    def run(self, evaluate: Evaluate, x: torch.Tensor, sigmas: np.ndarray, plan: List[Dict],
+            step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The sampler over the ladder `sigmas` and its `plan` from the unit
+        noise x, its evaluations through `evaluate`: what `__call__` and an
+        exported sampler run."""
         if self.needs_step_noise:
             want = (len(sigmas) - 1, *x.shape)
             if step_noise is None or tuple(step_noise.shape) != want:
@@ -127,12 +155,10 @@ class BaseDiffusionSampler:
                                  f"step_noise must be {want}, got "
                                  f"{None if step_noise is None else tuple(step_noise.shape)}")
         x = x * float(np.sqrt(1.0 + sigmas[0] ** 2))
-        return self.loop(denoiser, x, cond, cond if uc is None else uc, sigmas,
-                         self.plan(sigmas), step_noise)
+        return self.loop(evaluate, x, sigmas, plan, step_noise)
 
-    def loop(self, denoiser: Callable, x: torch.Tensor, cond: Dict, uc: Dict,
-             sigmas: np.ndarray, plan: List[Dict], step_noise: Optional[torch.Tensor]
-             ) -> torch.Tensor:
+    def loop(self, evaluate: Evaluate, x: torch.Tensor, sigmas: np.ndarray, plan: List[Dict],
+             step_noise: Optional[torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -140,6 +166,8 @@ class EDMSampler(BaseDiffusionSampler):
     """Euler over the EDM ladder, with optional churn: at the steps whose
     sigma is in [s_tmin, s_tmax], x is first noised up to sigma_hat =
     sigma * (1 + gamma), gamma = min(s_churn / steps, sqrt(2) - 1)."""
+
+    SCALARS = BaseDiffusionSampler.SCALARS + ("s_churn", "s_tmin", "s_tmax", "s_noise")
 
     def __init__(self, s_churn: float = 0.0, s_tmin: float = 0.0,
                  s_tmax: float = float("inf"), s_noise: float = 1.0, **kwargs):
@@ -171,26 +199,25 @@ class EDMSampler(BaseDiffusionSampler):
                         "evals": [sigma_hat] + [next_sigma] * self.corrects(next_sigma)})
         return out
 
-    def euler(self, denoiser: Callable, x: torch.Tensor, sigma: torch.Tensor,
-              next_sigma: torch.Tensor, cond: Dict, uc: Dict, guided: bool):
+    def euler(self, evaluate: Evaluate, x: torch.Tensor, sigma: torch.Tensor,
+              next_sigma: torch.Tensor, guided: bool):
         """(x at next_sigma, d, dt) of one Euler step from the 0-d fp32
         tensor `sigma` to `next_sigma`."""
         s_in = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
         sig = s_in * sigma
-        denoised = self.denoise(denoiser, x, sig, cond, uc, guided)
+        denoised = evaluate(x, sig, guided)
         d = (x - denoised) / _append_dims(sig, x.dim())
         dt = _append_dims(s_in * next_sigma - sig, x.dim())
         return x + dt * d, d, dt
 
-    def step(self, denoiser: Callable, x: torch.Tensor, sigma: torch.Tensor,
-             next_sigma: torch.Tensor, cond: Dict, uc: Dict, guided: bool) -> torch.Tensor:
+    def step(self, evaluate: Evaluate, x: torch.Tensor, sigma: torch.Tensor,
+             next_sigma: torch.Tensor, guided: bool) -> torch.Tensor:
         """One Euler step of x from `sigma` to `next_sigma`, 0-d fp32 tensors
-        (the loop's and an exported step program's one definition):
-        `denoiser(x, sigma, cond) -> denoised` on the CFG-doubled batch when
-        `guided`, on x's own batch otherwise."""
-        return self.euler(denoiser, x, sigma, next_sigma, cond, uc, guided)[0]
+        (the loop's and an exported step program's one definition), its
+        evaluation `evaluate(x, sigma rows, guided)`."""
+        return self.euler(evaluate, x, sigma, next_sigma, guided)[0]
 
-    def loop(self, denoiser, x, cond, uc, sigmas, plan, step_noise):
+    def loop(self, evaluate, x, sigmas, plan, step_noise):
         ladder = torch.from_numpy(sigmas).to(x.device)
         if self.needs_step_noise:
             hats = torch.from_numpy(np.array([p["sigma_hat"] for p in plan])).to(x.device)
@@ -201,12 +228,12 @@ class EDMSampler(BaseDiffusionSampler):
                 x = x + noise * float(p["bump"])
                 sigma_hat = hats[i]
             guided = [self.guided(s) for s in p["evals"]]
-            euler, d, dt = self.euler(denoiser, x, sigma_hat, ladder[i + 1], cond, uc, guided[0])
+            euler, d, dt = self.euler(evaluate, x, sigma_hat, ladder[i + 1], guided[0])
             if len(guided) == 1:
                 x = euler
                 continue
             sig = torch.ones(x.shape[0], dtype=torch.float32, device=x.device) * ladder[i + 1]
-            denoised = self.denoise(denoiser, euler, sig, cond, uc, guided[1])
+            denoised = evaluate(euler, sig, guided[1])
             d_new = (euler - denoised) / _append_dims(sig, x.dim())
             x = x + (d + d_new) / 2.0 * dt
         return x
@@ -230,6 +257,7 @@ class AncestralSampler(BaseDiffusionSampler):
     sigma_up (none on the final step to 0)."""
 
     needs_step_noise = True
+    SCALARS = BaseDiffusionSampler.SCALARS + ("eta", "s_noise")
 
     def __init__(self, eta: float = 1.0, s_noise: float = 1.0, **kwargs):
         super().__init__(**kwargs)
@@ -258,9 +286,9 @@ class AncestralSampler(BaseDiffusionSampler):
 
 
 class EulerAncestralSampler(AncestralSampler):
-    def loop(self, denoiser, x, cond, uc, sigmas, plan, step_noise):
+    def loop(self, evaluate, x, sigmas, plan, step_noise):
         for i, p in enumerate(plan):
-            denoised = self.evaluate(denoiser, x, p["sigma"], cond, uc)
+            denoised = self.evaluate_at(evaluate, x, p["sigma"])
             x = self.ancestral_step(self.ancestral_euler(x, denoised, p), p, step_noise[i])
         return x
 
@@ -283,15 +311,15 @@ class DPMPP2SAncestralSampler(AncestralSampler):
             p["evals"].append(np.exp(-s))
         return out
 
-    def loop(self, denoiser, x, cond, uc, sigmas, plan, step_noise):
+    def loop(self, evaluate, x, sigmas, plan, step_noise):
         for i, p in enumerate(plan):
-            denoised = self.evaluate(denoiser, x, p["sigma"], cond, uc)
+            denoised = self.evaluate_at(evaluate, x, p["sigma"])
             if "mults" not in p:
                 x = self.ancestral_euler(x, denoised, p)
             else:
                 mult1, mult2, mult3, mult4 = (float(m) for m in p["mults"])
                 x2 = mult1 * x - mult2 * denoised
-                denoised2 = self.evaluate(denoiser, x2, p["evals"][1], cond, uc)
+                denoised2 = self.evaluate_at(evaluate, x2, p["evals"][1])
                 x = mult3 * x - mult4 * denoised2
             x = self.ancestral_step(x, p, step_noise[i])
         return x
@@ -318,10 +346,10 @@ class DPMPP2MSampler(BaseDiffusionSampler):
             out.append(p)
         return out
 
-    def loop(self, denoiser, x, cond, uc, sigmas, plan, step_noise):
+    def loop(self, evaluate, x, sigmas, plan, step_noise):
         old_denoised = None
         for p in plan:
-            denoised = self.evaluate(denoiser, x, p["evals"][0], cond, uc)
+            denoised = self.evaluate_at(evaluate, x, p["evals"][0])
             target = denoised
             if not p["standard"]:
                 target = float(p["mult3"]) * denoised - float(p["mult4"]) * old_denoised
@@ -334,6 +362,8 @@ class LinearMultistepSampler(BaseDiffusionSampler):
     """Linear multistep (LMS) of `order`: each step adds the newest
     derivatives weighted by the integrals of their Lagrange polynomials
     over the step, a table computed on the host with scipy."""
+
+    SCALARS = BaseDiffusionSampler.SCALARS + ("order",)
 
     def __init__(self, order: int = 4, **kwargs):
         super().__init__(**kwargs)
@@ -362,14 +392,59 @@ class LinearMultistepSampler(BaseDiffusionSampler):
             out.append({"evals": [sigmas[i]], "coeffs": coeffs})
         return out
 
-    def loop(self, denoiser, x, cond, uc, sigmas, plan, step_noise):
+    def loop(self, evaluate, x, sigmas, plan, step_noise):
         ds: List[torch.Tensor] = []  # newest first
         for p in plan:
             sigma = p["evals"][0]
-            denoised = self.evaluate(denoiser, x, sigma, cond, uc)
+            denoised = self.evaluate_at(evaluate, x, sigma)
             ds = [(x - denoised) / float(sigma)] + ds[:self.order - 1]
             update = float(p["coeffs"][0]) * ds[0]
             for c, d in zip(p["coeffs"][1:], ds[1:]):
                 update = update + float(c) * d
             x = x + update
         return x
+
+
+def _to_json(v: Any) -> Any:
+    if isinstance(v, (bool, np.bool_)):
+        return bool(v)
+    if isinstance(v, (np.ndarray, list, tuple)):
+        return [float(e) for e in v]
+    return float(v)
+
+
+def _from_json(v: Any) -> Any:
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, list):
+        return np.array(v, dtype=np.float32)
+    return f32(v)
+
+
+def sampler_record(sampler: BaseDiffusionSampler, num_steps: Optional[int] = None) -> Dict:
+    """What running `sampler` over `num_steps` needs beside its evaluations,
+    as JSON-ready data: its config name, its own scalars (SCALARS), the
+    ladder, the host plan (float32 values as the doubles that hold them
+    exactly) and whether it draws per-step noise."""
+    sigmas = sampler.sigmas(num_steps)
+    scalars = {}
+    for k in sampler.SCALARS:
+        v = getattr(sampler, k)
+        scalars[k] = list(v) if isinstance(v, tuple) else v
+    return {"target": SAMPLING + type(sampler).__name__, "scalars": scalars,
+            "sigmas": [float(s) for s in sigmas],
+            "plan": [{k: _to_json(v) for k, v in p.items()} for p in sampler.plan(sigmas)],
+            "step_noise": bool(sampler.needs_step_noise)}
+
+
+def sampler_from_record(record: Dict) -> Tuple[BaseDiffusionSampler, np.ndarray, List[Dict]]:
+    """(sampler, ladder, plan) of a `sampler_record`, for `sampler.run`:
+    the sampler holds its scalars and no discretization or guider (the
+    evaluations carry the guider), so nothing of its config is needed."""
+    cls = get_obj_from_str(record["target"])
+    sampler = cls.__new__(cls)
+    sampler.num_steps = sampler.discretization = sampler.guider = None
+    for k, v in record["scalars"].items():
+        setattr(sampler, k, tuple(v) if isinstance(v, list) else v)
+    plan = [{k: _from_json(v) for k, v in p.items()} for p in record["plan"]]
+    return sampler, np.array(record["sigmas"], dtype=np.float32), plan

@@ -7,19 +7,31 @@
     sample = load_sampler(open("sampler.gcdexp", "rb").read())
     out = sample(params, arrays, generator)   # dict, as engine.sample_video
 
-The artifact is a zip of torch.export programs and a JSON header:
+The artifact is a zip of torch.export programs and a JSON header. Every
+artifact has
   cond    the conditioner: the batch's arrays -> c and uc (channels-first),
           cond_video, and gt_video when the batch has "jpg";
+  decode  the latents -> frames in [0, 1] (in decoding_t's chunks).
+An EulerEDMSampler without churn exports whole steps:
   step    one Euler step (EulerEDMSampler.step) with CFG: x, sigma and
           next_sigma (0-d fp32 tensors), the indicator, c and uc -> x at
           next_sigma;
   plain   the same step without CFG, on the conditional half alone, for the
           steps outside a guidance_interval (only when there are such steps);
-  decode  the latents -> frames in [0, 1] (in decoding_t's chunks);
-and the header: the sigma ladder, each step's guided flag, the initial noise
-scale, and each program's parameter names and input specs. The loader runs
-the steps over the ladder, so the 25 UNet evaluations are one traced step
-program with its sigma in a tensor.
+and its header holds the sigma ladder, each step's guided flag and the
+initial noise scale. Every other sampler (EDMSampler with churn, Heun,
+Euler-ancestral, DPM++ 2S / 2M, LMS) exports its evaluation:
+  eval        the denoiser with CFG: x, sigma (its (B*T,) fp32 rows), the
+              indicator, c and uc -> denoised;
+  eval_plain  the same without CFG, for the evaluations outside a
+              guidance_interval (only when there are such evaluations);
+and its header adds the sampler's record (diffusion/sampling.py
+sampler_record: its config name, its own scalars, the ladder, the host
+plan, whether it draws per-step noise). The loader runs that sampler's own
+`run` over the plan with the exported evaluations, so the update has one
+definition, the one engine.sample_video runs. Either way the UNet is
+traced at most twice, guided and plain, with its sigma in a tensor; the
+header also holds each program's parameter names and input specs.
 
 Weights are inputs of every program: each program takes its engine
 submodule's parameters through torch.func.functional_call, and none is
@@ -48,7 +60,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from gcd_tpu_torch.diffusion.sampling import EulerEDMSampler
+from gcd_tpu_torch.diffusion.sampling import EulerEDMSampler, sampler_from_record, sampler_record
 from gcd_tpu_torch.engine.engine import UC_ZERO_KEYS, _channels_first, _unit_interval
 
 FORMAT = "gcd_tpu_torch.sampler/1"
@@ -86,20 +98,34 @@ class _Conditioner(nn.Module):
         return tuple(out)
 
 
-class _Step(nn.Module):
+class _Evaluation(nn.Module):
+    """The sampler's evaluation at (x, sigma rows), guided or not:
+    forward(x, sigma, image_only_indicator, *c[, *uc]) -> denoised."""
+
     def __init__(self, engine, guided: bool, cond_keys: Sequence[str]):
         super().__init__()
         self.model = engine.model
         self.__dict__["engine"] = engine
         self.guided, self.cond_keys = guided, list(cond_keys)
 
-    def forward(self, x, sigma, next_sigma, image_only_indicator, *conds):
+    def evaluate(self, image_only_indicator, conds):
         n = len(self.cond_keys)
         c = dict(zip(self.cond_keys, conds[:n]))
         uc = dict(zip(self.cond_keys, conds[n:])) if self.guided else c
         engine = self.engine
-        return engine.sampler.step(engine.sampling_denoiser(image_only_indicator), x, sigma,
-                                   next_sigma, c, uc, self.guided)
+        return engine.sampler.evaluator(engine.sampling_denoiser(image_only_indicator), c, uc)
+
+    def forward(self, x, sigma, image_only_indicator, *conds):
+        return self.evaluate(image_only_indicator, conds)(x, sigma, self.guided)
+
+
+class _Step(_Evaluation):
+    """One Euler step: forward(x, sigma, next_sigma, image_only_indicator,
+    *c[, *uc]) -> x at next_sigma."""
+
+    def forward(self, x, sigma, next_sigma, image_only_indicator, *conds):
+        return self.engine.sampler.step(self.evaluate(image_only_indicator, conds), x, sigma,
+                                        next_sigma, self.guided)
 
 
 class _Decode(nn.Module):
@@ -160,22 +186,23 @@ def _export(body: nn.Module, params: Dict[str, torch.Tensor], inputs: Sequence[t
                             "inputs": [_spec(t) for t in inputs]}
 
 
+def exports_steps(sampler) -> bool:
+    """Whether an artifact of `sampler` holds whole Euler steps (an
+    EulerEDMSampler without churn), not its evaluations."""
+    return type(sampler) is EulerEDMSampler and not sampler.needs_step_noise
+
+
 @torch.no_grad()
 def export_sampler(engine, params: Dict[str, torch.Tensor], batch: Dict,
                    num_steps: Optional[int] = None, decoding_t: Optional[int] = None) -> bytes:
-    """Serialise sampling for the batch's (B, T, H, W): the conditioner, one
-    Euler step (and the plain step where a guidance_interval leaves steps
-    unguided) and the decode, as torch.export programs, with the sigma
-    ladder. `params` is the engine's state dict (the programs' weights,
-    not stored); the batch's non-array entries are baked in. Returns the
-    artifact's bytes. The step program is EulerEDMSampler's step: any
-    other sampler, and Euler with churn (per-step noise), is refused."""
+    """Serialise sampling for the batch's (B, T, H, W): the conditioner, the
+    engine's sampler (Euler's step and plain step, or any other sampler's
+    evaluation and plain evaluation, the plain ones only where a
+    guidance_interval leaves some unguided) and the decode, as torch.export
+    programs, with the sigma ladder. `params` is the engine's state dict
+    (the programs' weights, not stored); the batch's non-array entries are
+    baked in. Returns the artifact's bytes."""
     sampler = engine.sampler
-    if type(sampler) is not EulerEDMSampler or sampler.needs_step_noise:
-        raise NotImplementedError(
-            f"export_sampler exports EulerEDMSampler steps without churn; the engine's "
-            f"sampler is {type(sampler).__name__}"
-            + (f" with s_churn={sampler.s_churn}" if sampler.needs_step_noise else ""))
     arrays, static = _split_batch(batch)
     keys = sorted(arrays)
     c, uc = engine.get_unconditional_conditioning(batch, UC_ZERO_KEYS)
@@ -183,7 +210,9 @@ def export_sampler(engine, params: Dict[str, torch.Tensor], batch: Dict,
     cs = [_channels_first(c[k]) for k in cond_keys]
     ucs = [_channels_first(uc[k]) for k in cond_keys]
     sigmas = sampler.sigmas(num_steps)
-    guided = sampler.guided_steps(num_steps)
+    steps = exports_steps(sampler)
+    guided = sampler.guided_steps(num_steps) if steps else sampler.guided_evaluations(num_steps)
+    flat = guided if steps else [g for step in guided for g in step]
     scale = float(np.sqrt(1.0 + sigmas[0] ** 2))
     frames = arrays["cond_frames"]
     ladder = torch.from_numpy(sigmas).to(frames.device)
@@ -193,21 +222,28 @@ def export_sampler(engine, params: Dict[str, torch.Tensor], batch: Dict,
                             "cond_keys": cond_keys, "jpg": "jpg" in arrays,
                             "sigmas": [float(s) for s in sigmas], "guided": guided,
                             "init_scale": scale, "programs": {}}
+    if not steps:
+        header["sampler"] = sampler_record(sampler, num_steps)
     cond_in = [arrays[k] for k in keys]
     programs["cond"], header["programs"]["cond"] = _export(
         _Conditioner(engine, keys, static, cond_keys), params, cond_in)
     x = initial_latents(engine.latent_noise(frames), scale)
     ioi = arrays["image_only_indicator"]
-    step_in = [x, ladder[0], ladder[1], ioi]
-    if any(guided):
-        programs["step"], header["programs"]["step"] = _export(
-            _Step(engine, True, cond_keys), params, step_in + cs + ucs)
-    if not all(guided):
-        programs["plain"], header["programs"]["plain"] = _export(
-            _Step(engine, False, cond_keys), params, step_in + cs)
-    # The decode's example latents come out of a step, as they will when
-    # the artifact runs.
-    z = _Step(engine, guided[0], cond_keys)(*step_in, *cs, *(ucs if guided[0] else []))
+    if steps:
+        body, names = _Step, ("step", "plain")
+        body_in = [x, ladder[0], ladder[1], ioi]
+    else:
+        body, names = _Evaluation, ("eval", "eval_plain")
+        body_in = [x, ladder[0] * torch.ones(x.shape[0], device=x.device), ioi]
+    if any(flat):
+        programs[names[0]], header["programs"][names[0]] = _export(
+            body(engine, True, cond_keys), params, body_in + cs + ucs)
+    if not all(flat):
+        programs[names[1]], header["programs"][names[1]] = _export(
+            body(engine, False, cond_keys), params, body_in + cs)
+    # The decode's example latents come out of a step or an evaluation, as
+    # the latents it decodes come out of the sampler.
+    z = body(engine, flat[0], cond_keys)(*body_in, *cs, *(ucs if flat[0] else []))
     programs["decode"], header["programs"]["decode"] = _export(
         _Decode(engine, decoding_t), params, [z])
 
@@ -297,14 +333,23 @@ def baked_batch(blob: bytes) -> Tuple[int, int, int, int]:
     return b, t, h, w
 
 
+def step_noise_steps(header: Dict) -> int:
+    """The steps an artifact's sampler draws per-step noise for: 0 unless
+    it draws any."""
+    return len(header["sigmas"]) - 1 if header.get("sampler", {}).get("step_noise") else 0
+
+
 def load_sampler(blob: bytes) -> Callable:
     """Deserialise an export_sampler artifact into
-    sample(params, arrays, generator=None, noise=None) -> dict, the outputs
-    of engine.sample_video: `params` the state dict, `arrays` the batch's
-    arrays (the non-array entries were baked in), the latent noise `noise`
-    (B*T, H/8, W/8, 4) or drawn from `generator` as engine.latent_noise
-    draws it. Needs the port's op library (gcd_tpu_torch.ops), which this
-    module imports."""
+    sample(params, arrays, generator=None, noise=None, step_noise=None) ->
+    dict, the outputs of engine.sample_video: `params` the state dict,
+    `arrays` the batch's arrays (the non-array entries were baked in), the
+    latent noise `noise` (B*T, H/8, W/8, 4), and for a sampler that draws
+    noise at every step its `step_noise` (steps, B*T, 4, H/8, W/8); each is
+    drawn from `generator` where it is not given, the latent noise first,
+    as engine.sample_video draws them. Needs the port's op library
+    (gcd_tpu_torch.ops), which this module imports, and no model or
+    config."""
     import gcd_tpu_torch.ops  # noqa: F401  (registers the gcd:: ops)
 
     with zipfile.ZipFile(io.BytesIO(blob)) as zf:
@@ -322,11 +367,14 @@ def load_sampler(blob: bytes) -> Callable:
     ladder = torch.tensor(header["sigmas"], dtype=torch.float32, device=device)
     guided, scale = header["guided"], header["init_scale"]
     bt, hh, ww, _ = header["programs"]["cond"]["inputs"][keys.index("cond_frames")]["shape"]
+    record = header.get("sampler")
+    steps = step_noise_steps(header)
 
     @torch.no_grad()
     def sample(params: Dict[str, torch.Tensor], arrays: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               noise: Optional[torch.Tensor] = None,
+               step_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         missing = [k for k in keys if k not in arrays]
         if missing:
             raise KeyError(f"exported sampler: the arrays lack {missing}")
@@ -335,12 +383,24 @@ def load_sampler(blob: bytes) -> Callable:
         cs, ucs = list(out[:n]), list(out[n:2 * n])
         if noise is None:
             noise = torch.randn((bt, hh // 8, ww // 8, 4), generator=generator, device=device)
-        x = initial_latents(noise, scale)
         ioi = arrays["image_only_indicator"]
-        for i, g in enumerate(guided):
-            step = programs["step" if g else "plain"]
-            x = step(weights["step" if g else "plain"], x, ladder[i], ladder[i + 1], ioi,
-                     *cs, *(ucs if g else []))
+        if record is None:
+            x = initial_latents(noise, scale)
+            for i, g in enumerate(guided):
+                step = programs["step" if g else "plain"]
+                x = step(weights["step" if g else "plain"], x, ladder[i], ladder[i + 1], ioi,
+                         *cs, *(ucs if g else []))
+        else:
+            sampler, sigmas, plan = sampler_from_record(record)
+            if steps and step_noise is None:
+                step_noise = torch.randn((steps, bt, 4, hh // 8, ww // 8), generator=generator,
+                                         device=device)
+
+            def evaluate(xx, sigma, g):
+                name = "eval" if g else "eval_plain"
+                return programs[name](weights[name], xx, sigma, ioi, *cs, *(ucs if g else []))
+
+            x = sampler.run(evaluate, _channels_first(noise).float(), sigmas, plan, step_noise)
         result = {"cond_video": out[2 * n],
                   "sampled_video": programs["decode"](weights["decode"], x)}
         if header["jpg"]:

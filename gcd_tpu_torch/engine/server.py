@@ -448,6 +448,12 @@ def make_artifact_sample_fn(sample: Callable, params: Dict[str, torch.Tensor], m
     """sample_fn(batch, seeds) for SamplerServer over an exported sampler
     (engine/export.py load_sampler's `sample`, with the engine's state dict
     `params`): each clip's noise as make_engine_sample_fn draws it, on the
-    artifact's device (an exported sampler draws no per-step noise)."""
-    return _seeded_sample_fn(lambda arrays, noise, _: sample(params, arrays, noise=noise),
-                             max_batch, num_frames, torch.device(sample.header["device"]))
+    artifact's device: its latent noise, then the per-step noise of a
+    sampler that draws any."""
+    from gcd_tpu_torch.engine.export import step_noise_steps
+
+    def run(arrays, noise, step_noise):
+        return sample(params, arrays, noise=noise, step_noise=step_noise)
+
+    return _seeded_sample_fn(run, max_batch, num_frames, torch.device(sample.header["device"]),
+                             step_noise_steps(sample.header))

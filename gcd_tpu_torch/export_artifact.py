@@ -8,8 +8,10 @@ scripts/export_artifact.py).
 Builds the engine (engine/bundle.py load_model_bundle: the checkpoint's
 weights, or seeded random ones with --random_init), and writes
 engine/export.py's artifact for a fixed (--batch, --num_frames,
---frame_height, --frame_width): the conditioner, the Euler step and the
-decode as torch.export programs, weights left out. The artifact and the
+--frame_height, --frame_width): the conditioner, the config's sampler
+(Euler's step, or any other sampler's denoiser evaluation: Heun,
+Euler-ancestral, DPM++ 2S / 2M, LMS, Euler with churn) and the decode as
+torch.export programs, weights left out. The artifact and the
 weights are what a serving host needs (engine/export.py load_sampler).
 The artifact runs on the device it was exported on and with the torch
 version that wrote it: the CUDA card in bf16, or with --device cpu the CPU

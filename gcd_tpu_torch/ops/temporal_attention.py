@@ -9,13 +9,14 @@ dtype for PV and division after PV.
 
 `temporal_attention` calls the op `gcd::temporal_attention`
 (ops/library.py): the plain version on CPU tensors, the kernel or an error
-on CUDA ones; under `kernel_flags(tattn=False)` it runs the plain version. The kernel takes T <= 16 frames and a head size D that is a
-multiple of 16 up to 128 (the UNet's heads) or a multiple of 64 up to 512
-(the VAE decoder's one-head VideoAttnBlock, the kernel's wide family; the
-JAX kernel's own `d % 64` rule) (`kernel_head_dim`), and the wrapper
-raises on a CUDA tensor outside that domain. Its gradient is that of the plain
-version, recomputed from the saved q, k, v (ops/recompute.py; gcd_tpu's
-`_temporal_bwd`).
+on CUDA ones; under `kernel_flags(tattn=False)` it runs the plain version.
+The kernel takes, family by family (`kernel_takes`): a head size D that is
+a multiple of 16 up to 128 (the UNet's heads, the narrow family) with T <=
+32 frames (SVD-XT's 25 among them), or a multiple of 64 up to 512 (the VAE
+decoder's one-head VideoAttnBlock, the wide family; the JAX kernel's own
+`d % 64` rule) with T <= 16; the wrapper raises on a CUDA tensor outside
+that domain. Its gradient is that of the plain version, recomputed from the
+saved q, k, v (ops/recompute.py; gcd_tpu's `_temporal_bwd`).
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from gcd_tpu_torch.ops.dispatch import kernel_enabled
 from gcd_tpu_torch.ops.library import define
 from gcd_tpu_torch.ops.recompute import plain_gradient
 
-MAX_FRAMES = 16
+MAX_FRAMES = 32          # the narrow family: two 16-row tiles
+MAX_WIDE_FRAMES = 16     # the wide family: one 16-row tile
 MAX_HEAD_DIM = 128       # the narrow family: D a multiple of 16
 MAX_WIDE_HEAD_DIM = 512  # the wide family: D a multiple of 64
 
@@ -39,6 +41,14 @@ def kernel_head_dim(d: int) -> bool:
     or of 64 up to MAX_WIDE_HEAD_DIM."""
     return 0 < d and ((d % 16 == 0 and d <= MAX_HEAD_DIM)
                       or (d % 64 == 0 and d <= MAX_WIDE_HEAD_DIM))
+
+
+def kernel_takes(t: int, d: int) -> bool:
+    """Whether K2 takes T = t frames at head size d: T <= MAX_FRAMES in the
+    narrow family, T <= MAX_WIDE_FRAMES in the wide one."""
+    if not kernel_head_dim(d):
+        return False
+    return 0 < t <= (MAX_FRAMES if d <= MAX_HEAD_DIM else MAX_WIDE_FRAMES)
 
 
 def temporal_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
@@ -65,8 +75,9 @@ def temporal_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tenso
 def temporal_attention(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        timesteps: int, heads: int,
                        scale: Optional[float] = None) -> torch.Tensor:
-    """Frame-axis attention on (B*T, S, H*D) tokens; K2 on CUDA (bf16,
-    T <= 16, D a multiple of 16 up to 128 or of 64 up to 512)."""
+    """Frame-axis attention on (B*T, S, H*D) tokens; K2 on CUDA (bf16, D a
+    multiple of 16 up to 128 with T <= 32, or of 64 up to 512 with T <=
+    16)."""
     return plain_gradient(_temporal_forward, temporal_attention_plain, (q3, k3, v3),
                           timesteps=timesteps, heads=heads, scale=scale)
 
@@ -80,10 +91,10 @@ def _temporal_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
         raise ValueError(f"temporal_attention: shape {tuple(q3.shape)} with "
                          f"T={t}, heads={heads}")
     d = c // heads
-    if t > MAX_FRAMES or not kernel_head_dim(d):
-        raise ValueError(f"temporal_attention: kernel takes T <= {MAX_FRAMES} and D a "
-                         f"multiple of 16 up to {MAX_HEAD_DIM} or of 64 up to "
-                         f"{MAX_WIDE_HEAD_DIM}, got T={t}, D={d}")
+    if not kernel_takes(t, d):
+        raise ValueError(f"temporal_attention: kernel takes D a multiple of 16 up to "
+                         f"{MAX_HEAD_DIM} with T <= {MAX_FRAMES}, or of 64 up to "
+                         f"{MAX_WIDE_HEAD_DIM} with T <= {MAX_WIDE_FRAMES}; got T={t}, D={d}")
     scale = float(d ** -0.5 if scale is None else scale)
     for name, z in (("q", q3), ("k", k3), ("v", v3)):
         _native.check_cuda_operand(name, z, torch.bfloat16, (bt, s, c))

@@ -27,7 +27,10 @@ the bundle's weights, as scripts/serve.py's --artifact does: a path that
 does not exist, --num_steps or --decoding_t beside it (the artifact bakes
 them in), an artifact exported for another batch than --max_batch clips of
 the served (T, H, W), and a mesh (scripts/serve.py's artifact mode has
-none) are refused.
+none) are refused. Any sampler exports; one that draws noise at every step
+(churn, the ancestral samplers) takes each request's from its seed after
+its latent noise, as the eager server does, so the two serve the same
+frames for the same seeds.
 
 The process and mesh flags are the inference entries' (eval_utils.py
 add_mesh_arguments, join_mesh). scripts/serve.py has none: they are the

@@ -50,7 +50,8 @@ def test_flash_plain_matches_xla_mh(b, s, heads, d):
     assert rel_l2(out.numpy(), ref) <= TOL
 
 
-@pytest.mark.parametrize("b,t,s,heads,d", [(2, 14, 8, 5, 64), (1, 3, 20, 2, 16)])
+@pytest.mark.parametrize("b,t,s,heads,d", [(2, 14, 8, 5, 64), (1, 3, 20, 2, 16),
+                                             (1, 25, 8, 5, 64)])
 def test_temporal_plain_matches_xla_temporal(b, t, s, heads, d):
     rng = np.random.default_rng(1)
     q, k, v = _qkv(rng, b * t, s, heads * d)

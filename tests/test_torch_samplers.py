@@ -345,15 +345,41 @@ def test_tiny_engine_identity_guider():
     assert not hasattr(engine.sampler.guider, "num_frames")
 
 
-def test_export_refuses_other_samplers():
-    """export_sampler exports Euler steps only: Heun, and Euler with churn,
-    are refused with the sampler named, before anything is traced."""
+def test_export_refuses_other_samplers(monkeypatch):
+    """The two configurations export_sampler once refused, Heun and Euler
+    with churn (per-step noise), now export: their artifact holds the
+    conditioner, the sampler's evaluation (not Euler's step) and the
+    decode, and its header records the sampler, its scalars, the ladder,
+    the plan and whether it draws per-step noise. The programs' tracing is
+    stubbed here (tests/test_torch_export_samplers.py traces, loads and
+    runs such artifacts against sample_video bit for bit)."""
+    import io
+    import json
+    import zipfile
+
+    from gcd_tpu_torch.engine import export
+
+    monkeypatch.setattr(export, "_export", lambda body, params, inputs: (
+        b"", {"body": type(body).__name__, "guided": body.guided if hasattr(body, "guided")
+              else None, "inputs": [list(t.shape) for t in inputs]}))
     model = load_config(TINY_CONFIG)["model"]
-    for target, extra, named in (("HeunEDMSampler", {}, "HeunEDMSampler"),
-                                 ("EulerEDMSampler", {"s_churn": 1.0}, "s_churn=1.0")):
+    batch = {k: torch.from_numpy(v) for k, v in tiny_batch(T, 32, 48, 8).items()}
+    for target, extra, noise in (("HeunEDMSampler", {}, False),
+                                 ("EulerEDMSampler", {"s_churn": 1.0}, True)):
         cfg = copy.deepcopy(model)
         cfg["params"]["sampler_config"]["target"] = SAMPLING + target
         cfg["params"]["sampler_config"]["params"].update(extra)
         engine = engine_from_config(cfg, device="cpu", dtype=torch.float32)
-        with pytest.raises(NotImplementedError, match=named):
-            export_sampler(engine, {}, {})
+        blob = export_sampler(engine, {}, batch, num_steps=3, decoding_t=T)
+        with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+            header = json.loads(zf.read("header.json"))
+        programs = header["programs"]
+        assert sorted(programs) == ["cond", "decode", "eval"]
+        assert programs["eval"]["body"] == "_Evaluation" and programs["eval"]["guided"]
+        assert programs["eval"]["inputs"][:3] == [[T, 4, 4, 6], [T], [1, T]]
+        record = header["sampler"]
+        assert record["target"] == SAMPLING + target and record["step_noise"] is noise
+        assert record["scalars"]["s_churn"] == extra.get("s_churn", 0.0)
+        assert record["sigmas"] == [float(s) for s in engine.sampler.sigmas(3)]
+        evals = [len(p["evals"]) for p in record["plan"]]
+        assert evals == ([2, 2, 1] if target == "HeunEDMSampler" else [1, 1, 1])
