@@ -29,7 +29,11 @@ without the final `ok` line):
                    and 128 at ds2's width, and with two row tiles at T = 25
                    and 32 (one clip with CFG, B*T = 50 / 64) at the four
                    levels' widths, plus a ragged S at ds1 and D = 16 at
-                   ds2, T = 25; K4 / K5 also at the served
+                   ds2, T = 25; K2's general family at T = 33, 64 and 100
+                   (one clip with CFG) at the four levels' widths, a ragged
+                   S at ds1, T = 64, the `num_heads: 8` UNet's D = 40 at
+                   ds1 and 160 at ds4 (T = 14), and the VAE's one-head D =
+                   512 at (2 T, 1536) for T = 25 and 32; K4 / K5 also at the served
                    batch's GroupNorm sites, the conditioner's and the
                    UNet's N doubled); K4 / K5
                    also on channels-first copies of those shapes; K1, K2,
@@ -49,9 +53,11 @@ without the final `ok` line):
   5. ab          - the flagship UNet evaluation, the decode and the
                    conditioner with every kernel on vs off (relative
                    L2 <= 2e-2); one flagship UNet evaluation of a T = 25
-                   clip with CFG (B*T = 50) with K2 on vs K2 plain (2e-2,
-                   K2's launches one a temporal block, none when plain,
-                   each one's device ms); the UNet's and the decode's wall
+                   clip with CFG (B*T = 50), and one of a T = 64 clip (B*T
+                   = 128, K2's general family), each with K2 on vs K2
+                   plain (2e-2, K2's launches one a temporal block, none
+                   when plain, each one's device ms and device ms by
+                   kernel); the UNet's and the decode's wall
                    times and torch.profiler device time by kernel, with
                    the GroupNorm kernels on vs off and with K7 on vs off.
   6. slice       - two requests through DiffusionEngine.sample_video:
@@ -60,8 +66,8 @@ without the final `ok` line):
                    decode; checks the frames and each kernel's launch count
                    (K5's from phase 4's GroupNorm sites by uses_split_path:
                    `split_calls`);
-                   then the first request timed with K7 on and off (on, off,
-                   off, on), frames within 2e-2.
+                   then the first request timed with K7 on and off,
+                   frames within 2e-2.
   served         - the same engine behind SamplerServer(max_batch=2) and the
                    HTTP handler of gcd_tpu_torch.serve on 127.0.0.1: four
                    concurrent POST /sample requests built with
@@ -154,12 +160,17 @@ without the final `ok` line):
                    in [0, 1], each kernel's launches phase 6's per clip (the
                    77-key cross-attention launches none), frames with every
                    kernel on vs off within 2e-2, its seconds beside phase
-                   6's. (d) two VideoUNets at svd_gcd's widths on B*T = 28,
-                   32 x 48 latents and (a)'s context: A (scale-shift norm,
-                   resblock up / down, conv projections, no per-frame
-                   temporal context, fixed blends, a 3 x 3 x 3 time kernel)
-                   and B (no temporal cross-attention, resampling without
-                   convs, ff_in), and svd_gcd's ds1 SpatialVideoTransformer
+                   6's; then the same request with the `num_heads: 8` UNet
+                   in the flagship's place, 25 steps: frames finite in [0,
+                   1], launches the text clip's but no K1. (d) three
+                   VideoUNets at svd_gcd's widths on B*T = 28, 32 x 48
+                   latents and (a)'s context: A (scale-shift
+                   norm, resblock up / down, conv projections, no per-frame
+                   temporal context, fixed blends, a 3 x 3 x 3 time kernel),
+                   B (no temporal cross-attention, resampling without
+                   convs, ff_in) and heads8 (`num_heads: 8`: heads of 40,
+                   80 and 160, K2's general family at 40 and 160, no K1
+                   launch), and svd_gcd's ds1 SpatialVideoTransformer
                    without self-attention (a block option the VideoUNet
                    does not pass on): one evaluation each,
                    kernels on vs off within 2e-2, launches against the
@@ -363,8 +374,16 @@ without the final `ok` line):
                    process's, every process exiting 0 after SIGINT to
                    process 0; served frames/s, each batch's wall s, peak
                    memory a card, process 0's decode split against whole
-                   and the NCCL device ms of a profiled batch; on one card
-                   it prints that it did not run.
+                   and the NCCL device ms of a profiled batch; then option
+                   UNet A (conditioning (d)) in four processes: its
+                   evaluation under the sampler's frame groups (2 video
+                   blocks x 2 frame blocks: the 3 x 3 x 3 time kernel's
+                   convs take the neighbouring bands' edge rows) and cut
+                   over a tensor axis of 4 (its 1 x 1 conv projections and scale-shift
+                   embedding replicated, its attention cut by heads), each within
+                   2e-2 of its whole evaluation on the same card
+                   (option_cards); on one card it prints that they did not
+                   run.
 Then the kernel JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 
@@ -372,7 +391,9 @@ Then the kernel JSON line, the nvidia-smi line, and last
 
 runs phase 2 and the mesh phase's and the sharded phase's (c) alone (a
 machine of four cards); `--sampling-cards` runs phase 2 and the sharded
-phase's (c) alone (the infer entry's runs and the served runs).
+phase's (c) alone (the infer entry's runs, the served runs and option
+UNet A's); `--option-cards` runs phase 2 and option UNet A's four-card
+runs alone.
 """
 
 from __future__ import annotations
@@ -424,7 +445,8 @@ FP32_FLOPS = 67e12
 # Substrings of each port kernel's device function names, for the profile.
 PROFILE_TAGS = {"flash": ("flash_attention_kernel",),
                 "flash_bwd": ("flash_bwd_rows_kernel", "flash_bwd_dkdv_kernel"),
-                "tattn": ("temporal_attention_kernel",),
+                "tattn": ("temporal_attention_kernel", "temporal_attention_wide_kernel",
+                          "temporal_attention_general_kernel"),
                 "fused_mlp": ("geglu_up_kernel", "geglu_down_kernel"),
                 "fused_gn_and_gn_stats": ("group_norm", "group_stats"),
                 "fused_gn_conv": ("gn_silu_conv3x3_kernel", "splitk_sum_kernel")}
@@ -434,6 +456,10 @@ LEVELS = [("ds1", 1536, 320, 5), ("ds2", 384, 640, 5), ("ds4", 96, 1280, 5),
 # SVD-XT's 25 and the kernel's largest, 32; the first also drives one
 # flagship UNet evaluation (phase 5).
 TALL_FRAMES = (25, 32)
+# Frame counts past 32 that K2's general family is held at (phase 4), the
+# second also in one flagship UNet evaluation (phase 5).
+GENERAL_FRAMES = (33, 64, 100)
+LONG_FRAMES = 64
 SOURCES = {
     "flash": ("gcd_tpu_torch/csrc/flash_attention.cu",
               "gcd_tpu/ops/flash_attention.py:55"),
@@ -457,7 +483,8 @@ DEVICE_TIMED = ("flash", "flash_bwd", "tattn", "fused_mlp", "fused_gn", "gn_stat
 # K3, K6, K7), K2's mma.sync kernel and K4's and K5's channels-last kernels.
 PTXAS_ENTRIES = ("flash_attention_kernel", "flash_bwd_rows_kernel", "flash_bwd_dkdv_kernel",
                  "geglu_up_kernel", "geglu_down_kernel", "gn_silu_conv3x3_kernel",
-                 "temporal_attention_kernel", "group_norm_cl_onepass_kernel",
+                 "temporal_attention_kernel", "temporal_attention_general_kernel",
+                 "group_norm_cl_onepass_kernel",
                  "group_norm_cl_table_kernel", "group_stats_cl_kernel")
 # Phase 8, the training entry on a synthetic Kubric-4D root: one scene of the
 # fewest frames model_frames 14 samples from, 16 views of the converter's
@@ -906,6 +933,7 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
                                    flash_attention_bwd_plain, flash_attention_plain,
                                    geglu_mlp, geglu_mlp_plain, temporal_attention,
                                    temporal_attention_plain)
+    from gcd_tpu_torch.ops.temporal_attention import kernel_family
 
     def randn(*shape, std=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
@@ -970,24 +998,38 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
                    qkv_bytes * bt // BT, 4 * bt * s * T * c, BF16_FLOPS)
         # K2 with two row tiles (not on the 14-frame clip's path; 0 launches
         # per clip): one clip with CFG at T = 25 and 32, the level's width;
-        # at ds1 also a ragged S (no multiple of 8), at ds2 also D = 16.
+        # at ds1 also a ragged S (no multiple of 8), at ds2 also D = 16. Then
+        # its general family, likewise: one clip with CFG past 32 frames
+        # (GENERAL_FRAMES); at ds1 a ragged S at T = LONG_FRAMES, the
+        # `num_heads: 8` UNet's D = 40 at T = 14 and the VAE's one-head D =
+        # 512 at T = 25 and 32; at ds4 its D = 160.
+        extra = []  # (frames, positions, heads, channels, note)
         for tt in TALL_FRAMES:
-            extra = [(s, heads, "")]
+            extra.append((tt, s, heads, c, ""))
             if name == "ds1" and tt == TALL_FRAMES[0]:
-                extra.append((s - 5, heads, " ragged S"))
+                extra.append((tt, s - 5, heads, c, " ragged S"))
             if name == "ds2" and tt == TALL_FRAMES[0]:
-                extra.append((s, c // 16, f" {c // 16}x16"))
-            for st, hd, note in extra:
-                bt2 = 2 * tt
-                qt, kt, vt = randn(bt2, st, c), randn(bt2, st, c), randn(bt2, st, c)
-                th = [z.reshape(2, tt, st, hd, c // hd).permute(0, 2, 3, 1, 4)
-                      .reshape(2 * st, hd, tt, c // hd).contiguous() for z in (qt, kt, vt)]
-                yield ("tattn", tattn_label(name, bt2, st, c, tt) + note, 0,
-                       lambda q=qt, k=kt, v=vt, t=tt, h=hd: temporal_attention(q, k, v, t, h),
-                       lambda q=qt, k=kt, v=vt, t=tt, h=hd:
-                       temporal_attention_plain(q, k, v, t, h),
-                       lambda th=th: F.scaled_dot_product_attention(*th),
-                       4 * bt2 * st * c * 2, 4 * bt2 * st * tt * c, BF16_FLOPS)
+                extra.append((tt, s, c // 16, c, f" {c // 16}x16"))
+        extra += [(tt, s, heads, c, "") for tt in GENERAL_FRAMES]
+        if name == "ds1":
+            extra += [(LONG_FRAMES, s - 5, heads, c, " ragged S"),
+                      (T, s, c // 40, c, f" {c // 40}x40")]
+            extra += [(tt, s, 1, 512, " 1x512") for tt in TALL_FRAMES]
+        if name == "ds4":
+            extra.append((T, s, c // 160, c, f" {c // 160}x160"))
+        for tt, st, hd, cc, note in extra:
+            family = kernel_family(tt, cc // hd)
+            bt2 = 2 * tt
+            qt, kt, vt = randn(bt2, st, cc), randn(bt2, st, cc), randn(bt2, st, cc)
+            th = [z.reshape(2, tt, st, hd, cc // hd).permute(0, 2, 3, 1, 4)
+                  .reshape(2 * st, hd, tt, cc // hd).contiguous() for z in (qt, kt, vt)]
+            yield ("tattn", tattn_label(name, bt2, st, cc, tt) + note
+                   + ("" if family == "narrow" else f" {family}"), 0,
+                   lambda q=qt, k=kt, v=vt, t=tt, h=hd: temporal_attention(q, k, v, t, h),
+                   lambda q=qt, k=kt, v=vt, t=tt, h=hd:
+                   temporal_attention_plain(q, k, v, t, h),
+                   lambda th=th: F.scaled_dot_product_attention(*th),
+                   4 * bt2 * st * cc * 2, 4 * bt2 * st * tt * cc, BF16_FLOPS)
         if name == "ds2":
             # K2 at the other box layouts it takes (not on the UNet's path; 0
             # launches per clip): D = 16 (several heads a box), 80 (a partial
@@ -1336,36 +1378,44 @@ def serve(smi: str):
 
     # One flagship UNet evaluation of a T = 25 clip with CFG (B*T = 50; the
     # conditioning rows of phase 4's batch, cycled): K2 with two row tiles
-    # against K2 forced to its plain version.
-    t25 = TALL_FRAMES[0]
-    rows25 = torch.arange(2 * t25, device="cuda") % BT
-    cond25 = {k: v[rows25] for k, v in cond.items()}
-    x25 = torch.randn(2 * t25, HL, WL, 4, generator=gen, device="cuda").permute(0, 3, 1, 2)
-    noise25, ioi25 = torch.zeros(2 * t25, device="cuda"), torch.zeros(2, t25, device="cuda")
-
-    def unet25():
-        return engine.network_fn(x25, noise25, cond25, t25, ioi25)
-
+    # against K2 forced to its plain version; then of a T = LONG_FRAMES
+    # clip (B*T = 128), K2's general family against the same, and its
+    # device ms by kernel.
     k2 = KERNELS["tattn"]
-    with torch.no_grad():
+    for tl in (TALL_FRAMES[0], LONG_FRAMES):
+        rows_l = torch.arange(2 * tl, device="cuda") % BT
+        cond_l = {k: v[rows_l] for k, v in cond.items()}
+        x_l = torch.randn(2 * tl, HL, WL, 4, generator=gen, device="cuda").permute(0, 3, 1, 2)
+        noise_l, ioi_l = torch.zeros(2 * tl, device="cuda"), torch.zeros(2, tl, device="cuda")
+
+        def unet_long(x_l=x_l, noise_l=noise_l, cond_l=cond_l, tl=tl, ioi_l=ioi_l):
+            return engine.network_fn(x_l, noise_l, cond_l, tl, ioi_l)
+
+        with torch.no_grad():
+            k2.launches = 0
+            on_l = unet_long()
+            k2_on, k2.launches = k2.launches, 0
+            with kernel_flags(tattn=False):
+                off_l = unet_long()
+                k2_off = k2.launches
+                off_ms = device_ms(unet_long, iters=3)
+            on_ms = device_ms(unet_long, iters=3)
+            by_name, _ = device_profile(unet_long, warm=False)
         k2.launches = 0
-        on25 = unet25()
-        k2_on, k2.launches = k2.launches, 0
-        with kernel_flags(tattn=False):
-            off25 = unet25()
-            k2_off = k2.launches
-            off25_ms = device_ms(unet25, iters=3)
-        on25_ms = device_ms(unet25, iters=3)
-    k2.launches = 0
-    err25 = rel_l2(on25, off25)
-    log("unet_t25", rows=2 * t25, frames=t25, rel_l2=err25, tol=AB_TOL, k2_launches=k2_on,
-        k2_plain_launches=k2_off, device_ms={"k2": on25_ms, "k2_plain": off25_ms},
-        out_std=float(on25.float().std()), card=smi)
-    if not (err25 <= AB_TOL and torch.isfinite(on25).all()) or k2_off \
-            or k2_on != count_modules(unet, VideoTransformerBlock):
-        raise RuntimeError(f"UNet at T = {t25}: K2 on vs plain {err25} (tol {AB_TOL}), K2 "
-                           f"launches {k2_on} on, {k2_off} plain")
-    del on25, off25, x25, cond25
+        err_l = rel_l2(on_l, off_l)
+        log(f"unet_t{tl}", rows=2 * tl, frames=tl, rel_l2=err_l, tol=AB_TOL,
+            k2_launches=k2_on, k2_plain_launches=k2_off,
+            device_ms={"k2": on_ms, "k2_plain": off_ms},
+            kernels_ms=None if by_name is None else {
+                name: sum(v for k, v in by_name.items() if any(t in k for t in tags))
+                for name, tags in PROFILE_TAGS.items()},
+            out_std=float(on_l.float().std()), card=smi)
+        if not (err_l <= AB_TOL and torch.isfinite(on_l).all()) or k2_off \
+                or k2_on != count_modules(unet, VideoTransformerBlock):
+            raise RuntimeError(f"UNet at T = {tl}: K2 on vs plain {err_l} (tol {AB_TOL}), "
+                               f"K2 launches {k2_on} on, {k2_off} plain")
+        del on_l, off_l, x_l, cond_l
+    torch.cuda.empty_cache()
 
     # Device time by kernel over one UNet evaluation and one decode, GroupNorm
     # kernels on and off, K7 on and off; the idle share is against the
@@ -1455,10 +1505,10 @@ def serve(smi: str):
             raise RuntimeError(f"{name}: {n} launches over {CLIPS} clips, expected "
                                f"{CLIPS} x {expected[name]}")
 
-    # What K7 costs the clip: the first request again with K7 on and off
-    # (on, off, off, on), the same batch and draws.
+    # What K7 costs the clip: the first request again with K7 on and off,
+    # the same batch and draws.
     k7_s, k7_frames = {"on": [], "off": []}, {}
-    for which in ("on", "off", "off", "on"):
+    for which in ("on", "off"):
         gen = torch.Generator("cuda").manual_seed(SEED + 10)
         batch = random_batch(gen)
         with kernel_flags(fused_gn_conv=which == "on"):
@@ -1824,6 +1874,9 @@ OPTION_UNETS = {
           "merge_strategy": "fixed", "video_kernel_size": 3},
     "B": {"disable_temporal_crossattention": True, "conv_resample": False,
           "extra_ff_mix_layer": True},
+    # num_heads in place of num_head_channels: SD 1.x's heads of 40, 80 and
+    # 160 (K2's general family at 40 and 160; K1's route: none of them).
+    "heads8": {"num_heads": 8, "num_head_channels": -1},
 }
 # A block option the JAX VideoUNet does not pass on, run on one
 # SpatialVideoTransformer at svd_gcd's ds1 width (option_block).
@@ -1971,7 +2024,8 @@ def record_attention_mlp_sites(module, sites: dict):
 
 def unet_launch_model(unet, gn_sites: Counter) -> dict:
     """One evaluation's launches of a VideoUNet from its modules: K1 a
-    spatial block whose attn1 attends to itself, K2 a temporal block's
+    spatial block whose attn1 attends to itself at a head size K1 takes
+    (others take ops/basic.dot_product_attention), K2 a temporal block's
     attention over the frames (attn1, and attn2 where it has no context),
     K3 a feed-forward, K7 a fused GroupNorm -> SiLU -> 3x3 chain, K4 every
     other GroupNorm, K5 those of K4's split path (`gn_sites`, the recorded
@@ -1979,24 +2033,27 @@ def unet_launch_model(unet, gn_sites: Counter) -> dict:
     from gcd_tpu_torch.models.attention import BasicTransformerBlock, TemporalSelfAttention
     from gcd_tpu_torch.models.layers import FeedForward, GroupNorm32
     from gcd_tpu_torch.models.video_attention import VideoTransformerBlock
+    from gcd_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
 
     k7 = gn_conv_modules(unet)
     temporal = sum(isinstance(getattr(m, a, None), TemporalSelfAttention)
                    for m in unet.modules() if isinstance(m, VideoTransformerBlock)
                    for a in ("attn1", "attn2"))
-    return {"flash": sum(not m.disable_self_attn for m in unet.modules()
-                         if isinstance(m, BasicTransformerBlock)),
+    return {"flash": sum(not m.disable_self_attn and m.attn1.dim_head in KERNEL_HEAD_DIMS
+                         for m in unet.modules() if isinstance(m, BasicTransformerBlock)),
             "flash_bwd": 0, "tattn": temporal, "fused_mlp": count_modules(unet, FeedForward),
             "fused_gn": count_modules(unet, GroupNorm32) - k7,
             "gn_stats": split_calls(gn_sites) + k7, "fused_gn_conv": k7}
 
 
 def phase4_shapes() -> dict:
-    """The K1, K2 and K3 shapes phase 4 holds (attention_mlp_cases)."""
+    """The K1, K2 and K3 shapes phase 4 holds (attention_mlp_cases) at the
+    clip's T."""
     rows = (BT, T, SERVE_BATCH * BT)
     return {"flash": {(b, s, c, c // 64) for b in rows for _, s, c, _ in LEVELS}
             | {(BT, 384, 640, 5)},
-            "tattn": {(b, s, c, c // 64) for b in rows for _, s, c, _ in LEVELS},
+            "tattn": {(b, s, c, c // 64) for b in rows for _, s, c, _ in LEVELS}
+            | {(BT, 1536, 320, 8), (BT, 96, 1280, 8)},
             "fused_mlp": {(b * s, c, 4 * c) for b in rows for _, s, c, _ in LEVELS}}
 
 
@@ -2199,7 +2256,38 @@ def conditioning_phase(smi: str, launch_model: dict, phase6: dict) -> tuple:
             or not clip_rel <= AB_TOL):
         raise RuntimeError(f"text clip: crossattn {tuple(c['crossattn'].shape)}, launches "
                            f"{launches} (expected {expected}), on vs off {clip_rel}")
-    del engine, out, frames, c
+
+    # The `num_heads: 8` VideoUNet (OPTION_UNETS["heads8"], seeded) in place
+    # of the flagship's: one 25-step clip of the same request. Its launches
+    # are the text clip's but K1's: its heads of 40 / 80 / 160 take plain
+    # attention, K2 its general family at 40 and 160.
+    from gcd_tpu_torch.models.unet import VideoUNet
+
+    with torch.device("meta"):
+        heads8 = VideoUNet(**{**cfg["params"]["network_config"]["params"],
+                              **OPTION_UNETS["heads8"]})
+    engine.model.diffusion_model = seeded_weights_(
+        heads8.to(torch.bfloat16).to_empty(device="cuda").eval(), gen)
+    cgen = torch.Generator("cuda").manual_seed(SEED + 101)
+    batch = random_batch(cgen)
+    batch["txt"] = text_tokens(cgen, "FrozenOpenCLIPEmbedder")[:T]
+    for fn in KERNELS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.sample_video(batch, generator=cgen, decoding_t=T)
+    torch.cuda.synchronize()
+    heads8_s = time.perf_counter() - t0
+    heads8_launches = {name: fn.launches for name, fn in KERNELS.items()}
+    heads8_expected = dict(expected, flash=0)
+    check_frames("heads8 clip", out["sampled_video"].cpu().numpy(), (T, H, W, 3))
+    log("conditioning_heads8_clip", clip_s=heads8_s, text_clip_s=clip_s["on"],
+        launches=heads8_launches, expected=heads8_expected,
+        frames_std=float(out["sampled_video"].float().std()), card=smi)
+    if heads8_launches != heads8_expected:
+        raise RuntimeError(f"heads8 clip: launches {heads8_launches}, expected "
+                           f"{heads8_expected}")
+    del engine, out, frames, c, heads8
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2514,7 +2602,7 @@ def served(engine, smi: str, per_batch: dict) -> dict:
     lone_err = float(np.linalg.norm(lone - frames[0]) / np.linalg.norm(frames[0]))
 
     # What the default costs end to end: the first batch again, straight
-    # through make_engine_sample_fn, with K7 on and off (on, off, off, on).
+    # through make_engine_sample_fn, with K7 on and off.
     with kernel_flags(fused_gn_conv=False):
         sample_fn_k7_off = make_engine_sample_fn(engine, SERVE_BATCH, T, decoding_t=T)
     pair = _concat_requests([{k: v for k, v in r.items() if k != "seed"}
@@ -2522,7 +2610,7 @@ def served(engine, smi: str, per_batch: dict) -> dict:
     pair_seeds = [int(r["seed"]) for r in requests[:SERVE_BATCH]]
     k7_s = {"on": [], "off": []}
     k7_frames = {}
-    for which in ("on", "off", "off", "on"):
+    for which in ("on", "off"):
         fn = sample_fn if which == "on" else sample_fn_k7_off
         KERNELS["fused_gn_conv"].launches = 0
         torch.cuda.synchronize()
@@ -4658,8 +4746,9 @@ def sharded_phase(smi: str, phase6: dict, served_run: dict) -> tuple:
     if torch.cuda.device_count() >= MESH_CARDS:
         sharded_cards(smi)
         served_cards(smi)
+        option_cards(smi)
     else:
-        for what in ("sharded_cards", "served_cards"):
+        for what in ("sharded_cards", "served_cards", "option_cards"):
             log(what, ran=False, reason=f"{torch.cuda.device_count()} card(s); the "
                 f"four-process runs need {MESH_CARDS} (python3 chip_smoke.py --sampling-cards "
                 "on a machine of four)", card=smi)
@@ -4977,6 +5066,123 @@ def served_cards(smi: str) -> None:
             raise RuntimeError(f"served (c) {name} against one card: {rel} > {SERVE_TOL}")
 
 
+# Option UNet A across cards: its 3 x 3 x 3 time kernel under the
+# sampler's frame groups and its layers under the tensor cut.
+OPTION_CARDS_CHILD = "import sys, chip_smoke; chip_smoke.option_cards_child(sys.argv[1:])"
+
+
+def option_cards_child(argv) -> None:
+    """One process of option_cards: card `rank` of an NCCL group of
+    MESH_CARDS. Option UNet A (OPTION_UNETS["A"]: the 3 x 3 x 3 time
+    kernel, scale-shift norm, resblock up / down, 1 x 1 conv projections,
+    fixed blends, no per-frame temporal context) at svd_gcd's widths on
+    seeded weights and one CFG-doubled 14-frame batch of 32 x 48 latents:
+    (i) whole on this card; (ii) under the sampler's frame groups
+    (sample_rows: V = 2 video blocks of F = 2 frame blocks, every plane in
+    row bands, each time_stack conv taking its neighbours' edge rows), the
+    rows all-gathered; (iii) cut over a tensor axis of MESH_CARDS
+    (unet_placements, cut_unet). Prints one OPTION_RESULT line: (ii) and
+    (iii) against (i), and what was cut."""
+    import torch.distributed as dist
+
+    from gcd_tpu_torch.models.unet import VideoUNet
+    from gcd_tpu_torch.parallel.frames import FrameGroup, frame_sharding, sample_rows
+    from gcd_tpu_torch.parallel.mesh import create_mesh, unet_placements
+    from gcd_tpu_torch.parallel.tensor import cut_unet
+    from gcd_tpu_torch.utils.config import load_config
+
+    rank, size, port = (int(a) for a in argv)
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=size,
+                            rank=rank, device_id=torch.device("cuda", rank))
+    base = load_config(CONFIG)["model"]["params"]["network_config"]["params"]
+    gen = torch.Generator("cuda").manual_seed(SEED + 40)
+    with torch.device("meta"):
+        unet = VideoUNet(**{**base, **OPTION_UNETS["A"]})
+    unet = seeded_weights_(unet.to(torch.bfloat16).to_empty(device="cuda").eval(), gen)
+    y_dim = base["adm_in_channels"] + base.get("aux_emb_dim", 0)
+    x = torch.randn(BT, HL, WL, base["in_channels"], generator=gen,
+                    device="cuda").permute(0, 3, 1, 2).to(torch.bfloat16)
+    sigma = torch.randn(BT, generator=gen, device="cuda")
+    context = torch.randn(BT, 1, base["context_dim"], generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    y = torch.randn(BT, y_dim, generator=gen, device="cuda").to(torch.bfloat16)
+    ioi = torch.zeros(BT // T, T, device="cuda")
+
+    def call(rows=slice(None), videos=slice(None)):
+        return unet(x[rows], sigma[rows], context[rows], y[rows], num_video_frames=T,
+                    image_only_indicator=ioi[videos])
+
+    with torch.no_grad():
+        whole = call()
+        # (ii) the frame groups of sample_rows over the world, each made by
+        # every process in the same order.
+        planes = [HL * WL // 4 ** i for i in range(len(base["channel_mult"]))]
+        plan = sample_rows(size, BT // T, T, rank, planes)
+        groups = [dist.new_group(list(range(v * plan.frame_blocks,
+                                            (v + 1) * plan.frame_blocks)))
+                  for v in range(plan.blocks)]
+        fg = FrameGroup(groups[plan.video_block], plan.frame_blocks, plan.frame_block, T)
+        with frame_sharding(fg):
+            mine = call(slice(plan.video_start * T, plan.video_stop * T),
+                        slice(plan.video_start, plan.video_stop)).contiguous()
+        parts = [torch.empty_like(mine) for _ in range(size)]
+        dist.all_gather(parts, mine)
+        per = plan.frame_stop - plan.frame_start
+        framed = torch.stack(parts).reshape(plan.blocks, plan.frame_blocks, -1, per,
+                                            *mine.shape[1:]).transpose(1, 2)
+        framed = framed.reshape(BT, *mine.shape[1:])
+        # (iii) the tensor cut.
+        mesh = create_mesh(1, 1, size)
+        placements = unet_placements(unet, 1, size)
+        cut = cut_unet(unet, placements, mesh.coords["tensor"], size, mesh.tensor_group)
+        tensor_out = call()
+    result = {"rank": rank, "frame_blocks": plan.frame_blocks, "video_blocks": plan.blocks,
+              "replicated": plan.replicated,
+              "frame_group_rel_l2": rel_l2(framed, whole),
+              "frame_group_bit_identical": bool(torch.equal(framed, whole)),
+              "tensor_rel_l2": rel_l2(tensor_out, whole),
+              "cut_layers": len(cut), "cut_params": sum(p.tensor_dim is not None
+                                                        for p in placements.values()),
+              "finite": bool(torch.isfinite(whole).all() and torch.isfinite(framed).all()
+                             and torch.isfinite(tensor_out).all())}
+    print("OPTION_RESULT " + json.dumps(result), flush=True)
+    dist.destroy_process_group()
+
+
+def option_cards(smi: str) -> None:
+    """(c) of option UNet A across MESH_CARDS cards (option_cards_child):
+    the frame-group evaluation and the tensor-cut one within AB_TOL of the
+    whole one on every rank, the frame groups not replicated, the cut
+    reaching some layers."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", OPTION_CARDS_CHILD, str(rank),
+                               str(MESH_CARDS), str(port)], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for rank in range(MESH_CARDS)]
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"option cards: exit {p.returncode}: {o[-3000:]}")
+    res = [json.loads(o.split("OPTION_RESULT ", 1)[1].splitlines()[0]) for o in outs]
+    log("option_cards", ran=True, unet="A", options=OPTION_UNETS["A"], ranks=res, tol=AB_TOL,
+        seconds=time.perf_counter() - t0, card=smi)
+    bad = [r for r in res if not (r["finite"] and r["frame_group_rel_l2"] <= AB_TOL
+                                  and r["tensor_rel_l2"] <= AB_TOL and not r["replicated"]
+                                  and r["cut_layers"] > 0)]
+    if bad:
+        raise RuntimeError(f"option UNet A across cards: {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5015,6 +5221,7 @@ def main() -> int:
         mesh_cards(smi)
         sharded_cards(smi)
         served_cards(smi)
+        option_cards(smi)
         return 0
     if "--sampling-cards" in sys.argv[1:]:
         if torch.cuda.device_count() < MESH_CARDS:
@@ -5022,6 +5229,13 @@ def main() -> int:
             return 1
         sharded_cards(smi)
         served_cards(smi)
+        option_cards(smi)
+        return 0
+    if "--option-cards" in sys.argv[1:]:
+        if torch.cuda.device_count() < MESH_CARDS:
+            print(f"chip_smoke --option-cards: needs {MESH_CARDS} cards", file=sys.stderr)
+            return 1
+        option_cards(smi)
         return 0
 
     stats, launches, served_run, launch_model, phase6_clip, samplers_launches = serve(smi)

@@ -19,6 +19,11 @@ Under a frame group (parallel/frames.py) a VideoResBlock holds T / F frames
 of its videos: the spatial ResBlock runs on them, and its `time_stack` on
 all T frames at 1 / F of the positions (frames_to_rows before it,
 rows_to_frames after it), its GroupNorm statistics summed over the group.
+A time kernel with spatial extent (3, 3, 3) takes the neighbouring bands'
+edge rows before each of its convs (`halo_rows`) where the positions split
+into row bands of at least (k - 1) / 2 rows; otherwise the block's frames
+are all-gathered and its time_stack runs on whole planes on every rank of
+the group (`gather_frames`), each rank keeping its own frames.
 """
 
 from __future__ import annotations
@@ -33,11 +38,25 @@ from gcd_tpu_torch.models.layers import AlphaBlender, GroupNorm32
 from gcd_tpu_torch.ops.dispatch import kernel_enabled
 from gcd_tpu_torch.ops.fused_gn_conv import gn_silu_conv3x3, supported
 from gcd_tpu_torch.parallel.frames import (
+    FrameGroup,
     current_frame_group,
     frames_to_rows,
+    gather_frames,
+    halo_fits,
+    halo_rows,
     local_frames,
     rows_to_frames,
 )
+
+
+def _conv(conv: nn.Module, x: torch.Tensor, halo: Optional[FrameGroup]) -> torch.Tensor:
+    """conv(x); under `halo`, x is one row band of (B, C, T, h, W) videos:
+    the conv runs on it with the neighbouring bands' edge rows (zeros at
+    the plane's top and bottom) in place of its row padding."""
+    if halo is None:
+        return conv(x)
+    pt, ph, pw = conv.padding
+    return F.conv3d(halo_rows(x, halo, ph), conv.weight, conv.bias, conv.stride, (pt, 0, pw))
 
 
 class Upsample(nn.Module):
@@ -108,11 +127,12 @@ class ResBlock(nn.Module):
             # to_empty and load_state_dict's copy_ all keep a weight's strides.
             c.weight.data = c.weight.data.contiguous(memory_format=torch.channels_last)
 
-    def _norm_conv(self, layers: nn.Sequential, x: torch.Tensor, stats_group=None
-                   ) -> torch.Tensor:
+    def _norm_conv(self, layers: nn.Sequential, x: torch.Tensor, stats_group=None,
+                   halo: Optional[FrameGroup] = None) -> torch.Tensor:
         """layers[-1](layers[0](x)): K7 for a chain of fused_convs()
         under the switch where it takes the shape, else GroupNorm32 (its
-        statistics summed over `stats_group`, if any) then the conv."""
+        statistics summed over `stats_group`, if any) then the conv (on x's
+        band and the neighbouring bands' edge rows under `halo`)."""
         norm, conv = layers[0], layers[-1]
         if (conv in self.fused_convs() and kernel_enabled("fused_gn_conv")
                 and supported(x, conv.weight, norm.num_groups)):
@@ -121,16 +141,19 @@ class ResBlock(nn.Module):
             weight = conv.weight.contiguous(memory_format=torch.channels_last)
             return gn_silu_conv3x3(x, norm.weight, norm.bias, weight, conv.bias,
                                    norm.num_groups, norm.eps, norm.silu)
-        return conv(norm(x, stats_group))
+        return _conv(conv, norm(x, stats_group), halo)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor, stats_group=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, stats_group=None,
+                halo: Optional[FrameGroup] = None) -> torch.Tensor:
         """x (N, C, H, W) with emb (N, E), or x (B, C, T, H, W) with emb (B, T, E);
-        a video's GroupNorm statistics summed over `stats_group`, if any."""
+        a video's GroupNorm statistics summed over `stats_group`, if any; x
+        one row band of each frame of `halo`'s group, whose convs take the
+        neighbouring bands' edge rows."""
         if hasattr(self, "h_upd"):
             h = self.in_layers[2](self.h_upd(self.in_layers[0](x, stats_group)))
             x = self.x_upd(x)
         else:
-            h = self._norm_conv(self.in_layers, x, stats_group)
+            h = self._norm_conv(self.in_layers, x, stats_group, halo)
         emb_out = self.emb_layers(emb)
         if x.dim() == 5:
             emb_out = emb_out.transpose(1, 2)  # (B, C, T)
@@ -140,7 +163,7 @@ class ResBlock(nn.Module):
             h = self.out_layers[0](h, stats_group) * (1 + scale) + shift
             h = self.out_layers[3](F.silu(h))
         else:
-            h = self._norm_conv(self.out_layers, h + emb_out.to(h.dtype), stats_group)
+            h = self._norm_conv(self.out_layers, h + emb_out.to(h.dtype), stats_group, halo)
         return self.skip_connection(x) + h
 
     def fused_convs(self):
@@ -161,8 +184,8 @@ class VideoResBlock(ResBlock):
     time_stack neither, as in the JAX package. x (B*T, C, H, W), emb
     (B*T, E), indicator (B, T); under a frame group x holds this rank's
     T / F frames of each video and the indicator its columns, while emb
-    covers all T. A time_stack kernel with spatial extent crosses the frame
-    group's position blocks, so it refuses to run under one."""
+    covers all T. A time_stack kernel with spatial extent reads its
+    neighbouring position blocks' edge rows (module docstring)."""
 
     def __init__(self, channels: int, emb_channels: int,
                  out_channels: Optional[int] = None,
@@ -177,27 +200,32 @@ class VideoResBlock(ResBlock):
         self.time_stack = ResBlock(out_ch, emb_channels, out_ch, kernel_size=ks)
         self.time_mixer = AlphaBlender(merge_factor, merge_strategy)
         self.spatial_time_kernel = ks[1:] != (1, 1)
+        self.halo = ks[1] // 2  # rows the time_stack convs read past a row band
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 image_only_indicator: torch.Tensor, num_video_frames: int
                 ) -> torch.Tensor:
         t = num_video_frames
         fg = current_frame_group()
-        if fg is not None and self.spatial_time_kernel:
-            raise NotImplementedError(
-                "video_kernel_size with spatial extent under a frame group: the time_stack "
-                "conv would cross the group's position blocks")
         x = super().forward(x, local_frames(emb, t, fg))
         bt, c, h, w = x.shape
         b = emb.shape[0] // t
         x_mix = x.reshape(b, bt // b, c, h, w).transpose(1, 2)  # (B, C, T or T/F, H, W)
-        rows = frames_to_rows(x, fg)  # all T frames of the rank's share of the positions
-        x_rows = rows.reshape(b, t, c, *rows.shape[2:]).transpose(1, 2)
-        x_vid = self.time_stack(x_rows, emb.reshape(b, t, -1),
-                                None if fg is None else fg.group)
-        if fg is not None:
-            x_vid = rows_to_frames(x_vid.transpose(1, 2).reshape(b * t, c, *rows.shape[2:]),
-                                   fg, (h, w)).reshape(b, bt // b, c, h, w).transpose(1, 2)
+        if (fg is not None and self.spatial_time_kernel
+                and not halo_fits((h, w), fg.size, self.halo)):
+            # Every frame of the whole planes, on every rank of the group.
+            whole = gather_frames(x, fg).reshape(b, t, c, h, w).transpose(1, 2)
+            x_vid = self.time_stack(whole, emb.reshape(b, t, -1))[:, :, fg.frame_slice]
+        else:
+            rows = frames_to_rows(x, fg)  # all T frames of the rank's share of the positions
+            x_rows = rows.reshape(b, t, c, *rows.shape[2:]).transpose(1, 2)
+            x_vid = self.time_stack(x_rows, emb.reshape(b, t, -1),
+                                    None if fg is None else fg.group,
+                                    fg if self.halo else None)
+            if fg is not None:
+                x_vid = rows_to_frames(
+                    x_vid.transpose(1, 2).reshape(b * t, c, *rows.shape[2:]), fg,
+                    (h, w)).reshape(b, bt // b, c, h, w).transpose(1, 2)
         alpha = self.time_mixer.get_alpha(image_only_indicator)
         if alpha.dim():
             alpha = alpha[:, None, :, None, None]

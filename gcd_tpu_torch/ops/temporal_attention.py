@@ -10,13 +10,18 @@ dtype for PV and division after PV.
 `temporal_attention` calls the op `gcd::temporal_attention`
 (ops/library.py): the plain version on CPU tensors, the kernel or an error
 on CUDA ones; under `kernel_flags(tattn=False)` it runs the plain version.
-The kernel takes, family by family (`kernel_takes`): a head size D that is
-a multiple of 16 up to 128 (the UNet's heads, the narrow family) with T <=
-32 frames (SVD-XT's 25 among them), or a multiple of 64 up to 512 (the VAE
-decoder's one-head VideoAttnBlock, the wide family; the JAX kernel's own
-`d % 64` rule) with T <= 16; the wrapper raises on a CUDA tensor outside
-that domain. Its gradient is that of the plain version, recomputed from the
-saved q, k, v (ops/recompute.py; gcd_tpu's `_temporal_bwd`).
+The kernel takes every T >= 1 and every head size D up to
+MAX_GENERAL_HEAD_DIM = 1024 (`kernel_takes`), in three families
+(`kernel_family`): D a multiple of 16 up to 128 (the UNet's heads) with T
+<= 32 frames (SVD-XT's 25 among them) takes the narrow family; D a
+multiple of 64 up to 512 (the VAE decoder's one-head VideoAttnBlock; the
+JAX kernel's own `d % 64` rule) with T <= 16 the wide family; every other
+shape (clips past 32 frames, the VAE's heads past 16, heads of 40, 80, 160
+of a UNet built with `num_heads`) the general family, which streams the
+key tiles in two passes. The wrapper raises on a CUDA tensor with D past
+1024; no shape is routed to the plain version. Its gradient is that of the
+plain version, recomputed from the saved q, k, v (ops/recompute.py;
+gcd_tpu's `_temporal_bwd`).
 """
 
 from __future__ import annotations
@@ -34,21 +39,26 @@ MAX_FRAMES = 32          # the narrow family: two 16-row tiles
 MAX_WIDE_FRAMES = 16     # the wide family: one 16-row tile
 MAX_HEAD_DIM = 128       # the narrow family: D a multiple of 16
 MAX_WIDE_HEAD_DIM = 512  # the wide family: D a multiple of 64
+MAX_GENERAL_HEAD_DIM = 1024  # the general family: any D, any T
 
 
-def kernel_head_dim(d: int) -> bool:
-    """Whether K2 takes head size d: a multiple of 16 up to MAX_HEAD_DIM
-    or of 64 up to MAX_WIDE_HEAD_DIM."""
-    return 0 < d and ((d % 16 == 0 and d <= MAX_HEAD_DIM)
-                      or (d % 64 == 0 and d <= MAX_WIDE_HEAD_DIM))
+def kernel_family(t: int, d: int) -> Optional[str]:
+    """The family of K2 that takes T = t frames at head size d (the C
+    entry's dispatch): "narrow", "wide", "general", or None past
+    MAX_GENERAL_HEAD_DIM."""
+    if t < 1 or d < 1 or d > MAX_GENERAL_HEAD_DIM:
+        return None
+    if d <= MAX_HEAD_DIM and d % 16 == 0 and t <= MAX_FRAMES:
+        return "narrow"
+    if MAX_HEAD_DIM < d <= MAX_WIDE_HEAD_DIM and d % 64 == 0 and t <= MAX_WIDE_FRAMES:
+        return "wide"
+    return "general"
 
 
 def kernel_takes(t: int, d: int) -> bool:
-    """Whether K2 takes T = t frames at head size d: T <= MAX_FRAMES in the
-    narrow family, T <= MAX_WIDE_FRAMES in the wide one."""
-    if not kernel_head_dim(d):
-        return False
-    return 0 < t <= (MAX_FRAMES if d <= MAX_HEAD_DIM else MAX_WIDE_FRAMES)
+    """Whether K2 takes T = t frames at head size d: every T >= 1 with D up
+    to MAX_GENERAL_HEAD_DIM."""
+    return kernel_family(t, d) is not None
 
 
 def temporal_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
@@ -75,9 +85,8 @@ def temporal_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tenso
 def temporal_attention(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        timesteps: int, heads: int,
                        scale: Optional[float] = None) -> torch.Tensor:
-    """Frame-axis attention on (B*T, S, H*D) tokens; K2 on CUDA (bf16, D a
-    multiple of 16 up to 128 with T <= 32, or of 64 up to 512 with T <=
-    16)."""
+    """Frame-axis attention on (B*T, S, H*D) tokens; K2 on CUDA (bf16, any
+    T, D up to 1024)."""
     return plain_gradient(_temporal_forward, temporal_attention_plain, (q3, k3, v3),
                           timesteps=timesteps, heads=heads, scale=scale)
 
@@ -92,9 +101,8 @@ def _temporal_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                          f"T={t}, heads={heads}")
     d = c // heads
     if not kernel_takes(t, d):
-        raise ValueError(f"temporal_attention: kernel takes D a multiple of 16 up to "
-                         f"{MAX_HEAD_DIM} with T <= {MAX_FRAMES}, or of 64 up to "
-                         f"{MAX_WIDE_HEAD_DIM} with T <= {MAX_WIDE_FRAMES}; got T={t}, D={d}")
+        raise ValueError(f"temporal_attention: kernel takes heads of up to "
+                         f"{MAX_GENERAL_HEAD_DIM} channels; got T={t}, D={d}")
     scale = float(d ** -0.5 if scale is None else scale)
     for name, z in (("q", q3), ("k", k3), ("v", v3)):
         _native.check_cuda_operand(name, z, torch.bfloat16, (bt, s, c))

@@ -271,6 +271,40 @@ def position_block(x: torch.Tensor, size: int, index: int) -> torch.Tensor:
     return flat.reshape(x.shape[0], x.shape[1], sh, sw)
 
 
+def halo_fits(hw: Sequence[int], size: int, rows: int) -> bool:
+    """Whether position blocks of an (H, W) plane over `size` ranks are row
+    bands of at least `rows` rows, so a conv reading `rows` rows past its
+    block takes them from the neighbouring bands alone."""
+    return hw[0] % size == 0 and hw[0] // size >= rows
+
+
+def halo_rows(x: torch.Tensor, fg: FrameGroup, rows: int) -> torch.Tensor:
+    """x (B, C, T, h, W), this rank's band of h rows of every frame (its
+    frames_to_rows block of a plane whose rows the group divides) -> (B, C,
+    T, h + 2 rows, W): `rows` rows of the bands above and below, from the
+    neighbouring ranks of the group (one all-gather of every rank's edges),
+    zeros past the plane's top and bottom."""
+    edges = torch.stack((x[..., :rows, :], x[..., -rows:, :])).contiguous()
+    got = [torch.empty_like(edges) for _ in range(fg.size)]
+    dist.all_gather(got, edges, group=fg.group)
+    zero = torch.zeros_like(edges[0])
+    above = got[fg.index - 1][1] if fg.index > 0 else zero
+    below = got[fg.index + 1][0] if fg.index + 1 < fg.size else zero
+    return torch.cat((above, x, below), dim=3)
+
+
+def gather_frames(x: torch.Tensor, fg: FrameGroup) -> torch.Tensor:
+    """This rank's frames of an image (videos * T/F, C, H, W) -> every frame
+    of its videos (videos * T, C, H, W), contiguous, all-gathered over the
+    frame group."""
+    x = x.contiguous()
+    got = [torch.empty_like(x) for _ in range(fg.size)]
+    dist.all_gather(got, x, group=fg.group)
+    videos = x.shape[0] // fg.local
+    return (torch.stack(got).reshape(fg.size, videos, fg.local, *x.shape[1:])
+            .transpose(0, 1).reshape(videos * fg.frames, *x.shape[1:]))
+
+
 def all_reduce_sums(s1: torch.Tensor, s2: torch.Tensor, group) -> Tuple[torch.Tensor,
                                                                          torch.Tensor]:
     """(sum x, sum x^2) summed over `group`, in one all-reduce."""

@@ -1,11 +1,14 @@
 """The card's two option UNets (chip_smoke.py's conditioning phase (d)),
 whole, against the JAX VideoUNet, and a gradient of A against jax.grad; the
 JAX package's defaults for the keys a config leaves out;
-the bf16 route of cross-attention to a 77-token context; the frame-group
-refusal of a time kernel with spatial extent. Weights carried by the weight
-bridge and loaded with strict=True; fp32 on the CPU at 1e-4, as
-the other tests/test_torch_unet_*.py (tests/torch_unet_helpers.py).
+the bf16 route of cross-attention to a 77-token context; a time kernel
+with spatial extent under a frame group of two and three gloo ranks.
+Weights carried by the weight bridge and loaded with strict=True; fp32 on
+the CPU at 1e-4, as the other tests/test_torch_unet_*.py
+(tests/torch_unet_helpers.py).
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +21,6 @@ from gcd_tpu.models.unet import VideoUNet as JVideoUNet
 from gcd_tpu_torch.io.convert import state_dict_from_flax
 from gcd_tpu_torch.models.attention import CrossAttention
 from gcd_tpu_torch.models.unet import VideoUNet
-from gcd_tpu_torch.parallel.frames import FrameGroup, frame_sharding
 from tests.torch_port_helpers import TINY_UNET, flax_params, load_port, nchw, nhwc, rel_l2
 from tests.torch_threads import one_torch_thread  # noqa: F401
 from tests.torch_unet_helpers import (
@@ -148,10 +150,103 @@ class _Given(torch.nn.Module):
         return self.out
 
 
-def test_time_kernel_with_spatial_extent_refuses_a_frame_group():
-    port = VideoUNet(**{**TINY_UNET, "video_kernel_size": 3}).eval()
-    a = inputs(11)
-    with torch.no_grad(), frame_sharding(FrameGroup(None, 1, 0, T)):
-        with pytest.raises(NotImplementedError, match="video_kernel_size"):
-            port_call(port, a)
+# The 3 x 3 x 3 time kernel under a frame group: the tiny UNet with
+# video_kernel_size 3 on one video of FG_T frames at FG_H x FG_W latents, in
+# gloo groups of 2 ranks (F divides H at both levels: 4 x 6 and 2 x 3 split
+# into row bands, each conv taking its neighbours' edge rows) and of 3 ranks
+# (F divides neither H: the (1, H*W / 3) split, each time_stack run on the
+# all-gathered frames of the whole planes). Each rank returns its frames'
+# rows; rank 0 gathers them. fp32: the frame group against one process
+# (the same sums, the GroupNorm's split over the ranks) and against JAX.
+FG_T, FG_H, FG_W = 6, 4, 6
+FG_TOL = 2e-5  # the sharded sampler's bound (tests/test_torch_sharded_sampling.py)
+FG_CHILD = """
+import sys, torch, torch.distributed as dist
+from gcd_tpu_torch.models.unet import VideoUNet
+from gcd_tpu_torch.parallel.frames import FrameGroup, frame_sharding
+from tests.torch_port_helpers import TINY_UNET
+path, rank, size, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=size,
+                        rank=rank)
+sd, args, t = torch.load(path, weights_only=False)
+port_unet = VideoUNet(**{**TINY_UNET, "video_kernel_size": 3}).eval()
+port_unet.load_state_dict(sd, strict=True)
+with torch.no_grad(), frame_sharding(FrameGroup(dist.group.WORLD, size, rank, t)):
+    rows = port_unet(*args[:4], num_video_frames=t, image_only_indicator=args[4])
+got = [torch.empty_like(rows) for _ in range(size)]
+dist.all_gather(got, rows)
+if rank == 0:
+    torch.save(torch.cat(got), path + f".{size}.out")
+dist.destroy_process_group()
+"""
 
+
+@pytest.fixture(scope="module")
+def frame_group_runs(tmp_path_factory):
+    """(JAX's output, one process's, {ranks: the frame group's}) of the
+    3 x 3 x 3 time kernel UNet; both gloo groups run at once."""
+    import socket
+    import subprocess
+    import sys
+
+    from tests.torch_port_helpers import REPO
+
+    options = {**TINY_UNET, "video_kernel_size": 3}
+    rng = np.random.default_rng(23)
+    a = dict(x=rng.normal(size=(FG_T, FG_H, FG_W, 8)).astype(np.float32),
+             ts=rng.normal(size=(FG_T,)).astype(np.float32) * 3.0,
+             ctx=rng.normal(size=(FG_T, 5, 24)).astype(np.float32),
+             y=rng.normal(size=(FG_T, TINY_UNET["adm_in_channels"]
+                                + TINY_UNET["aux_emb_dim"])).astype(np.float32),
+             ioi=np.zeros((1, FG_T), np.float32))
+    a["ioi"][0, 2] = 1.0
+    jmod = JVideoUNet(**options)
+    jargs = tuple(jnp.asarray(a[k]) for k in ("x", "ts", "ctx", "y"))
+    kw = dict(num_video_frames=FG_T, image_only_indicator=jnp.asarray(a["ioi"]))
+    params = flax_params(jmod, 24, *jargs, **kw)
+    ref = np.asarray(jax.jit(lambda p, *xs: jmod.apply({"params": p}, *xs, **kw))(
+        params, *jargs))
+    port = load_port(VideoUNet(**options), params)
+    args = (nchw(a["x"]), torch.from_numpy(a["ts"]), torch.from_numpy(a["ctx"]),
+            torch.from_numpy(a["y"]), torch.from_numpy(a["ioi"]))
+    with torch.no_grad():
+        whole = port(*args[:4], num_video_frames=FG_T, image_only_indicator=args[4])
+    path = str(tmp_path_factory.mktemp("fg") / "case.pt")
+    torch.save((port.state_dict(), args, FG_T), path)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    env.pop("PYTHONSTARTUP", None)
+    procs = []
+    for size in (2, 3):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            free = sock.getsockname()[1]
+        procs += [subprocess.Popen([sys.executable, "-c", FG_CHILD, path, str(rank), str(size),
+                                    str(free)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+                  for rank in range(size)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    return ref, whole, {size: torch.load(f"{path}.{size}.out") for size in (2, 3)}
+
+
+@pytest.mark.parametrize("ranks", [2, 3])
+def test_time_kernel_with_spatial_extent_under_a_frame_group(frame_group_runs, ranks):
+    """Two ranks split every plane into row bands (the halo exchange), three
+    split neither plane's rows (the all-gathered frames); both hold the
+    whole evaluation of one process and of JAX."""
+    from gcd_tpu_torch.parallel.frames import halo_fits, split_plane
+
+    planes = [(FG_H, FG_W), (FG_H // 2, FG_W // 2)]
+    assert all(halo_fits(p, ranks, 1) == (ranks == 2) for p in planes)
+    assert all(split_plane(p, ranks)[0] == (p[0] // 2 if ranks == 2 else 1) for p in planes)
+    ref, whole, split = frame_group_runs
+    assert np.abs(ref).max() > 1e-2
+    assert rel_l2(nhwc(whole), ref) <= FG_TOL
+    assert rel_l2(split[ranks].numpy(), whole.numpy()) <= FG_TOL
+    assert rel_l2(nhwc(split[ranks]), ref) <= FG_TOL
