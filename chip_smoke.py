@@ -9,8 +9,8 @@ without the final `ok` line):
                    process per source; the ptxas report (registers, spills,
                    stack, and any note that it serialised a kernel's wgmma
                    products) of the wgmma kernels K1, K3, K6 and K7, of K2's
-                   mma.sync kernel and of K4's and K5's channels-last
-                   kernels.
+                   narrow, resident and streamed mma.sync kernels and of
+                   K4's and K5's channels-last kernels.
   3. conditioner - load_engine(configs/infer_kubric.yaml): random bf16
                    weights (std 0.02 on every leaf, seeded), ViT-H/14 tower;
                    one conditioner pass on a random 14-frame 384x256 batch;
@@ -32,8 +32,11 @@ without the final `ok` line):
                    ds2, T = 25; K2's general family at T = 33, 64 and 100
                    (one clip with CFG) at the four levels' widths, a ragged
                    S at ds1, T = 64, the `num_heads: 8` UNet's D = 40 at
-                   ds1 and 160 at ds4 (T = 14), and the VAE's one-head D =
-                   512 at (2 T, 1536) for T = 25 and 32; K4 / K5 also at the served
+                   ds1 and 160 at ds4 (T = 14), the VAE's one-head D =
+                   512 at (2 T, 1536) for T = 25 and 32, and at ds1 the
+                   resident kernel's largest T, 128, and one head of 1024
+                   at T = 33 (streamed); each general case labelled
+                   `resident` or `streamed`; K4 / K5 also at the served
                    batch's GroupNorm sites, the conditioner's and the
                    UNet's N doubled); K4 / K5
                    also on channels-first copies of those shapes; K1, K2,
@@ -446,6 +449,7 @@ FP32_FLOPS = 67e12
 PROFILE_TAGS = {"flash": ("flash_attention_kernel",),
                 "flash_bwd": ("flash_bwd_rows_kernel", "flash_bwd_dkdv_kernel"),
                 "tattn": ("temporal_attention_kernel", "temporal_attention_wide_kernel",
+                          "temporal_attention_resident_kernel",
                           "temporal_attention_general_kernel"),
                 "fused_mlp": ("geglu_up_kernel", "geglu_down_kernel"),
                 "fused_gn_and_gn_stats": ("group_norm", "group_stats"),
@@ -457,9 +461,13 @@ LEVELS = [("ds1", 1536, 320, 5), ("ds2", 384, 640, 5), ("ds4", 96, 1280, 5),
 # flagship UNet evaluation (phase 5).
 TALL_FRAMES = (25, 32)
 # Frame counts past 32 that K2's general family is held at (phase 4), the
-# second also in one flagship UNet evaluation (phase 5).
+# second also in one flagship UNet evaluation (phase 5); the most frames its
+# resident kernel takes (phase 4, ds1), and the head size whose unit at 33
+# frames only its streamed kernel takes (phase 4, one head at ds1's S).
 GENERAL_FRAMES = (33, 64, 100)
 LONG_FRAMES = 64
+RESIDENT_FRAMES = 128
+STREAMED_HEAD = 1024
 SOURCES = {
     "flash": ("gcd_tpu_torch/csrc/flash_attention.cu",
               "gcd_tpu/ops/flash_attention.py:55"),
@@ -480,10 +488,12 @@ SOURCES = {
 DEVICE_TIMED = ("flash", "flash_bwd", "tattn", "fused_mlp", "fused_gn", "gn_stats",
                 "fused_gn_conv")
 # Entry functions whose ptxas lines the build logs: the wgmma kernels (K1,
-# K3, K6, K7), K2's mma.sync kernel and K4's and K5's channels-last kernels.
+# K3, K6, K7), K2's narrow, resident and streamed mma.sync kernels and K4's
+# and K5's channels-last kernels.
 PTXAS_ENTRIES = ("flash_attention_kernel", "flash_bwd_rows_kernel", "flash_bwd_dkdv_kernel",
                  "geglu_up_kernel", "geglu_down_kernel", "gn_silu_conv3x3_kernel",
-                 "temporal_attention_kernel", "temporal_attention_general_kernel",
+                 "temporal_attention_kernel", "temporal_attention_resident_kernel",
+                 "temporal_attention_general_kernel",
                  "group_norm_cl_onepass_kernel",
                  "group_norm_cl_table_kernel", "group_stats_cl_kernel")
 # Phase 8, the training entry on a synthetic Kubric-4D root: one scene of the
@@ -1002,7 +1012,10 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
         # its general family, likewise: one clip with CFG past 32 frames
         # (GENERAL_FRAMES); at ds1 a ragged S at T = LONG_FRAMES, the
         # `num_heads: 8` UNet's D = 40 at T = 14 and the VAE's one-head D =
-        # 512 at T = 25 and 32; at ds4 its D = 160.
+        # 512 at T = 25 and 32, and the two kernels' boundary: T =
+        # RESIDENT_FRAMES (resident) and one head of STREAMED_HEAD at T = 33
+        # (streamed); at ds4 its D = 160. Each general case is labelled
+        # with its kernel.
         extra = []  # (frames, positions, heads, channels, note)
         for tt in TALL_FRAMES:
             extra.append((tt, s, heads, c, ""))
@@ -1015,6 +1028,8 @@ def attention_mlp_cases(gen: torch.Generator, steps: int):
             extra += [(LONG_FRAMES, s - 5, heads, c, " ragged S"),
                       (T, s, c // 40, c, f" {c // 40}x40")]
             extra += [(tt, s, 1, 512, " 1x512") for tt in TALL_FRAMES]
+            extra += [(RESIDENT_FRAMES, s, heads, c, ""),
+                      (GENERAL_FRAMES[0], s, 1, STREAMED_HEAD, f" 1x{STREAMED_HEAD}")]
         if name == "ds4":
             extra.append((T, s, c // 160, c, f" {c // 160}x160"))
         for tt, st, hd, cc, note in extra:
@@ -1379,8 +1394,8 @@ def serve(smi: str):
     # One flagship UNet evaluation of a T = 25 clip with CFG (B*T = 50; the
     # conditioning rows of phase 4's batch, cycled): K2 with two row tiles
     # against K2 forced to its plain version; then of a T = LONG_FRAMES
-    # clip (B*T = 128), K2's general family against the same, and its
-    # device ms by kernel.
+    # clip (B*T = 128), K2's general family (its resident kernel) against
+    # the same, and its device ms by kernel.
     k2 = KERNELS["tattn"]
     for tl in (TALL_FRAMES[0], LONG_FRAMES):
         rows_l = torch.arange(2 * tl, device="cuda") % BT

@@ -79,10 +79,46 @@
 // by the same instructions as in the narrow family. At the decoder's
 // (14, 1536, 512), H = 1, q, k, v and o are 88 MB: 0.026 ms at 3.35 TB/s.
 //
-// Every other shape up to D = 1024 takes the third, general family,
-// temporal_attention_general_kernel: any T >= 1 (clips past 32 frames; the
-// wide heads past 16), any D (40, 72, 100, 160: the UNet built with
-// `num_heads` rather than `num_head_channels`), any C. It streams the keys:
+// Every other shape up to D = 1024 takes the general family, two kernels
+// that take any T >= 1 (clips past 32 frames; the wide heads past 16), any
+// D (40, 72, 100, 160: the UNet built with `num_heads` rather than
+// `num_head_channels`) and any C, with D padded to DP, the next multiple of
+// 16, by zero channels (they add nothing to S, and their O is never
+// stored). Where a unit fits (res_takes: T <= 16 RES_MAX_TILES and one
+// unit's q, k and v in a block's shared memory), the resident kernel,
+// temporal_attention_resident_kernel, holds all of it on chip, as the TPU
+// kernel holds its block of frames in VMEM:
+//  - A unit is one (video, position, head), a block of MT warps, one a
+//    query strip of 16 frames. Its q, k and v come into shared memory once,
+//    in the narrow family's layout (boxes of 64 channels x 16 MT frames,
+//    128-byte swizzled): by TMA through the same maps where D is a multiple
+//    of 16 and C of 8 (a box's channels past D are other heads' and never
+//    read), else by 16-byte cp.async (C and D multiples of 8) or 2-byte
+//    copies into the same layout, zeros past T and D. The copies complete on
+//    the unit's full barrier (cp.async through cp.async.mbarrier.arrive).
+//  - The grid is persistent. A block's ring holds two units where two fit
+//    and cost the SM no block (res_stages), so the next unit's copies run
+//    while the block computes the current one; else one, and the SM's
+//    blocks overlap each other's copies (at the one head of 512, two blocks
+//    of one unit keep twice the warps of one block of two busy). One block
+//    barrier a unit, before its slot is refilled.
+//  - A strip's first warp computes its S = Q K^T over every key tile at
+//    once, in registers (8 MT fp32 a lane), in the streamed kernel's
+//    k-order; then the exact row max, P = exp(s - max) against it, the fp32
+//    row sums tile by tile in the streamed kernel's order, and P rounded to
+//    bf16 A fragments (4 MT registers). O = P V runs over 64 channels at a
+//    time with V from shared memory; O / sum goes over the strip's own Q
+//    rows and is stored 16 bytes (or 2) a lane. S is computed once, and q,
+//    k, v read from HBM once: the same instructions on the same values as
+//    the streamed kernel, so the same bits.
+//  - Where D is wide and a unit takes most of an SM's shared memory (the
+//    VAE's one head of 512: two units an SM), a strip has 2 or 4 warps
+//    (res_wps): the first passes P and the sums to the others through
+//    shared memory, and they split O's 64-channel chunks, so the SM runs
+//    16 warps instead of 4.
+// The rest (T past 128, or a unit past shared memory: one head of 1024
+// past 32 frames, of 512 past 64) takes the streamed kernel,
+// temporal_attention_general_kernel, which streams the keys:
 //  - A unit is still one (video, position, head), a block of W warps: its
 //    query strips of 16 frames (T padded to MT = ceil(T / 16) strips), one
 //    a warp, W = min(MT, 4) at a time (fewer where shared memory does not
@@ -93,34 +129,28 @@
 //    = exp(s - max) against the final row max, the fp32 row sums of that
 //    P, P rounded to bf16 and O += P V, then divides O by the sums: the
 //    TPU kernel's rounding points. A one-pass online softmax would round P
-//    against a running max. The kernel is bound by bytes, and the second
-//    S = Q K^T is read from tiles already in L2.
-//  - D is padded to DP, the next multiple of 16, with zero channels in
-//    shared memory (they add nothing to S, and their O is never stored).
-//    Above DP = 128 the second pass runs once for each 64 channels of O (32
+//    against a running max.
+//  - Above DP = 128 the second pass runs once for each 64 channels of O (32
 //    accumulators a lane, as the wide family), recomputing S each time.
-//  - No TMA: a box's inner extent must be a multiple of 16 bytes, and a C
-//    that is not a multiple of 8 has no map at all. Where C and D are
-//    multiples of 8, cp.async copies 16 bytes a thread and zero-fills
-//    frames past T and channels past D (src-size 0); elsewhere threads load
-//    and store 2 bytes each. The block keeps the tiles of its next job (a
-//    key tile, its value chunk, a new group of query strips) in flight
-//    while it computes the current one.
+//  - No TMA: cp.async copies 16 bytes a thread where C and D are multiples
+//    of 8 and zero-fills frames past T and channels past D (src-size 0);
+//    elsewhere threads load and store 2 bytes each. The block keeps the
+//    tiles of its next job (a key tile, its value chunk, a new group of
+//    query strips) in flight while it computes the current one.
 //  - Shared rows are padded by 16 bytes (an odd multiple of 16 bytes a
 //    row), so the eight rows an ldmatrix matrix reads fall in distinct
 //    banks without a swizzle at any DP.
 //  - Each warp divides its O by the row sums into its own staging tile of
 //    the chunk's channels, then stores it 16 bytes (or 2) a lane; frames t
-//    >= T and channels past D are not stored. The sums run tile by tile in
-//    a fixed order, with no atomics: bit-identical from call to call.
-// At the UNet's ds1 at T = 64 with CFG, (128, 1536, 320), q, k, v and o are
-// 503 MB: 0.150 ms at 3.35 TB/s; the kernel reads each key tile 1 + (D
-// chunks) times per strip group, from L2 after the first.
-//
+//    >= T and channels past D are not stored.
+// Both sum in a fixed order with no atomics: bit-identical from call to
+// call. At the UNet's ds1 at T = 100 with CFG, (200, 1536, 320), q, k, v
+// and o are 786 MB: 0.235 ms at 3.35 TB/s.
+
 // Requires D = C / H a multiple of 16 up to 128 with T <= 32 (the narrow
 // family), or of 64 from 192 up to 512 with T <= 16 (the wide family), or
-// any D up to 1024 (the general family), and q, k, v, o 16-byte aligned
-// (the wrapper checks).
+// any D up to 1024 (the general family's resident or streamed kernel), and
+// q, k, v, o 16-byte aligned (the wrapper checks).
 
 #include "hopper.cuh"
 
@@ -171,6 +201,14 @@ constexpr int GEN_WARPS = 4;         // most warps a block: one a query strip of
 constexpr int GEN_SM_WARPS = 16;     // warps an SM at 128 registers a thread
 constexpr int GEN_STAGES = 2;        // jobs a block's ring holds: the one computed, the next
 constexpr int GEN_MAX_SMEM = 232448; // dynamic shared memory a block may take
+constexpr int RES_MAX_TILES = 8;     // a resident unit's most row tiles: T <= 128, S in registers
+constexpr int RES_SM_WARPS = 16;     // warps an SM at 128 registers a thread
+constexpr int RES_STAGES = 2;        // units a resident block's ring holds where two fit
+constexpr int RES_MAX_WPS = 4;       // most warps a resident query strip
+constexpr int RES_WPS_TILES = 4;     // most row tiles a unit of several warps a strip
+constexpr int RES_TMA = 0;           // a resident unit's loads: TMA boxes,
+constexpr int RES_VEC = 1;           // 16-byte cp.async,
+constexpr int RES_SCALAR = 2;        // or 2-byte copies
 
 // D padded to the m16n8k16 depth.
 __host__ __device__ constexpr int gen_padded(int d) { return (d + 15) / 16 * 16; }
@@ -202,6 +240,61 @@ __host__ __device__ constexpr int gen_blocks_per_sm(int dp, int w) {
              : GEN_SM_WARPS / w;
 }
 
+// One resident unit: q, k and v, nb boxes each of 64 channels x 16 mt frames.
+__host__ __device__ constexpr int res_unit_bytes(int nb, int mt) { return 3 * nb * mt * BOX; }
+
+// A strip's exchange between its warps: P's A fragments (16 bytes a lane a
+// k-step) and a lane's two row sums; a block's, at wps warps a strip.
+__host__ __device__ constexpr int res_xch_strip(int mt) { return 512 * mt + 256; }
+__host__ __device__ constexpr int res_xch_bytes(int mt, int wps) {
+  return wps > 1 ? mt * res_xch_strip(mt) : 0;
+}
+
+// A resident block whose ring holds `stages` units at wps warps a strip: 1
+// KB to align the boxes, the units, 16 bytes of full barriers, the
+// exchange.
+__host__ __device__ constexpr int res_smem(int nb, int mt, int stages, int wps) {
+  return 1024 + stages * res_unit_bytes(nb, mt) + 16 + res_xch_bytes(mt, wps);
+}
+
+// Resident blocks an SM holds at `stages` units a ring and wps warps a
+// strip: its 233,472 bytes of shared memory with 1 KB reserved a block, and
+// RES_SM_WARPS warps; none where a block's shared memory is past
+// GEN_MAX_SMEM.
+__host__ __device__ constexpr int res_blocks(int nb, int mt, int stages, int wps) {
+  return res_smem(nb, mt, stages, wps) > GEN_MAX_SMEM ? 0
+         : 233472 / (res_smem(nb, mt, stages, wps) + 1024) < RES_SM_WARPS / (mt * wps)
+             ? 233472 / (res_smem(nb, mt, stages, wps) + 1024)
+             : RES_SM_WARPS / (mt * wps);
+}
+
+// Units a resident block's ring holds: two where they cost the SM no
+// block, else one (the SM's blocks then overlap each other's loads).
+__host__ __device__ constexpr int res_stages(int nb, int mt, int wps) {
+  return res_blocks(nb, mt, RES_STAGES, wps) >= res_blocks(nb, mt, 1, wps) ? RES_STAGES : 1;
+}
+
+// Warps an SM runs at wps warps a strip.
+__host__ __device__ constexpr int res_sm_warps(int nb, int mt, int wps) {
+  return res_blocks(nb, mt, res_stages(nb, mt, wps), wps) * mt * wps;
+}
+
+// Warps a resident block gives each query strip: 1, 2 or 4 (up to
+// RES_WPS_TILES strips, no more than O's nb chunks), the most warps an SM
+// runs, the fewest a strip on a tie.
+__host__ __device__ constexpr int res_wps(int nb, int mt) {
+  int best = 1;
+  for (int w = 2; w <= RES_MAX_WPS && w <= nb && mt <= RES_WPS_TILES; w *= 2)
+    if (res_sm_warps(nb, mt, w) > res_sm_warps(nb, mt, best)) best = w;
+  return best;
+}
+
+// Whether the resident kernel takes units of mt row tiles at padded head
+// size dp: a strip's S in registers, one unit in shared memory.
+__host__ __device__ constexpr bool res_takes(int mt, int dp) {
+  return mt <= RES_MAX_TILES && res_smem((dp + 63) / 64, mt, 1, 1) <= GEN_MAX_SMEM;
+}
+
 // Shared address of 16-byte chunk c (of the head's channels) of frame row r
 // in a tensor's boxes of MT row tiles at `tile`.
 template <int MT = 1>
@@ -228,6 +321,23 @@ __device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "r"(addr)
                : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v2f(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_v2f(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
   return v;
 }
 
@@ -259,6 +369,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// An arrival on `bar` once this thread's earlier cp.async copies are done
+// (noinc: the barrier's count includes it).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // Frames t0 .. t0 + rows - 1 of channels c0 .. c0 + w - 1 of a head slab
 // (`src`: frame 0 of one (video, position, head), frames `fs` elements
 // apart) into a shared tile of rows `rs` bytes apart, by threads `tid` of
@@ -282,6 +399,35 @@ __device__ __forceinline__ void load_rows(uint32_t dst, int rs, const bf16* src,
       cp_async_16(dst + r * rs + 16 * c, ok ? src + at : src, ok);
     else
       st_shared_u16(dst + r * rs + 2 * c, ok ? s16[at] : 0);
+    r += dr;
+    c += dc;
+    if (c >= per_row) {
+      c -= per_row;
+      ++r;
+    }
+  }
+}
+
+// Frames 0 .. 16 MT - 1 of channels 0 .. DP - 1 of a head slab (`src`,
+// frames `fs` elements apart) into boxes of MT row tiles at `tile`, in the
+// TMA layout (chunk_at), by threads `tid` of `threads`: frames >= T and
+// channels >= D read as zero. VEC: 16-byte cp.async a thread (C and D
+// multiples of 8); else 2-byte loads and stores.
+template <int MT, bool VEC>
+__device__ __forceinline__ void load_boxes(uint32_t tile, const bf16* src, size_t fs, int T,
+                                           int D, int DP, int tid, int threads) {
+  const int per_row = VEC ? DP / 8 : DP;
+  const int dr = threads / per_row, dc = threads % per_row;
+  int r = tid / per_row, c = tid % per_row;
+  const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
+  for (int idx = tid; idx < MT * ROWS * per_row; idx += threads) {
+    if (VEC) {
+      const bool ok = r < T && 8 * c < D;
+      cp_async_16(chunk_at<MT>(tile, r, c), ok ? src + (size_t)r * fs + 8 * c : src, ok);
+    } else {
+      const bool ok = r < T && c < D;
+      st_shared_u16(chunk_at<MT>(tile, r, c >> 3) + 2 * (c & 7), ok ? s16[(size_t)r * fs + c] : 0);
+    }
     r += dr;
     c += dc;
     if (c >= per_row) {
@@ -758,6 +904,236 @@ temporal_attention_general_kernel(const bf16* __restrict__ q, const bf16* __rest
   }
 }
 
+// The resident general kernel (units of MT row tiles, any D up to
+// GEN_MAX_D where res_takes): block b takes units b, b + grid, ...; warp w
+// of its MT WPS takes query strip w % MT and, of O's 64-channel chunks,
+// those w / MT + WPS i; a ring of `stages` units, unit u computed from slot
+// i % stages (its i-th unit), loaded when the slot's previous unit is done.
+// The first MT warps compute their strips' S, P and sums; with WPS > 1
+// they pass P and the sums to the strip's other warps through shared memory,
+// behind the strip's named barrier.
+template <int MT, int WPS>
+__global__ void __launch_bounds__(MT * WPS * 32, RES_SM_WARPS / (MT * WPS))
+temporal_attention_resident_kernel(const __grid_constant__ CUtensorMap qmap,
+                                   const __grid_constant__ CUtensorMap kmap,
+                                   const __grid_constant__ CUtensorMap vmap,
+                                   const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                   const bf16* __restrict__ v, bf16* __restrict__ o, int T,
+                                   int S, int H, int D, int mode, int stages, long long units,
+                                   float scale) {
+  constexpr int TBOX = MT * BOX;  // one box of all the unit's rows
+  constexpr int THREADS = MT * WPS * 32;
+  const int DP = gen_padded(D), KC = DP / 16, NB = (DP + 63) / 64;
+  const int UNIT = res_unit_bytes(NB, MT);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + stages * UNIT);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int strip = warp % MT, part = warp / MT;
+  // This strip's exchange: P's A fragments (16 bytes a lane a k-step), then
+  // the lane's two row sums.
+  const uint32_t xs = smem_u32(base + stages * UNIT + 16) + strip * res_xch_strip(MT);
+  const long long step = gridDim.x, first = blockIdx.x;
+  const size_t C = (size_t)H * D, fs = (size_t)S * C;
+  if (first >= units) return;
+
+  auto slab = [&](long long u) {  // offset of frame 0 of unit u's head
+    const int h = (int)(u % H), s = (int)((u / H) % S);
+    return ((size_t)(u / H / S) * T * S + s) * C + (size_t)h * D;
+  };
+  auto load = [&](long long u, int st) {  // unit u into slot st, completing on full[st]
+    unsigned char* dst = base + st * UNIT;
+    if (mode == RES_TMA) {
+      if (tid == 0) {
+        const int h = (int)(u % H), s = (int)((u / H) % S), b = (int)(u / H / S);
+        mbar_arrive_expect_tx(&full[st], UNIT);
+        for (int j = 0; j < NB; ++j) {
+          tma_load_4d(dst + j * TBOX, &qmap, &full[st], h * D + 64 * j, s, 0, b);
+          tma_load_4d(dst + (NB + j) * TBOX, &kmap, &full[st], h * D + 64 * j, s, 0, b);
+          tma_load_4d(dst + (2 * NB + j) * TBOX, &vmap, &full[st], h * D + 64 * j, s, 0, b);
+        }
+      }
+      return;
+    }
+    const size_t at = slab(u);
+    const uint32_t qd = smem_u32(dst), kd = qd + NB * TBOX, vd = kd + NB * TBOX;
+    if (mode == RES_VEC) {
+      load_boxes<MT, true>(qd, q + at, fs, T, D, DP, tid, THREADS);
+      load_boxes<MT, true>(kd, k + at, fs, T, D, DP, tid, THREADS);
+      load_boxes<MT, true>(vd, v + at, fs, T, D, DP, tid, THREADS);
+      cp_async_arrive(&full[st]);
+    } else {
+      load_boxes<MT, false>(qd, q + at, fs, T, D, DP, tid, THREADS);
+      load_boxes<MT, false>(kd, k + at, fs, T, D, DP, tid, THREADS);
+      load_boxes<MT, false>(vd, v + at, fs, T, D, DP, tid, THREADS);
+      mbar_arrive(&full[st]);
+    }
+  };
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) mbar_init(&full[st], mode == RES_TMA ? 1 : THREADS);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  for (int st = 0; st < stages; ++st)
+    if (first + st * step < units) load(first + st * step, st);
+
+  // ldmatrix rows as in the narrow family; this warp's strip is rows row0
+  // .. row0 + 15.
+  const int a_row = lane & 15, a_chunk = lane >> 4;
+  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_chunk = (lane >> 3) & 1;
+  const int g = lane >> 2, cq = 2 * (lane & 3);
+  const int row0 = ROWS * strip;
+  int i = 0;
+  for (long long u = first; u < units; u += step, ++i) {
+    const int st = i % stages;
+    const uint32_t qs = smem_u32(base + st * UNIT), ks = qs + NB * TBOX, vs = ks + NB * TBOX;
+    mbar_wait(&full[st], (i / stages) & 1);
+
+    float l0 = 0.0f, l1 = 0.0f;
+    uint32_t pa[MT][4];
+    if (part == 0) {
+      // S = Q K^T of the strip against every key tile: sc[2 n + i][0..1]
+      // row g, key columns 16 n + 8 i + cq + {0, 1}; [2..3] row g + 8.
+      float sc[2 * MT][4] = {};
+#pragma unroll(MT <= 2 ? 8 : 2)
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t a[4];
+        ldsm_x4(a, chunk_at<MT>(qs, row0 + a_row, 2 * kc + a_chunk));
+#pragma unroll
+        for (int n = 0; n < MT; ++n) {
+          uint32_t kf[4];
+          ldsm_x4(kf, chunk_at<MT>(ks, ROWS * n + k_row, 2 * kc + k_chunk));
+          mma_bf16_16816(sc[2 * n], a, kf[0], kf[1]);
+          mma_bf16_16816(sc[2 * n + 1], a, kf[2], kf[3]);
+        }
+      }
+      // Key columns >= T get -inf: only the last key tile holds any (T > 16
+      // (MT - 1)).
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 2 * MT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[n][e] = n < 2 * MT - 2 || 8 * n + cq + (e & 1) < T ? sc[n][e] * scale : -INFINITY;
+        m0 = fmaxf(m0, fmaxf(sc[n][0], sc[n][1]));
+        m1 = fmaxf(m1, fmaxf(sc[n][2], sc[n][3]));
+      }
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+      // P against the final max, the row sums tile by tile, P as bf16 A
+      // fragments: k-step n takes key columns 16 n .. 16 n + 15. The last
+      // n-tile, if it is past T, is exp(-inf) = 0 without the exp.
+#pragma unroll
+      for (int n = 0; n < MT; ++n) {
+#pragma unroll
+        for (int j = 2 * n; j < 2 * n + 2; ++j) {
+          if (j < 2 * MT - 1 || 16 * MT - 8 < T) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[j][e] = expf(sc[j][e] - (e < 2 ? m0 : m1));
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+          }
+        }
+        l0 += (sc[2 * n][0] + sc[2 * n][1]) + (sc[2 * n + 1][0] + sc[2 * n + 1][1]);
+        l1 += (sc[2 * n][2] + sc[2 * n][3]) + (sc[2 * n + 1][2] + sc[2 * n + 1][3]);
+        pa[n][0] = pack_bf16(sc[2 * n][0], sc[2 * n][1]);
+        pa[n][1] = pack_bf16(sc[2 * n][2], sc[2 * n][3]);
+        pa[n][2] = pack_bf16(sc[2 * n + 1][0], sc[2 * n + 1][1]);
+        pa[n][3] = pack_bf16(sc[2 * n + 1][2], sc[2 * n + 1][3]);
+      }
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      if (WPS > 1) {
+#pragma unroll
+        for (int n = 0; n < MT; ++n)
+          st_shared_v4(xs + (n * 32 + lane) * 16, pa[n][0], pa[n][1], pa[n][2], pa[n][3]);
+        st_shared_v2f(xs + MT * 512 + lane * 8, l0, l1);
+      }
+    }
+    if (WPS > 1) {  // the strip's warps: P and the sums are written
+      named_barrier(1 + strip, 32 * WPS);
+      if (part > 0) {
+#pragma unroll
+        for (int n = 0; n < MT; ++n) {
+          const uint4 w = ld_shared_v4(xs + (n * 32 + lane) * 16);
+          pa[n][0] = w.x;
+          pa[n][1] = w.y;
+          pa[n][2] = w.z;
+          pa[n][3] = w.w;
+        }
+        const float2 l = ld_shared_v2f(xs + MT * 512 + lane * 8);
+        l0 = l.x;
+        l1 = l.y;
+      }
+    }
+    const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+
+    // O = P V, this warp's 64-channel chunks (box cb of V), each divided by
+    // the sums, written over the strip's Q rows of box cb (every warp's
+    // ldmatrix of them is done) and stored: frames t < T, channels < D, 16
+    // bytes (2 bytes) a lane.
+    __syncwarp();
+    bf16* out = o + slab(u) + (size_t)row0 * fs;
+    const int rows = T - row0 < ROWS ? T - row0 : ROWS;
+#pragma unroll(MT <= 2 ? 2 : 1)
+    for (int cb = part; cb < NB; cb += WPS) {
+      const int nj = DP - 64 * cb < 64 ? (DP - 64 * cb) / 8 : 8;  // n-tiles: even
+      float acc[8][4] = {};
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        if (j < nj) {
+#pragma unroll
+          for (int n = 0; n < MT; ++n) {
+            uint32_t vf[4];
+            ldsm_x4_trans(vf, chunk_at<MT>(vs, ROWS * n + a_row, 8 * cb + j + a_chunk));
+            mma_bf16_16816(acc[j], pa[n], vf[0], vf[1]);
+            mma_bf16_16816(acc[j + 1], pa[n], vf[2], vf[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < nj) {
+          st_shared_u32(chunk_at<MT>(qs, row0 + g, 8 * cb + j) + 2 * cq,
+                        pack_bf16(div_by(acc[j][0], l0, r0), div_by(acc[j][1], l0, r0)));
+          st_shared_u32(chunk_at<MT>(qs, row0 + g + 8, 8 * cb + j) + 2 * cq,
+                        pack_bf16(div_by(acc[j][2], l1, r1), div_by(acc[j][3], l1, r1)));
+        }
+      }
+      __syncwarp();
+      const int dw = D - 64 * cb < 64 ? D - 64 * cb : 64;  // the chunk's channels < D
+      const int per_row = mode == RES_SCALAR ? dw : dw / 8;
+      const int dr = 32 / per_row, dc = 32 % per_row;
+      int r = lane / per_row, c = lane % per_row;
+#pragma unroll 4
+      for (int idx = lane; idx < rows * per_row; idx += 32) {
+        if (mode == RES_SCALAR)
+          reinterpret_cast<unsigned short*>(out)[(size_t)r * fs + 64 * cb + c] =
+              ld_shared_u16(chunk_at<MT>(qs, row0 + r, 8 * cb + (c >> 3)) + 2 * (c & 7));
+        else
+          *reinterpret_cast<uint4*>(out + (size_t)r * fs + 64 * cb + 8 * c) =
+              ld_shared_v4(chunk_at<MT>(qs, row0 + r, 8 * cb + c));
+        r += dr;
+        c += dc;
+        if (c >= per_row) {
+          c -= per_row;
+          ++r;
+        }
+      }
+    }
+    // Every warp is done with the slot (and, for TMA, its generic accesses
+    // come before the async proxy's refill): one block barrier a unit.
+    fence_proxy_async();
+    __syncthreads();
+    if (u + stages * step < units) load(u + stages * step, st);
+  }
+}
+
 // A 4D map over a (B*T, S, C) tensor seen as (C, S, T, B): boxes of 64
 // channels x 1 position x 16 MT frames (frames past T read as zero).
 bool frames_map(CUtensorMap* map, const void* p, int B, int T, int S, int C, int MT = 1) {
@@ -840,6 +1216,49 @@ int launch_general(const void* q, const void* k, const void* v, void* o, int B, 
   return (int)cudaGetLastError();
 }
 
+template <int MT, int WPS>
+int launch_resident(const void* q, const void* k, const void* v, void* o, int B, int T, int S,
+                    int H, int D, float scale, cudaStream_t stream) {
+  const int C = H * D, nb = (gen_padded(D) + 63) / 64;
+  const int mode = D % 16 == 0 && C % 8 == 0   ? RES_TMA
+                   : D % 8 == 0 && C % 8 == 0 ? RES_VEC
+                                              : RES_SCALAR;
+  CUtensorMap qm{}, km{}, vm{};
+  if (mode == RES_TMA &&
+      (!frames_map(&qm, q, B, T, S, C, MT) || !frames_map(&km, k, B, T, S, C, MT) ||
+       !frames_map(&vm, v, B, T, S, C, MT)))
+    return (int)cudaErrorInvalidValue;
+  const int stages = res_stages(nb, MT, WPS), smem = res_smem(nb, MT, stages, WPS);
+  static std::atomic<uint64_t> smem_set{0};  // one per (MT, WPS)
+  cudaError_t err =
+      smem_limit_once(temporal_attention_resident_kernel<MT, WPS>, GEN_MAX_SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const long long units = (long long)B * S * H;
+  const long long resident = (long long)sms * res_blocks(nb, MT, stages, WPS);
+  temporal_attention_resident_kernel<MT, WPS>
+      <<<(unsigned)(units < resident ? units : resident), MT * WPS * 32, smem, stream>>>(
+          qm, km, vm, (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, T, S, H, D,
+          mode, stages, units, scale);
+  return (int)cudaGetLastError();
+}
+
+// The resident kernel at MT row tiles with res_wps warps a strip (one past
+// RES_WPS_TILES).
+template <int MT>
+int launch_resident_wps(const void* q, const void* k, const void* v, void* o, int B, int T,
+                        int S, int H, int D, float scale, cudaStream_t stream) {
+  if constexpr (MT <= RES_WPS_TILES) {
+    switch (res_wps((gen_padded(D) + 63) / 64, MT)) {
+      case 2: return launch_resident<MT, 2>(q, k, v, o, B, T, S, H, D, scale, stream);
+      case 4: return launch_resident<MT, 4>(q, k, v, o, B, T, S, H, D, scale, stream);
+      default: break;
+    }
+  }
+  return launch_resident<MT, 1>(q, k, v, o, B, T, S, H, D, scale, stream);
+}
+
 template <bool VEC>
 int launch_general_vec(const void* q, const void* k, const void* v, void* o, int B, int T,
                        int S, int H, int D, float scale, cudaStream_t stream) {
@@ -862,7 +1281,8 @@ int launch_general_vec(const void* q, const void* k, const void* v, void* o, int
 // q, k, v, o: (B*T, S, C) bf16, contiguous, 16-byte aligned; C = H D. D a
 // multiple of 16 up to 128 with T <= 32 takes the narrow family, D a
 // multiple of 64 from 192 up to 512 with T <= 16 the wide family, and any
-// other D up to GEN_MAX_D, at any T, the general family.
+// other D up to GEN_MAX_D, at any T, the general family: its resident
+// kernel where a unit fits (res_takes), else its streamed kernel.
 extern "C" int gcd_temporal_attention(const void* q, const void* k, const void* v, void* o,
                                       int BT, int T, int S, int C, int H, float scale,
                                       void* stream) {
@@ -895,6 +1315,19 @@ extern "C" int gcd_temporal_attention(const void* q, const void* k, const void* 
     }
   }
   if (D > GEN_MAX_D) return (int)cudaErrorInvalidValue;
+  if (res_takes((T + ROWS - 1) / ROWS, gen_padded(D))) {
+    switch ((T + ROWS - 1) / ROWS) {
+      case 1: return launch_resident_wps<1>(q, k, v, o, B, T, S, H, D, scale, st);
+      case 2: return launch_resident_wps<2>(q, k, v, o, B, T, S, H, D, scale, st);
+      case 3: return launch_resident_wps<3>(q, k, v, o, B, T, S, H, D, scale, st);
+      case 4: return launch_resident_wps<4>(q, k, v, o, B, T, S, H, D, scale, st);
+      case 5: return launch_resident_wps<5>(q, k, v, o, B, T, S, H, D, scale, st);
+      case 6: return launch_resident_wps<6>(q, k, v, o, B, T, S, H, D, scale, st);
+      case 7: return launch_resident_wps<7>(q, k, v, o, B, T, S, H, D, scale, st);
+      case 8: return launch_resident_wps<8>(q, k, v, o, B, T, S, H, D, scale, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   return C % 8 == 0 && D % 8 == 0
              ? launch_general_vec<true>(q, k, v, o, B, T, S, H, D, scale, st)
              : launch_general_vec<false>(q, k, v, o, B, T, S, H, D, scale, st);

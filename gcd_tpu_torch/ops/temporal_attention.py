@@ -17,11 +17,15 @@ MAX_GENERAL_HEAD_DIM = 1024 (`kernel_takes`), in three families
 multiple of 64 up to 512 (the VAE decoder's one-head VideoAttnBlock; the
 JAX kernel's own `d % 64` rule) with T <= 16 the wide family; every other
 shape (clips past 32 frames, the VAE's heads past 16, heads of 40, 80, 160
-of a UNet built with `num_heads`) the general family, which streams the
-key tiles in two passes. The wrapper raises on a CUDA tensor with D past
-1024; no shape is routed to the plain version. Its gradient is that of the
-plain version, recomputed from the saved q, k, v (ops/recompute.py;
-gcd_tpu's `_temporal_bwd`).
+of a UNet built with `num_heads`) the general family, in one of two
+kernels: "resident" where T <= MAX_RESIDENT_FRAMES and one unit's q, k and
+v (all T frames of one video, position and head) fit in a block's shared
+memory, which loads each unit once and computes each query strip's logits
+once; "streamed" for the rest (T past 128, one head of 1024 past 32
+frames, of 512 past 64), which streams the key tiles in two passes. The
+wrapper raises on a CUDA tensor with D past 1024; no shape is routed to
+the plain version. Its gradient is that of the plain version, recomputed
+from the saved q, k, v (ops/recompute.py; gcd_tpu's `_temporal_bwd`).
 """
 
 from __future__ import annotations
@@ -40,19 +44,31 @@ MAX_WIDE_FRAMES = 16     # the wide family: one 16-row tile
 MAX_HEAD_DIM = 128       # the narrow family: D a multiple of 16
 MAX_WIDE_HEAD_DIM = 512  # the wide family: D a multiple of 64
 MAX_GENERAL_HEAD_DIM = 1024  # the general family: any D, any T
+MAX_RESIDENT_FRAMES = 128    # its resident kernel: a strip's logits in registers
+_MAX_SMEM = 232448           # shared memory a block may take (csrc's GEN_MAX_SMEM)
+
+
+def resident_unit_bytes(t: int, d: int) -> int:
+    """Shared memory of one resident unit (csrc's `res_unit_bytes`): q, k
+    and v, each D padded to 16 in boxes of 64 channels x T padded to 16
+    frames, 2 bytes a value. The kernel takes a unit where it fits beside
+    1 KB of alignment and 16 bytes of barriers (`res_takes`)."""
+    return 3 * -(-(-(-d // 16) * 16) // 64) * 64 * -(-t // 16) * 16 * 2
 
 
 def kernel_family(t: int, d: int) -> Optional[str]:
-    """The family of K2 that takes T = t frames at head size d (the C
-    entry's dispatch): "narrow", "wide", "general", or None past
-    MAX_GENERAL_HEAD_DIM."""
+    """The kernel of K2 that takes T = t frames at head size d (the C
+    entry's dispatch): "narrow", "wide", the general family's "resident" or
+    "streamed", or None past MAX_GENERAL_HEAD_DIM."""
     if t < 1 or d < 1 or d > MAX_GENERAL_HEAD_DIM:
         return None
     if d <= MAX_HEAD_DIM and d % 16 == 0 and t <= MAX_FRAMES:
         return "narrow"
     if MAX_HEAD_DIM < d <= MAX_WIDE_HEAD_DIM and d % 64 == 0 and t <= MAX_WIDE_FRAMES:
         return "wide"
-    return "general"
+    if t <= MAX_RESIDENT_FRAMES and 1024 + resident_unit_bytes(t, d) + 16 <= _MAX_SMEM:
+        return "resident"
+    return "streamed"
 
 
 def kernel_takes(t: int, d: int) -> bool:

@@ -38,22 +38,30 @@ Tolerances, and why:
     = 25 and 32 (two row tiles) the same comparison read 0 to 8.2e-5 over
     six seeds, 2.1e-3 to 2.2e-3 with P unrounded: the same bound.
 
-The general family's model (`k2_general_model`) tiles as that kernel does:
-no TMA box (cp.async or 2-byte copies), D padded with zero channels to the
-next multiple of 16 and T with zero frames to strips of 16; per query
-strip, the key tiles of 16 streamed twice: pass 0 for the row maxima,
+The general family has two kernels, and a model of each. The resident
+kernel's (`k2_resident_model`, every shape up to T = 128 whose unit fits
+in shared memory) tiles as it does: one unit (video, position, head) in
+the narrow family's boxes (TMA at D a multiple of 16 and C of 8: a box's
+channels past D are other heads' and unread; else cp.async or 2-byte
+copies, zeros past D), D padded to DP, the next multiple of 16, T to
+strips of 16; each strip's S against every key at once, the exact row max,
+P = exp(s - max), the row sums of the unrounded P tile by tile, P rounded
+to bf16, O = P V over 64 channels at a time, O / sum stored at frames < T
+and channels < D. The streamed kernel's (`k2_general_model`, the rest: T
+past 128, one head of 1024 past 32 frames, of 512 past 64): no TMA box, per
+query strip the key tiles of 16 streamed twice: pass 0 for the row maxima,
 then, for each chunk of O's channels (all of them up to DP = 128, else 64
-at a time), P = exp(s - max) against the final max, the row sums of the
-unrounded P tile by tile, P rounded to bf16, O += P V; O / sum stored at
-frames < T and channels < D. Against `_xla_temporal` in fp32 (P
-unrounded): 1e-5, as above. Against `_kernel` in interpret mode at T = 40
-and 64 (D = 64): 3.9e-5 to 9.6e-5 over three seeds each, 2.1e-3 to 2.2e-3
-with P unrounded: the same 5e-4 bound. Against `_xla_temporal` on bf16
-inputs at D = 40 and 160 (JAX's route for them): `BF16_XLA_TOL`.
+at a time), P against the final max, the sums, P rounded, O += P V.
+Against `_xla_temporal` in fp32 (P unrounded): 1e-5, as above, at each
+shape with the model of the kernel that takes it. Against `_kernel` in
+interpret mode at T = 40 and 64 (D = 64, resident) and 136 (streamed):
+the 5e-4 bound, with P unrounded above 1e-3. Against `_xla_temporal` on
+bf16 inputs at D = 40 and 160 (JAX's route for them): `BF16_XLA_TOL`.
 """
 
 import math
 import re
+from collections import Counter
 from functools import partial
 from pathlib import Path
 
@@ -70,10 +78,12 @@ from gcd_tpu_torch.ops.temporal_attention import (
     MAX_FRAMES,
     MAX_GENERAL_HEAD_DIM,
     MAX_HEAD_DIM,
+    MAX_RESIDENT_FRAMES,
     MAX_WIDE_FRAMES,
     MAX_WIDE_HEAD_DIM,
     kernel_family,
     kernel_takes,
+    resident_unit_bytes,
 )
 from tests.torch_port_helpers import rel_l2
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -87,9 +97,13 @@ WIDE_WARPS, WIDE_STAGES = CONSTS["WIDE_WARPS"], CONSTS["WIDE_STAGES"]
 GEN_MAX_D, GEN_CHUNK, GEN_PAD = CONSTS["GEN_MAX_D"], CONSTS["GEN_CHUNK"], CONSTS["GEN_PAD"]
 GEN_WARPS, GEN_SM_WARPS = CONSTS["GEN_WARPS"], CONSTS["GEN_SM_WARPS"]
 GEN_STAGES, GEN_MAX_SMEM = CONSTS["GEN_STAGES"], CONSTS["GEN_MAX_SMEM"]
+RES_MAX_TILES, RES_SM_WARPS = CONSTS["RES_MAX_TILES"], CONSTS["RES_SM_WARPS"]
+RES_STAGES, RES_MAX_WPS = CONSTS["RES_STAGES"], CONSTS["RES_MAX_WPS"]
+RES_WPS_TILES = CONSTS["RES_WPS_TILES"]
 BOX_CHANNELS = 64  # a box's inner extent: 128 bytes of bf16, the swizzle span
 XLA_TOL = 1e-5
 KERNEL_TOL = 5e-4
+GENERAL_FAMILY = ("resident", "streamed")  # `kernel_family`'s two general kernels
 
 
 def _bf16(z: torch.Tensor) -> torch.Tensor:
@@ -155,17 +169,24 @@ def test_constants_match_the_kernel():
     assert re.search(r"if \(D <= 128 && D % 16 == 0 && T <= MAX_ROW_TILES \* ROWS\) \{ "
                      r"switch \(D / 16\)", flat)
     assert re.search(r"if \(D > GEN_MAX_D\) return \(int\)cudaErrorInvalidValue; "
+                     r"if \(res_takes\(\(T \+ ROWS - 1\) / ROWS, gen_padded\(D\)\)\) \{ "
+                     r"switch \(\(T \+ ROWS - 1\) / ROWS\) \{ "
+                     + " ".join(f"case {m}: return launch_resident_wps<{m}>\\(q, k, v, o, B, T, "
+                                f"S, H, D, scale, st\\);" for m in range(1, RES_MAX_TILES + 1))
+                     + r" default: return \(int\)cudaErrorInvalidValue; \} \} "
                      r"return C % 8 == 0 && D % 8 == 0 \? launch_general_vec<true>", flat)
     assert MAX_WIDE_HEAD_DIM == 512 and MAX_HEAD_DIM == 128
     assert MAX_GENERAL_HEAD_DIM == GEN_MAX_D == 1024
+    assert MAX_RESIDENT_FRAMES == RES_MAX_TILES * ROWS == 128
     families = {d: [t for t in range(1, 40) if kernel_family(t, d) == "narrow"]
                 for d in range(1, 130)}
     assert [d for d, ts in families.items() if ts] == list(range(16, MAX_HEAD_DIM + 1, 16))
     assert all(families[d] == list(range(1, 33)) for d in range(16, 129, 16))
     assert [d for d in range(1, 1100) if kernel_family(16, d) == "wide"] == list(
         range(192, MAX_WIDE_HEAD_DIM + 1, 64))
-    assert kernel_family(17, 256) == kernel_family(33, 64) == kernel_family(14, 40) == "general"
-    assert kernel_family(25, 160) == kernel_family(1, 1024) == kernel_family(500, 7) == "general"
+    assert kernel_family(17, 256) == kernel_family(33, 64) == kernel_family(14, 40) == "resident"
+    assert kernel_family(25, 160) == kernel_family(1, 1024) == kernel_family(128, 64) == "resident"
+    assert kernel_family(500, 7) == kernel_family(129, 64) == kernel_family(33, 1024) == "streamed"
     assert [d for d in range(1, 1100) if kernel_takes(14, d)] == list(range(1, 1025))
     assert all(kernel_takes(t, 64) for t in (1, 33, 64, 100, 409, 4096))
     assert not kernel_takes(0, 64) and not kernel_takes(3, 1025)
@@ -414,44 +435,116 @@ def k2_general_model(q3, k3, v3, t: int, heads: int, scale: float, round_p: bool
     return stored.reshape(bt, s, c)
 
 
+def resident_mode(c: int, d: int) -> str:
+    """How the resident kernel loads a unit (`launch_resident`): "tma"
+    where D is a multiple of 16 and C of 8, "vec" (16-byte cp.async) where
+    both are multiples of 8, else "scalar" (2-byte copies)."""
+    if d % 16 == 0 and c % 8 == 0:
+        return "tma"
+    return "vec" if d % 8 == 0 and c % 8 == 0 else "scalar"
+
+
+def k2_resident_model(q3, k3, v3, t: int, heads: int, scale: float, round_p: bool = True):
+    """fp32 (B*T, S, C) out of fp32 (B*T, S, C) q, k, v, as the general
+    family's resident kernel tiles it; the output before its final rounding
+    to bf16: per unit (video, position, head; head fastest) the unit's
+    boxes of 64 channels x 16 MT frames (by TMA: the map's zero fill past T
+    and C, the box's channels past D another head's; else zeros past D),
+    of which the first DP channels are read; per query strip, S against
+    every key at once, the row max, P = exp(s - max), the row sums tile by
+    tile, P rounded to bf16, O = P V over 64 channels at a time, O / sum;
+    stored at frames < T, channels < D of an output that starts as NaN."""
+    bt, s, c = q3.shape
+    b, d = bt // t, c // heads
+    dp, mt = -(-d // 16) * 16, -(-t // ROWS)
+    nb = -(-dp // BOX_CHANNELS)
+    u = torch.arange(b * s * heads)
+    h, pos, vid = u % heads, (u // heads) % s, u // (heads * s)
+    frames = torch.arange(ROWS * mt)
+    tma = resident_mode(c, d) == "tma"
+
+    def boxes(z):  # (units, 16 MT, DP): the channels the products read
+        x = F.pad(z.reshape(b, t, s, c), (0, BOX_CHANNELS * nb, 0, 0, 0, ROWS * mt - t))
+        ch = h[:, None] * d + torch.arange(BOX_CHANNELS * nb)[None]
+        if not tma:  # cp.async and 2-byte copies: zeros past D
+            ch = torch.where(torch.arange(BOX_CHANNELS * nb)[None] < d, ch, c)
+        box = x[vid[:, None, None], frames[None, :, None], pos[:, None, None], ch[:, None, :]]
+        return box[..., :dp]
+
+    qs, ks, vs = boxes(q3), boxes(k3), boxes(v3)
+    out = torch.zeros_like(qs)
+    for m in range(mt):  # one warp a strip
+        sc = (qs[:, ROWS * m:ROWS * (m + 1)] @ ks.transpose(1, 2)) * scale
+        sc = sc.masked_fill(frames >= t, -math.inf)
+        p = torch.exp(sc - sc.amax(-1, keepdim=True))
+        denom = 0.0
+        for n in range(mt):  # the sums tile by tile
+            denom = denom + p[..., ROWS * n:ROWS * (n + 1)].sum(-1, keepdim=True)
+        pr = _bf16(p) if round_p else p
+        for c0 in range(0, dp, BOX_CHANNELS):  # O 64 channels (a V box) at a time
+            out[:, ROWS * m:ROWS * (m + 1), c0:c0 + BOX_CHANNELS] = (
+                pr @ vs[..., c0:c0 + BOX_CHANNELS]) / denom
+    stored = torch.full((bt * s * c,), math.nan)
+    offset = (((vid[:, None, None] * t + torch.arange(t)[None, :, None]) * s
+               + pos[:, None, None]) * c + h[:, None, None] * d
+              + torch.arange(d)[None, None, :])
+    stored[offset.flatten()] = out[:, :t, :d].flatten()
+    return stored.reshape(bt, s, c)
+
+
+def general_model(t: int, d: int):
+    """The model of the general-family kernel that takes T = t at head size d."""
+    family = kernel_family(t, d)
+    assert family in GENERAL_FAMILY
+    return k2_resident_model if family == "resident" else k2_general_model
+
+
 # (B, T, S, heads, D): T past 32 (33, 40, 64, 100) at the UNet's D = 64; the
 # `num_heads` UNet's D = 40 and 160 (not a multiple of 16; above 128 and not
 # a multiple of 64: three chunks of O, the last 32 channels wide); 72, 88,
 # 100 (C = 300: no 16-byte copies) and 176; the wide heads past 16 frames
-# (256 at T = 17, 512 at T = 25); D = 1000 (16 chunks); T = 1.
+# (256 at T = 17, 512 at T = 25); D = 1000 (16 chunks); T = 1: all the
+# resident kernel's. Then the streamed kernel's: T = 129 (one past the
+# resident kernel's 128) at D = 64 and at C = 300 (2-byte copies), one head
+# of 1024 at T = 33 and of 512 at T = 65 (a unit past shared memory).
 GENERAL_SHAPES = [(1, 33, 5, 2, 64), (2, 40, 3, 1, 64), (1, 64, 4, 2, 64), (1, 100, 3, 1, 64),
                   (1, 14, 5, 8, 40), (1, 40, 3, 2, 40), (1, 14, 4, 2, 88), (1, 14, 5, 2, 160),
                   (2, 7, 3, 3, 72), (1, 17, 5, 3, 100), (1, 33, 2, 1, 176), (1, 17, 4, 2, 256),
-                  (1, 25, 3, 1, 512), (1, 3, 2, 1, 1000), (2, 1, 5, 2, 40)]
+                  (1, 25, 3, 1, 512), (1, 3, 2, 1, 1000), (2, 1, 5, 2, 40),
+                  (1, 128, 3, 2, 64), (1, 129, 3, 2, 64), (1, 129, 2, 3, 100),
+                  (1, 33, 2, 1, 1024), (1, 65, 2, 1, 512)]
 
 
 @pytest.mark.parametrize("b,t,s,heads,d", GENERAL_SHAPES)
 def test_k2_general_model_matches_xla_temporal(b, t, s, heads, d):
-    assert kernel_family(t, d) == "general"
+    """Each shape with the model of the general-family kernel that takes
+    it (`kernel_family`)."""
     q, k, v = _inputs(b * t, s, heads * d, 13 * t + d)
     scale = d ** -0.5
     xla = jax.jit(partial(_xla_temporal, t=t, heads=heads, scale=scale))
     want = np.asarray(xla(*(jnp.asarray(z.numpy()) for z in (q, k, v))))
-    got = k2_general_model(q, k, v, t, heads, scale, round_p=False)
+    got = general_model(t, d)(q, k, v, t, heads, scale, round_p=False)
     assert not torch.isnan(got).any()
     assert rel_l2(got.numpy(), want) <= XLA_TOL
 
 
-@pytest.mark.parametrize("t", [40, 64])
+@pytest.mark.parametrize("t", [40, 64, 136])
 def test_k2_general_model_matches_tpu_kernel_rounding_points(t):
-    """Past 32 frames (T = 40 and 64, D = 64, S = 8: shapes the Pallas
-    kernel's `_supported` takes), bf16 in and out, against the Pallas
-    kernel in interpret mode, with the narrow family's bound; with P left
-    unrounded the model is above 1e-3 from it."""
+    """Past 32 frames (T = 40 and 64: resident; 136: streamed; D = 64, S =
+    8: shapes the Pallas kernel's `_supported` takes), bf16 in and out,
+    against the Pallas kernel in interpret mode, with the narrow family's
+    bound; with P left unrounded the model is above 1e-3 from it."""
     b, s, heads, d = 1, 8, 2, 64
+    assert kernel_family(t, d) == ("streamed" if t > MAX_RESIDENT_FRAMES else "resident")
     q, k, v = _inputs(b * t, s, heads * d, 3 + t)
     scale = d ** -0.5
     with pltpu.force_tpu_interpret_mode():
         want = _pallas_fwd(*(jnp.asarray(z.numpy(), jnp.bfloat16) for z in (q, k, v)),
                            t, heads, scale)
     want = np.asarray(want, np.float32)
-    got = _bf16(k2_general_model(q, k, v, t, heads, scale)).numpy()
-    unrounded_p = _bf16(k2_general_model(q, k, v, t, heads, scale, round_p=False)).numpy()
+    model = general_model(t, d)
+    got = _bf16(model(q, k, v, t, heads, scale)).numpy()
+    unrounded_p = _bf16(model(q, k, v, t, heads, scale, round_p=False)).numpy()
     assert rel_l2(got, want) <= KERNEL_TOL < 1e-3 < rel_l2(unrounded_p, want)
 
 
@@ -471,7 +564,7 @@ def test_k2_general_model_against_xla_temporal_in_bf16(b, t, s, heads, d):
     scale = d ** -0.5
     want = np.asarray(_xla_temporal(*(jnp.asarray(z.numpy(), jnp.bfloat16) for z in (q, k, v)),
                                     t, heads, scale), np.float32)
-    got = _bf16(k2_general_model(q, k, v, t, heads, scale)).numpy()
+    got = _bf16(general_model(t, d)(q, k, v, t, heads, scale)).numpy()
     assert rel_l2(got, want) <= BF16_XLA_TOL
 
 
@@ -549,16 +642,216 @@ def test_general_schedule_is_the_source_s():
     assert gen_blocks_per_sm(1024, 2) == 1 and general_smem(1024, 2) <= GEN_MAX_SMEM
 
 
+# The resident kernel's schedule, expression by expression: its domain and
+# the C entry's dispatch to it, a unit's and a ring's shared memory, the
+# residency rule, the grid, the load mode, the barriers' counts, the ring's
+# first loads, the slot and phase a unit is computed from, its one block
+# barrier and the refill.
+RESIDENT_SCHEDULE = [
+    r"__host__ __device__ constexpr int res_unit_bytes\(int nb, int mt\) \{ "
+    r"return 3 \* nb \* mt \* BOX; \}",
+    r"__host__ __device__ constexpr int res_xch_strip\(int mt\) \{ return 512 \* mt \+ 256; \}",
+    r"return wps > 1 \? mt \* res_xch_strip\(mt\) : 0;",
+    r"return 1024 \+ stages \* res_unit_bytes\(nb, mt\) \+ 16 \+ res_xch_bytes\(mt, wps\);",
+    r"return res_smem\(nb, mt, stages, wps\) > GEN_MAX_SMEM \? 0 : 233472 / "
+    r"\(res_smem\(nb, mt, stages, wps\) \+ 1024\) < RES_SM_WARPS / \(mt \* wps\) \? 233472 / "
+    r"\(res_smem\(nb, mt, stages, wps\) \+ 1024\) : RES_SM_WARPS / \(mt \* wps\);",
+    r"return res_blocks\(nb, mt, RES_STAGES, wps\) >= res_blocks\(nb, mt, 1, wps\) "
+    r"\? RES_STAGES : 1;",
+    r"return res_blocks\(nb, mt, res_stages\(nb, mt, wps\), wps\) \* mt \* wps;",
+    r"int best = 1; for \(int w = 2; w <= RES_MAX_WPS && w <= nb && mt <= RES_WPS_TILES; "
+    r"w \*= 2\) if \(res_sm_warps\(nb, mt, w\) > res_sm_warps\(nb, mt, best\)\) best = w; "
+    r"return best;",
+    r"return mt <= RES_MAX_TILES && res_smem\(\(dp \+ 63\) / 64, mt, 1, 1\) <= GEN_MAX_SMEM;",
+    r"__global__ void __launch_bounds__\(MT \* WPS \* 32, RES_SM_WARPS / \(MT \* WPS\)\) "
+    r"temporal_attention_resident_kernel\(",
+    r"const int mode = D % 16 == 0 && C % 8 == 0 \? RES_TMA : D % 8 == 0 && C % 8 == 0 "
+    r"\? RES_VEC : RES_SCALAR;",
+    r"if \(mode == RES_TMA && \(!frames_map\(&qm, q, B, T, S, C, MT\)",
+    r"const int stages = res_stages\(nb, MT, WPS\), smem = res_smem\(nb, MT, stages, WPS\);",
+    r"const long long resident = \(long long\)sms \* res_blocks\(nb, MT, stages, WPS\);",
+    r"<<<\(unsigned\)\(units < resident \? units : resident\), MT \* WPS \* 32, smem, stream>>>",
+    r"if constexpr \(MT <= RES_WPS_TILES\) \{ "
+    r"switch \(res_wps\(\(gen_padded\(D\) \+ 63\) / 64, MT\)\) \{ "
+    r"case 2: return launch_resident<MT, 2>\([^;]*\); "
+    r"case 4: return launch_resident<MT, 4>\([^;]*\); "
+    r"default: break; \} \} return launch_resident<MT, 1>\(",
+    r"for \(int st = 0; st < stages; \+\+st\) mbar_init\(&full\[st\], "
+    r"mode == RES_TMA \? 1 : THREADS\);",
+    r"for \(int st = 0; st < stages; \+\+st\) if \(first \+ st \* step < units\) "
+    r"load\(first \+ st \* step, st\);",
+    r"const int strip = warp % MT, part = warp / MT;",
+    r"for \(long long u = first; u < units; u \+= step, \+\+i\) \{ const int st = i % stages;",
+    r"mbar_wait\(&full\[st\], \(i / stages\) & 1\);",
+    r"const int row0 = ROWS \* strip;",
+    r"if \(part == 0\) \{",
+    r"named_barrier\(1 \+ strip, 32 \* WPS\);",
+    r"for \(int cb = part; cb < NB; cb \+= WPS\) \{",
+    r"fence_proxy_async\(\); __syncthreads\(\); "
+    r"if \(u \+ stages \* step < units\) load\(u \+ stages \* step, st\); \} \}",
+]
+
+
+def resident_kernel_source() -> str:
+    """The resident kernel's body, whitespace collapsed."""
+    src = CSRC.read_text()
+    start = src.index("temporal_attention_resident_kernel(const")
+    return " ".join(src[start:src.index("\n}\n", start)].split())
+
+
+def res_smem(nb: int, mt: int, stages: int, wps: int = 1) -> int:
+    """`res_smem`: 1 KB of alignment slack, a resident block's units, 16
+    bytes of full barriers, and at wps > 1 the strips' exchange (P's
+    fragments and the row sums: `res_xch_strip`)."""
+    xch = mt * (512 * mt + 256) if wps > 1 else 0
+    return 1024 + stages * 3 * nb * mt * ROWS * 2 * BOX_CHANNELS + 16 + xch
+
+
+def res_blocks(nb: int, mt: int, stages: int, wps: int = 1) -> int:
+    """`res_blocks`: resident blocks an SM holds, by shared memory (1 KB
+    reserved a block) and RES_SM_WARPS warps; 0 past GEN_MAX_SMEM."""
+    if res_smem(nb, mt, stages, wps) > GEN_MAX_SMEM:
+        return 0
+    return min(233472 // (res_smem(nb, mt, stages, wps) + 1024), RES_SM_WARPS // (mt * wps))
+
+
+def res_stages(nb: int, mt: int, wps: int = 1) -> int:
+    """`res_stages`: a ring of two where it costs the SM no block."""
+    two = res_blocks(nb, mt, RES_STAGES, wps) >= res_blocks(nb, mt, 1, wps)
+    return RES_STAGES if two else 1
+
+
+def res_sm_warps(nb: int, mt: int, wps: int) -> int:
+    return res_blocks(nb, mt, res_stages(nb, mt, wps), wps) * mt * wps
+
+
+def res_wps(nb: int, mt: int) -> int:
+    """`res_wps`: warps a strip, 1, 2 or 4 (no more than O's nb chunks, up
+    to RES_WPS_TILES strips): the most warps an SM runs, the fewest a strip
+    on a tie."""
+    best, w = 1, 2
+    while w <= RES_MAX_WPS and w <= nb and mt <= RES_WPS_TILES:
+        if res_sm_warps(nb, mt, w) > res_sm_warps(nb, mt, best):
+            best = w
+        w *= 2
+    return best
+
+
+def res_takes(mt: int, dp: int) -> bool:
+    return mt <= RES_MAX_TILES and res_smem(-(-dp // BOX_CHANNELS), mt, 1) <= GEN_MAX_SMEM
+
+
+def res_schedule(t: int, d: int):
+    """(row tiles, boxes, warps a strip, units a ring, blocks an SM) of the
+    resident kernel at T = t, head size d."""
+    mt, nb = -(-t // ROWS), -(-(-(-d // 16) * 16) // BOX_CHANNELS)
+    wps = res_wps(nb, mt)
+    stages = res_stages(nb, mt, wps)
+    return mt, nb, wps, stages, res_blocks(nb, mt, stages, wps)
+
+
+def test_resident_schedule_is_the_source_s():
+    flat = " ".join(CSRC.read_text().split())
+    missing = [e for e in RESIDENT_SCHEDULE if not re.search(e, flat)]
+    assert not missing
+    assert RES_MAX_WPS == RES_WPS_TILES == 4
+    # One load, one wait and one block barrier a unit (and one after the
+    # barriers' init); one pass over the k-steps of S, by the strip's first
+    # warp, none of them streamed; no cp.async group waits: the copies
+    # complete on the barrier.
+    body = resident_kernel_source()
+    assert body.count("__syncthreads()") == 2 and body.count("mbar_wait(") == 1
+    assert body.count("for (int kc = 0; kc < KC; ++kc)") == 1 and "cp_async_wait" not in body
+    assert body.count(" load(") == 2  # the ring's first loads and the refill
+    # (T, D) -> (unit bytes, warps a block, warps a strip, units a ring,
+    # blocks an SM): the UNet's D = 64 at T = 33, 64, 100 and 128 (one warp a
+    # strip, rings of two: a ring of one would add no block); the `num_heads:
+    # 8` UNet's D = 40 (one warp) and 160 (two warps a strip, a ring of one)
+    # at T = 14; the VAE's one head of 512 at T = 25 and 64 and one head of
+    # 1024 at T = 32 (four warps a strip, rings of one: two blocks of one
+    # unit where one of two fits).
+    cases = {(33, 64): (18432, 3, 1, 2, 5), (64, 64): (24576, 4, 1, 2, 4),
+             (100, 64): (43008, 7, 1, 2, 2), (128, 64): (49152, 8, 1, 2, 2),
+             (14, 40): (6144, 1, 1, 2, 16), (14, 160): (18432, 2, 2, 1, 8),
+             (25, 512): (98304, 8, 4, 1, 2), (64, 512): (196608, 16, 4, 1, 1),
+             (32, 1024): (196608, 8, 4, 1, 1)}
+    for (t, d), want in cases.items():
+        mt, nb, wps, stages, blocks = res_schedule(t, d)
+        assert (resident_unit_bytes(t, d), mt * wps, wps, stages, blocks) == want
+        assert res_smem(nb, mt, stages, wps) <= GEN_MAX_SMEM
+    # The wrapper's family is the C entry's dispatch at every T up to 140
+    # and D up to 1024.
+    for t in range(1, 141):
+        for d in range(1, GEN_MAX_D + 1):
+            family = kernel_family(t, d)
+            if family in GENERAL_FAMILY:
+                assert (family == "resident") == res_takes(-(-t // ROWS), -(-d // 16) * 16)
+    assert not res_takes(3, 1024) and not res_takes(5, 512) and not res_takes(9, 16)
+
+
+def _resident_schedule_loads_and_computes_every_unit_once(units, sms, t, d):
+    """The resident kernel's pinned grid and ring, block by block: every
+    unit loaded once, into the slot it is computed from, after that slot's
+    previous unit was computed and the block's barrier passed, with the
+    phase the wait expects; every (unit, strip) S computed once, by the
+    strip's first warp, and every (unit, strip, chunk) of O by one warp of
+    the strip; no load in flight at exit."""
+    mt, nb, wps, stages, blocks = res_schedule(t, d)
+    step = min(units, sms * blocks)
+    loads, strips, chunks = Counter(), Counter(), Counter()
+    for first in range(step):
+        slot, fills = [None] * stages, [0] * stages
+        for st in range(stages):
+            if first + st * step < units:
+                slot[st], fills[st] = first + st * step, 1
+                loads[first + st * step] += 1
+        for i, u in enumerate(range(first, units, step)):
+            st = i % stages
+            assert slot[st] == u and (fills[st] - 1) & 1 == (i // stages) & 1
+            for warp in range(mt * wps):  # strip = warp % MT, part = warp / MT
+                strip, part = warp % mt, warp // mt
+                if part == 0:
+                    strips[(u, strip)] += 1
+                for cb in range(part, nb, wps):
+                    chunks[(u, strip, cb)] += 1
+            slot[st] = None  # the block barrier: every warp is done with the slot
+            if u + stages * step < units:
+                slot[st] = u + stages * step
+                fills[st] += 1
+                loads[u + stages * step] += 1
+        assert all(x is None for x in slot)
+    assert loads == Counter(range(units))
+    assert strips == Counter((u, m) for u in range(units) for m in range(mt))
+    assert chunks == Counter((u, m, c) for u in range(units) for m in range(mt) for c in range(nb))
+
+
+# The first six: the UNet's T = 64 and 33 clips at ds1 (resident), T = 100 at
+# D = 40, D = 160 and 1000 over small grids (resident), one head of 1024 at T
+# = 70 (streamed); then ds1 at T = 100 and the VAE's one head of 512 at T =
+# 25 (resident, rings of two), one head of 1024 at T = 32 (a ring of one),
+# T = 128 over a grid smaller than the work; T = 129 at ds4, one head of
+# 1024 at T = 33 and of 512 at T = 65 (streamed).
 @pytest.mark.parametrize("units,sms,t,d", [(15360, 132, 64, 64), (1920, 132, 33, 64),
                                            (500, 3, 100, 40), (7, 132, 17, 160),
-                                           (40, 2, 3, 1000), (30, 2, 70, 1024)])
+                                           (40, 2, 3, 1000), (30, 2, 70, 1024),
+                                           (15360, 132, 100, 64), (3072, 132, 25, 512),
+                                           (40, 3, 32, 1024), (1000, 7, 128, 64),
+                                           (3840, 132, 129, 64), (50, 3, 33, 1024),
+                                           (64, 5, 65, 512)])
 def test_general_schedule_computes_every_strip_and_chunk_once(units, sms, t, d):
-    """The pinned job order as the source runs it, block by block: the job
-    ahead is loaded into slots that the job computed does not read (its key
-    and value slot, and its strip group's query slot if it starts a group),
-    each strip's pass 0 sees every key tile before any of its P, and every
-    (unit, strip, chunk) is stored once, by the warp of its strip, after
-    its last key tile."""
+    """The schedule of the general-family kernel that takes the shape, as
+    the source runs it. Resident: every unit loaded once and every strip
+    computed once (`_resident_schedule_loads_and_computes_every_unit_once`).
+    Streamed: the pinned job order block by block: the job ahead is loaded
+    into slots that the job computed does not read (its key and value slot,
+    and its strip group's query slot if it starts a group), each strip's
+    pass 0 sees every key tile before any of its P, and every (unit, strip,
+    chunk) is stored once, by the warp of its strip, after its last key
+    tile."""
+    if kernel_family(t, d) == "resident":
+        _resident_schedule_loads_and_computes_every_unit_once(units, sms, t, d)
+        return
+    assert kernel_family(t, d) == "streamed"
     dp = -(-d // 16) * 16
     cw = general_chunk(dp)
     mt = -(-t // ROWS)

@@ -3,12 +3,13 @@ packages accept it: gcd_tpu/models/unet.py `_attn`, gcd_tpu_torch's
 `attn`): head sizes that are not multiples of 16, over 40 frames.
 
 On the CPU the port's attention runs its plain versions; on the card K2's
-general family takes these heads at any T and K1's route sends them to
-`ops/basic.dot_product_attention`, as JAX's `_xla_attention` takes them.
-The tiny UNet (8 heads: of 4 and 8 channels) is held against JAX in fp32 at
-the UNet tests' 1e-4 (tests/torch_unet_helpers.py TOL); the flagship's
-`num_heads: 8` layout (SD 1.x's heads of 40, 80 and 160 at 320, 640 and
-1280 channels) is checked on the meta device.
+general family takes these heads at any T (its resident kernel up to T =
+128) and K1's route sends them to `ops/basic.dot_product_attention`, as
+JAX's `_xla_attention` takes them. The tiny UNet (8 heads: of 4 and 8
+channels) is held against JAX in fp32 at the UNet tests' 1e-4
+(tests/torch_unet_helpers.py TOL); the flagship's `num_heads: 8` layout
+(SD 1.x's heads of 40, 80 and 160 at 320, 640 and 1280 channels) is
+checked on the meta device.
 """
 
 import jax
@@ -52,7 +53,7 @@ def test_num_heads_unet_over_40_frames_matches_jax():
     port = load_port(VideoUNet(**options), params)
     heads = _head_sizes(port, TemporalSelfAttention)
     assert heads == [4, 8] == _head_sizes(port, CrossAttention)
-    assert all(kernel_family(T, d) == "general" and d not in KERNEL_HEAD_DIMS for d in heads)
+    assert all(kernel_family(T, d) == "resident" and d not in KERNEL_HEAD_DIMS for d in heads)
     with torch.no_grad():
         got = port(nchw(x), torch.from_numpy(ts), torch.from_numpy(ctx), torch.from_numpy(y),
                    num_video_frames=T, image_only_indicator=torch.from_numpy(ioi))
@@ -63,14 +64,16 @@ def test_num_heads_unet_over_40_frames_matches_jax():
 def test_flagship_num_heads_8_layout():
     """svd_gcd's widths with `num_heads: 8`: heads of 40, 80 and 160 in the
     temporal and spatial attention alike; K2 takes 40 and 160 in its
-    general family and 80 in its narrow one at the clip's 14 frames, and in
-    the general family past 32 frames; no spatial head is K1's."""
+    general family's resident kernel and 80 in its narrow family at the
+    clip's 14 frames, all three in the resident kernel past 32 frames (up
+    to 128) and in the streamed one past 128; no spatial head is K1's."""
     options = {**FULL_UNET, "num_heads": 8, "num_head_channels": -1}
     with torch.device("meta"):
         unet = VideoUNet(**options)
     heads = _head_sizes(unet, TemporalSelfAttention)
     assert heads == [40, 80, 160]
     assert _head_sizes(unet, CrossAttention) == heads
-    assert [kernel_family(14, d) for d in heads] == ["general", "narrow", "general"]
-    assert {kernel_family(64, d) for d in heads} == {"general"}
+    assert [kernel_family(14, d) for d in heads] == ["resident", "narrow", "resident"]
+    assert {kernel_family(64, d) for d in heads} == {"resident"}
+    assert {kernel_family(129, d) for d in heads} == {"streamed"}
     assert not set(heads) & set(KERNEL_HEAD_DIMS)
